@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout on a machine with one CUDA card, nvcc
+and PyTorch built for CUDA. In order:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the fused score + top-k kernel library from
+   ``predictionio_tpu_torch/csrc`` and prints the build seconds and the
+   compiler's register/spill report;
+3. holds the kernel in all three forms (float32, bfloat16, int8 + scale)
+   against its plain PyTorch version on the card, over batch sizes,
+   catalog sizes (one ragged), ``num`` values (one above the kernel's
+   per-round cap), ``[I]`` and ``[B, I]`` masks, an over-masked row, NaN
+   rows and planted exact ties;
+4. serves the recommendation template at full width — rank 32, 49,152
+   users, 1,048,576 items, random factors from the seed — through the
+   port's own entry points: publish a generation into a local model
+   store, ``create_engine_server``, HTTP queries (single, concurrent and
+   one batch request), once with float32 factors and once each with
+   ``quantize="int8"`` and ``"bf16"``; every answer is checked against
+   the plain version on the card, int8 recall@10 against the float32
+   ranking must reach 0.99, and every kernel form must have been
+   launched by this run;
+5. times the kernel (device time from the profiler; the wall time of a
+   call, CUDA events, beside it), its plain version and the
+   ``torch.topk(q @ items.T, num)`` yardstick at B = 1, 64, 256, and the
+   per-request latency over HTTP;
+6. prints one ``{"kernels": [...]}`` line and, last, the device line.
+
+Any failed check raises, and the script exits non-zero without the last
+line. Without CUDA, or without the repository beside it, it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import datetime as dt
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: the served shapes: ALSParams.rank, bench.py's user count, the catalog
+#: size the TPU kernel was designed for
+RANK = 32
+N_USERS = 49_152
+N_ITEMS = 1_048_576
+RAGGED_ITEMS = 1_000_003
+FORMS = ("f32", "bf16", "int8")
+#: kernel vs plain version: the kernel sums the k products in order with
+#: fp32 FMA, cuBLAS in another order; for unit-scale factors at k = 32
+#: the two differ by a few ulps of the terms' sum
+ATOL, RTOL = 1e-4, 1e-5
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+CUDA_SOURCE = "predictionio_tpu_torch/csrc/fused_topk.cu"
+TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- inputs -----------------------------------------------------------------
+
+
+def make_table(n_items: int, k: int, device, seed: int) -> dict:
+    """A float32 item table on ``device`` with planted trouble: 17 exactly
+    equal rows spread across the catalog with a large norm (they tie at
+    the top for about half the queries), and two NaN rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    items = torch.randn(n_items, k, generator=g, device=device)
+    ties = torch.arange(17, device=device) * (n_items // 17)
+    items[ties] = items[ties[0]] * 3.0
+    nan_rows = torch.tensor([123, n_items - 5], device=device)
+    items[nan_rows] = float("nan")
+    return {"f32": items, "ties": ties, "nan_rows": nan_rows}
+
+
+def form_of(table: dict, form: str):
+    """(items, scale) for one kernel form of ``table``."""
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+
+    items = table["f32"]
+    if form == "f32":
+        return items, None
+    if form == "bf16":
+        return items.to(torch.bfloat16), None
+    qf = quantize_factors(items, "int8")
+    scale = qf.scale.clone()
+    # a NaN row cannot survive int8; a corrupt scale stands in for it
+    scale[table["nan_rows"]] = float("nan")
+    return qf.data, scale
+
+
+def make_mask(kind: str, batch: int, n_items: int, device, seed: int):
+    if kind == "none":
+        return None
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    if kind == "item":
+        return torch.rand(n_items, generator=g, device=device) < 0.1
+    mask = torch.rand(batch, n_items, generator=g, device=device) < 0.1
+    mask[0] = True
+    mask[0, :3] = False  # over-masked: only 3 rankable items in row 0
+    return mask
+
+
+# -- comparison -------------------------------------------------------------
+
+
+def compare(q, items, scale, mask, num, got, want) -> dict:
+    """Hold a top-k answer against the plain version's. Scores must agree
+    within ATOL + RTOL*|s|; -inf slots must match and hold index 0; where
+    the indices differ, the answer's item must score (plain arithmetic)
+    within the same tolerance of the plain version's score at that slot
+    and be rankable, and no row may repeat an item."""
+    ks, ki = got
+    ps, pi = want
+    assert ks.shape == ps.shape == ki.shape == pi.shape, (
+        ks.shape, ps.shape, ki.shape, pi.shape
+    )
+    neg_k, neg_p = torch.isneginf(ks), torch.isneginf(ps)
+    assert torch.equal(neg_k, neg_p), "unfilled slots differ"
+    assert not torch.isnan(ks).any(), "NaN score returned"
+    assert (ki[neg_k] == 0).all(), "an unfilled slot holds a nonzero index"
+    fin = ~neg_p
+    err = (ks - ps).abs()[fin]
+    max_err = float(err.max()) if err.numel() else 0.0
+    bad = err > ATOL + RTOL * ps.abs()[fin]
+    assert not bad.any(), f"scores differ by up to {max_err}"
+    diff = (ki != pi) & fin
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows, cols = torch.nonzero(diff, as_tuple=True)
+        picked = ki[rows, cols].long()
+        rescored = (q[rows].double() * items[picked].double()).sum(1)
+        if scale is not None:
+            rescored = rescored * scale[picked].double()
+        tol = ATOL + RTOL * ps[rows, cols].double().abs()
+        gap = (rescored - ps[rows, cols].double()).abs()
+        assert (gap <= tol).all(), (
+            f"{n_diff} index mismatch(es), not all ties: largest score "
+            f"gap {float(gap.max())}"
+        )
+        if mask is not None:
+            m = mask[picked] if mask.dim() == 1 else mask[rows, picked]
+            assert not m.any(), "a masked item was returned"
+    for row, frow in zip(ki.cpu(), fin.cpu()):
+        vals = row[frow].tolist()
+        assert len(set(vals)) == len(vals), "an item repeats in a row"
+    return {"max_abs_err": max_err, "tied_mismatches": n_diff}
+
+
+# -- phase 3: kernel vs plain version ----------------------------------------
+
+
+def kernel_cases(n_items: int, ragged: int, cap: int):
+    """(form, B, I, num, mask kind) tuples covering the contract."""
+    cases = []
+    for form in FORMS:
+        for b in (1, 2, 3, 7, 64, 256):  # every query-tile width
+            cases.append((form, b, n_items, 10, "none"))
+        for num in (1, 128, cap + 476):
+            cases.append((form, 7, ragged, num, "item"))
+        cases.append((form, 64, ragged, 10, "batch"))
+        cases.append((form, 256, n_items, 128, "item"))
+    cases.append(("f32", 1, n_items, cap + 476, "none"))
+    return cases
+
+
+def check_kernels(device, n_items: int, ragged: int, k: int, seed: int,
+                  cap: int) -> dict:
+    """Every kernel form against its plain version; returns the largest
+    score error per form."""
+    from predictionio_tpu_torch.ops import fused_topk
+
+    tables = {
+        n: make_table(n, k, device, seed + n) for n in {n_items, ragged}
+    }
+    worst = {form: 0.0 for form in FORMS}
+    for form, b, n, num, mask_kind in kernel_cases(n_items, ragged, cap):
+        table = tables[n]
+        items, scale = form_of(table, form)
+        g = torch.Generator(device=device).manual_seed(seed + b + num)
+        q = torch.randn(b, k, generator=g, device=device)
+        mask = make_mask(mask_kind, b, n, device, seed + b)
+        got = fused_topk.fused_top_k_dot(q, items, num, mask, scale)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        want = fused_topk.fused_top_k_dot_reference(q, items, num, mask,
+                                                    scale)
+        res = compare(q, items.float(), scale, mask, min(num, n), got, want)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        worst[form] = max(worst[form], res["max_abs_err"])
+        log(f"kernel {form:4s} B={b:<3d} I={n:<8d} num={num:<5d} "
+            f"mask={mask_kind:5s} ok max_abs_err={res['max_abs_err']:.3g} "
+            f"tied_mismatches={res['tied_mismatches']}")
+    return worst
+
+
+# -- phase 4: the served main path --------------------------------------------
+
+
+def make_model(n_users: int, n_items: int, k: int, seed: int):
+    """Random ALS factors from the seed. Item rows get log-normal norms
+    (sigma 1): trained factor norms follow item popularity, which is
+    heavy-tailed."""
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+
+    rng = np.random.default_rng(seed)
+    users = rng.standard_normal((n_users, k), dtype=np.float32)
+    items = rng.standard_normal((n_items, k), dtype=np.float32)
+    items *= np.exp(rng.standard_normal((n_items, 1))).astype(np.float32)
+    return als_model_from_numpy(
+        users, items,
+        np.char.add("u", np.arange(n_users).astype(str)),
+        np.char.add("i", np.arange(n_items).astype(str)),
+    )
+
+
+def publish(model, store_dir: str):
+    """Publish ``model`` as a COMPLETED generation into a memory
+    instance store and a local-filesystem model store under
+    ``store_dir``; returns the Storage."""
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": store_dir,
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    now = dt.datetime.now(dt.timezone.utc)
+    iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status="COMPLETED", start_time=now, end_time=now,
+        engine_id="chip-smoke", engine_version="1",
+        engine_variant="default", engine_factory="recommendation",
+    ))
+    blob = serialize_models(iid, [ALSAlgorithm()], [model])
+    publish_generation(storage.get_model_data_models(), iid, blob)
+    return storage, len(blob)
+
+
+def _post(base: str, path: str, body) -> tuple[object, float]:
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        out = json.loads(resp.read())
+    return out, time.perf_counter() - t0
+
+
+def query_plan(n_users: int, n_items: int, seed: int):
+    """(sequential singles, concurrent singles, one batch request)."""
+    rng = np.random.default_rng(seed + 7)
+    users = [f"u{u}" for u in rng.integers(0, n_users, 200)]
+    seq = [{"user": u, "num": 10} for u in users[:16]]
+    nums = [1, 5, 10, 20, 50, 128]
+    conc = [
+        {"user": u, "num": nums[i % len(nums)]}
+        for i, u in enumerate(users[16:46])
+    ]
+    conc.append({"user": "nobody", "num": 10})  # unknown user
+    conc.append({"user": users[46], "num": min(2000, n_items)})
+    batch = [{"user": u, "num": 10} for u in users[100:200]]
+    return seq, conc, batch
+
+
+def serve_and_check(storage, model, table_f32, quantize: str, device,
+                    seed: int, n_users: int) -> dict:
+    """One server run: start, warm, query over HTTP, check every answer
+    against the plain version on the same table, shut down."""
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.ops.quantize import recall_at_k
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    form = quantize or "f32"
+    n_items = len(model.item_map)
+    engine = recommendation_engine()
+    params = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
+    )
+    t0 = time.perf_counter()
+    es, http = create_engine_server(
+        engine, params, "chip-smoke", host="127.0.0.1", port=0,
+        storage=storage, ctx=ComputeContext.create(device=device),
+        max_batch=64, max_wait_ms=2.0, quantize=quantize or None,
+    )
+    http.start()
+    startup_s = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        with urllib.request.urlopen(base + "/", timeout=30) as resp:
+            status = json.loads(resp.read())
+        assert status["warmed"] is True, status
+        after_warmup = fused_topk.LAUNCHES[form]
+        seq, conc, batch = query_plan(n_users, n_items, seed)
+        answers, lat = [], []
+        for q in seq:
+            out, s = _post(base, "/queries.json", q)
+            answers.append((q, out))
+            lat.append(s)
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            futs = [pool.submit(_post, base, "/queries.json", q)
+                    for q in conc]
+            answers += [(q, f.result()[0]) for q, f in zip(conc, futs)]
+        out, batch_s = _post(base, "/batch/queries.json", batch)
+        assert all(r["status"] == 200 for r in out), out[:3]
+        answers += [(q, r["prediction"]) for q, r in zip(batch, out)]
+        launched = fused_topk.LAUNCHES[form] - after_warmup
+        assert launched > 0, f"{form}: no kernel launch while serving"
+    finally:
+        es.close()
+
+    # the tables as the server holds them, rebuilt the same way: a
+    # quantized deploy quantizes the user table too, and serving
+    # dequantizes the gathered user rows
+    staged_items = table_f32
+    scale = None
+    users = torch.as_tensor(model.user_factors).to(device)
+    if quantize:
+        from predictionio_tpu_torch.ops.quantize import (
+            dequantize,
+            quantize_factors,
+        )
+
+        qf = quantize_factors(table_f32, quantize)
+        staged_items, scale = qf.data, qf.scale
+        users = dequantize(quantize_factors(users, quantize))
+    n_checked, n_ties, max_err = 0, 0, 0.0
+    ref10, got10 = [], []
+    for q, ans in answers:
+        uid = model.user_map.get(q["user"], -1)
+        if uid < 0:
+            assert ans == {"itemScores": []}, ans
+            continue
+        n = min(q["num"], n_items)
+        got_i = torch.tensor(
+            [[int(e["item"][1:]) for e in ans["itemScores"]]],
+            dtype=torch.int32, device=device,
+        )
+        got_s = torch.tensor(
+            [[e["score"] for e in ans["itemScores"]]], device=device
+        )
+        qv = users[uid:uid + 1]
+        want = fused_topk.fused_top_k_dot_reference(
+            qv, staged_items, n, None, scale
+        )
+        res = compare(qv, staged_items.float(), scale, None, n,
+                      (got_s, got_i), want)
+        n_checked += 1
+        n_ties += res["tied_mismatches"]
+        max_err = max(max_err, res["max_abs_err"])
+        if n >= 10:
+            ref = fused_topk.fused_top_k_dot_reference(
+                qv, table_f32, 10)[1]
+            ref10.append(ref.cpu().numpy()[0])
+            got10.append(got_i.cpu().numpy()[0, :10])
+    recall = recall_at_k(np.stack(ref10), np.stack(got10))
+    if quantize == "int8":
+        assert recall >= 0.99, f"int8 recall@10 {recall} < 0.99"
+    lat_ms = sorted(s * 1e3 for s in lat)
+    return {
+        "form": form,
+        "startup_s": startup_s,
+        "answers_checked": n_checked,
+        "tied_mismatches": n_ties,
+        "max_abs_err": max_err,
+        "recall_at_10": recall,
+        "served_launches": launched,
+        "p50_ms": lat_ms[len(lat_ms) // 2],
+        "batch_request_ms": batch_s * 1e3,
+        "queries": len(answers),
+    }
+
+
+# -- phase 5: timings ---------------------------------------------------------
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, name_part: str) -> float:
+    """Device time per call of the CUDA kernels whose name holds
+    ``name_part``, summed over a profiled run of ``reps`` calls (no host
+    gaps counted). 0.0 when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if name_part in evt.key:
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+    return total_us / 1e3 / reps
+
+
+def bound(batch: int, n_items: int, k: int, num: int, items, scale):
+    """Least time the card could take: each input read once, each output
+    written once, over HBM bandwidth; 2*B*I*k fp32 operations (+B*I for
+    the scale) over the fp32 peak. The larger of the two bounds it."""
+    nbytes = (
+        items.numel() * items.element_size() + batch * k * 4
+        + batch * num * 8 + (n_items * 4 if scale is not None else 0)
+    )
+    flops = 2 * batch * n_items * k + (batch * n_items if scale is not None
+                                       else 0)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_forms(table_f32, device, seed: int) -> dict:
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.ops.quantize import quantize_factors
+
+    n_items, k = table_f32.shape
+    out = {}
+    for form in FORMS:
+        if form == "f32":
+            items, scale = table_f32, None
+        else:
+            qf = quantize_factors(table_f32, form)
+            items, scale = qf.data, qf.scale
+        for b in (1, 64, 256):
+            g = torch.Generator(device=device).manual_seed(seed + b)
+            q = torch.randn(b, k, generator=g, device=device)
+            num = 10
+            def kernel():
+                return fused_topk.fused_top_k_dot(q, items, num, None, scale)
+
+            call_ms = time_ms(kernel, reps=20)
+            dev_ms = device_ms(kernel, reps=10, name_part="topk_pass")
+            # the kernel's own time; a call's wall time adds the host's
+            # launch work, which dominates when the kernel is short
+            ms = dev_ms if dev_ms > 0 else call_ms
+            plain_ms = time_ms(lambda: fused_topk.fused_top_k_dot_reference(
+                q, items, num, None, scale), reps=5, warmup=1)
+            if form == "f32":
+                lib = lambda: torch.topk(q @ items.T, num)  # noqa: E731
+            elif scale is None:
+                lib = lambda: torch.topk(q @ items.float().T, num)  # noqa: E731
+            else:
+                lib = lambda: torch.topk(  # noqa: E731
+                    (q @ items.float().T) * scale, num)
+            library_ms = time_ms(lib, reps=5, warmup=1)
+            bound_ms, bound_by = bound(b, n_items, k, num, items, scale)
+            out[(form, b)] = {
+                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            log(f"time {form:4s} B={b:<3d} I={n_items} num={num} "
+                f"kernel_ms={ms:.4f} call_ms={call_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"bound_share={bound_ms / ms:.3f}")
+    return out
+
+
+# -- main ---------------------------------------------------------------------
+
+
+def nvidia_smi_line() -> str:
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return "nvidia-smi not found"
+    out = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return (out.stdout.strip().splitlines() or [out.stderr.strip()])[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        from predictionio_tpu_torch.ops import _build, fused_topk
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    log(nvidia_smi_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.library("fused_topk")
+    log(f"build fused_topk: {time.perf_counter() - t0:.2f} s")
+    report = _build.library_path("fused_topk").with_suffix(".log")
+    for line in report.read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas: {line.strip()}")
+
+    worst = check_kernels(device, N_ITEMS, RAGGED_ITEMS, RANK, args.seed,
+                          fused_topk.NUM_CAP)
+    log(f"phase kernels: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    model = make_model(N_USERS, N_ITEMS, RANK, args.seed)
+    table_f32 = torch.as_tensor(model.item_factors).to(device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as store:
+        storage, blob_bytes = publish(model, store)
+        log(f"published generation: {blob_bytes} bytes")
+        fused_topk.reset_launch_counts()
+        runs = [
+            serve_and_check(storage, model, table_f32, quantize, device,
+                            args.seed, N_USERS)
+            for quantize in ("", "int8", "bf16")
+        ]
+        launches = dict(fused_topk.LAUNCHES)
+    for run in runs:
+        log("serve " + json.dumps(run))
+    for form in FORMS:
+        assert launches[form] > 0, f"{form}: never launched on the main path"
+    log(f"main path launches: {json.dumps(launches)}")
+    log(f"phase main path: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    times = time_forms(table_f32, device, args.seed)
+    for run in runs:
+        log(f"http {run['form']}: p50_ms={run['p50_ms']:.3f} "
+            f"batch_request_ms={run['batch_request_ms']:.3f} "
+            f"startup_s={run['startup_s']:.2f}")
+
+    kernels = []
+    for form in FORMS:
+        t = times[(form, 64)]
+        kernels.append({
+            "name": f"fused_topk_{form}",
+            "route": "cuda",
+            "source": CUDA_SOURCE,
+            "replaces": TPU_KERNEL,
+            "launches": launches[form],
+            "max_abs_err": worst[form],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,3 @@
+"""Engine templates. Importing this package registers them."""
+
+from predictionio_tpu_torch.models import recommendation  # noqa: F401

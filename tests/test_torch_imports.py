@@ -1,0 +1,130 @@
+"""The port stands alone, and on the CPU takes only plain versions.
+
+* Every module of ``predictionio_tpu_torch`` imports in a process where
+  ``jax`` and the package ``predictionio_tpu`` (but not
+  ``predictionio_tpu_torch``, which shares its prefix) cannot be
+  imported, and no port source (nor ``chip_smoke.py``) imports either.
+* ``ComputeContext.create()`` raises without CUDA instead of dropping to
+  the CPU; ``device="cpu"`` is the explicit opt-in.
+* A CPU tensor takes the plain version and never builds or launches the
+  kernel; a tensor on any other non-CUDA device is refused.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import predictionio_tpu_torch
+from predictionio_tpu_torch.ops import fused_topk
+from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+PKG = pathlib.Path(predictionio_tpu_torch.__file__).parent
+ROOT = PKG.parent
+
+
+def _modules():
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+_BLOCKER = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "predictionio_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "predictionio_tpu"):
+        del sys.modules[name]
+import importlib
+for mod in sys.argv[1:]:
+    importlib.import_module(mod)
+assert not any(
+    m.split(".")[0] in ("jax", "predictionio_tpu") for m in sys.modules
+)
+print("imported", len(sys.argv) - 1)
+"""
+
+
+def test_every_module_imports_with_jax_and_reference_blocked():
+    mods = _modules()
+    assert "predictionio_tpu_torch.serving.engine_server" in mods
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, *mods],
+        capture_output=True, text=True, timeout=120, env=env, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"imported {len(mods)}" in out.stdout
+
+
+def test_no_source_names_jax_or_the_reference_package():
+    bad = re.compile(
+        r"^\s*(import\s+jax|from\s+jax\b)|predictionio_tpu\.", re.M
+    )
+    sources = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [
+        str(p) for p in sources if bad.search(p.read_text())
+    ]
+    assert offenders == []
+
+
+def test_compute_context_refuses_to_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ComputeContext.create()
+    ctx = ComputeContext.create(device="cpu")
+    assert ctx.device == torch.device("cpu")
+    assert (ctx.n_devices, ctx.model_parallelism) == (1, 1)
+    assert ctx.shard_rows([[1.0], [2.0]]).shape == (2, 1)
+
+
+def test_cpu_tensor_takes_the_plain_version(monkeypatch):
+    from predictionio_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("the CPU path must never build the kernel")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(fused_topk.LAUNCHES)
+    q = torch.randn(3, 8)
+    items = torch.randn(100, 8)
+    got = fused_topk.fused_top_k_dot(q, items, 5)
+    want = fused_topk.fused_top_k_dot_reference(q, items, 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert fused_topk.LAUNCHES == before
+
+
+def test_other_devices_are_refused():
+    q = torch.empty(3, 8, device="meta")
+    items = torch.empty(100, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_topk.fused_top_k_dot(q, items, 5)
+
+
+def test_build_is_keyed_by_source_and_lazy():
+    from predictionio_tpu_torch.ops import _build
+
+    path = _build.library_path("fused_topk")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libfused_topk_") and path.suffix == ".so"
+    assert "fused_topk" not in _build._loaded  # nothing built on the CPU
+    for fn, argtypes in _build.SIGNATURES["fused_topk"].items():
+        assert fn.startswith("pio_topk_pass")
+        assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
