@@ -11,10 +11,11 @@ and PyTorch built for CUDA. In order:
    ``predictionio_tpu_torch/csrc`` and prints the build seconds and the
    compiler's register/spill report;
 3. holds the kernel in all three forms (float32, bfloat16, int8 + scale)
-   against its plain PyTorch version on the card, over batch sizes,
-   catalog sizes (one ragged), ``num`` values (one above the kernel's
-   per-round cap), ``[I]`` and ``[B, I]`` masks, an over-masked row, NaN
-   rows and planted exact ties;
+   against its plain PyTorch version on the card, over batch sizes (each
+   side of every query-tile width), catalog sizes (one ragged), ``num``
+   values (the kernel's per-round cap and one above it), ``[I]`` and
+   ``[B, I]`` masks, the served shape (num 16, ``[I]`` mask), an
+   over-masked row, NaN rows and planted exact ties;
 4. serves the recommendation template at full width — rank 32, 49,152
    users, 1,048,576 items, random factors from the seed — through the
    port's own entry points: publish a generation into a local model
@@ -24,10 +25,11 @@ and PyTorch built for CUDA. In order:
    the plain version on the card, int8 recall@10 against the float32
    ranking must reach 0.99, and every kernel form must have been
    launched by this run;
-5. times the kernel (device time from the profiler; the wall time of a
-   call, CUDA events, beside it), its plain version and the
-   ``torch.topk(q @ items.T, num)`` yardstick at B = 1, 64, 256, and the
-   per-request latency over HTTP;
+5. times the kernel (device time from the profiler, pass 1 and pass 2
+   apart; the wall time of a call, CUDA events, beside it), its plain
+   version and the ``torch.topk(q @ items.T, num)`` yardstick at
+   B = 1, 8, 64, 256, with pass 1's plan (query tile, item tile, list
+   slots, splits, shared bytes), and the per-request latency over HTTP;
 6. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -67,6 +69,8 @@ ATOL, RTOL = 1e-4, 1e-5
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+#: batches timed in phase 5 (the kernels line reports B = 64)
+TIME_BATCHES = (1, 8, 64, 256)
 CUDA_SOURCE = "predictionio_tpu_torch/csrc/fused_topk.cu"
 TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
 
@@ -172,12 +176,15 @@ def kernel_cases(n_items: int, ragged: int, cap: int):
     """(form, B, I, num, mask kind) tuples covering the contract."""
     cases = []
     for form in FORMS:
-        for b in (1, 2, 3, 7, 64, 256):  # every query-tile width
+        # every query-tile width, and each side of the 32- and 64-query tiles
+        for b in (1, 2, 3, 7, 16, 31, 32, 33, 64, 65, 128, 256):
             cases.append((form, b, n_items, 10, "none"))
-        for num in (1, 128, cap + 476):
+        for num in (1, 20, 128, cap, cap + 476):
             cases.append((form, 7, ragged, num, "item"))
+        cases.append((form, 64, n_items, 16, "item"))  # the served shape
         cases.append((form, 64, ragged, 10, "batch"))
         cases.append((form, 256, n_items, 128, "item"))
+    cases.append(("f32", 33, n_items, cap, "none"))
     cases.append(("f32", 1, n_items, cap + 476, "none"))
     return cases
 
@@ -461,6 +468,7 @@ def time_forms(table_f32, device, seed: int) -> dict:
     from predictionio_tpu_torch.ops.quantize import quantize_factors
 
     n_items, k = table_f32.shape
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = {}
     for form in FORMS:
         if form == "f32":
@@ -468,15 +476,19 @@ def time_forms(table_f32, device, seed: int) -> dict:
         else:
             qf = quantize_factors(table_f32, form)
             items, scale = qf.data, qf.scale
-        for b in (1, 64, 256):
+        for b in TIME_BATCHES:
             g = torch.Generator(device=device).manual_seed(seed + b)
             q = torch.randn(b, k, generator=g, device=device)
             num = 10
             def kernel():
                 return fused_topk.fused_top_k_dot(q, items, num, None, scale)
 
+            plan = fused_topk.plan_pass1(b, n_items, num, k,
+                                         items.element_size(), n_sms)
             call_ms = time_ms(kernel, reps=20)
-            dev_ms = device_ms(kernel, reps=10, name_part="topk_pass")
+            pass1_ms = device_ms(kernel, reps=10, name_part="topk_pass1")
+            pass2_ms = device_ms(kernel, reps=10, name_part="topk_pass2")
+            dev_ms = pass1_ms + pass2_ms
             # the kernel's own time; a call's wall time adds the host's
             # launch work, which dominates when the kernel is short
             ms = dev_ms if dev_ms > 0 else call_ms
@@ -496,9 +508,14 @@ def time_forms(table_f32, device, seed: int) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             log(f"time {form:4s} B={b:<3d} I={n_items} num={num} "
-                f"kernel_ms={ms:.4f} call_ms={call_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"kernel_ms={ms:.4f} pass1_ms={pass1_ms:.4f} "
+                f"pass2_ms={pass2_ms:.4f} call_ms={call_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}) "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                f"bound_share={bound_ms / ms:.3f}")
+                f"bound_share={bound_ms / ms:.3f} "
+                f"plan=qt{plan.qt}/it{plan.item_tile}/R{plan.region}/"
+                f"stages{plan.stages}/"
+                f"splits{plan.splits}/smem{plan.smem}")
     return out
 
 

@@ -25,6 +25,7 @@ is 128 MiB for float32 and 4.3 GFLOP at B = 64.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
@@ -39,9 +40,25 @@ _DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
 #: the most a kernel round ranks (its lists live in shared memory); a
 #: larger ``num`` runs further rounds
 NUM_CAP = 1024
-_THREADS = 256      # must match kThreads in csrc/fused_topk.cu
 _MAX_K = 256
 _NEG = float("-inf")
+
+# Mirrors of csrc/fused_topk.cu's constants (a CPU test reads them there).
+_THREADS = 256      # kThreads: threads per block
+MAX_QT = 64         # kMaxTile: most queries scored together in one block
+_ROW_PAD = 16       # kRowPad: bytes that pad a shared-memory row
+_CHUNK_BYTES = 128  # kChunkBytes: most bytes of an item row per chunk
+#: (TQ, TI) per query tile QT: kMicroQ / kMicroI, indexed by log2(QT)
+_MICRO = {1: (1, 1), 2: (2, 1), 4: (4, 1), 8: (4, 2), 16: (4, 2),
+          32: (4, 2), 64: (4, 4)}
+_INFLIGHT_BYTES = 40_960  # kInflightBytes: item-tile copies kept in flight
+_MAX_STAGES = 16          # kMaxStages: most stages of the item-tile ring
+_RANK_LIST = 32           # kRankList: lists this short fold by rank
+#: most shared memory a block may take on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+#: kSmemBudget: pass 1's dynamic shared memory, so that two blocks (plus
+#: their static arrays) share one SM
+SMEM_BUDGET = 112_640
 
 
 def reset_launch_counts() -> None:
@@ -104,21 +121,105 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_top_k_dot: {msg}")
 
 
-def _query_tile(batch: int) -> int:
-    """Queries per pass-1 block: the smallest of 1, 2, 4, 8 covering the
-    batch (8 for larger batches)."""
-    return min(8, 1 << (batch - 1).bit_length())
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def _plan_splits(batch: int, n_items: int, num: int, n_sms: int):
-    """Item splits for pass 1: enough (query tile x split) blocks to fill
-    the card four deep, none shorter than two chunks or twice ``num``."""
-    tiles = -(-batch // _query_tile(batch))
-    splits = max(1, -(-4 * n_sms // tiles))
-    min_len = max(2 * _THREADS, 2 * num)
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def item_tile(qt: int) -> int:
+    """Items a pass-1 block scores per tile at query tile ``qt``: each of
+    the block's threads owns a (TQ queries x TI items) micro-tile."""
+    tq, ti = _MICRO[qt]
+    return _THREADS * tq * ti // qt
+
+
+def padded_row(nbytes: int) -> int:
+    """A shared-memory row of ``nbytes`` (a multiple of 16) padded to an
+    odd number of 16-byte units, so that eight rows read at one offset
+    fall in different banks."""
+    return nbytes + (_ROW_PAD if (nbytes // 16) % 2 == 0 else 0)
+
+
+def item_chunk(k: int, itemsize: int) -> tuple[int, int]:
+    """(elements, shared-memory row stride in bytes) of one item-tile
+    chunk: rows are cut into chunks of at most ``_CHUNK_BYTES`` along k,
+    padded to a whole 16-byte load."""
+    kp = _round_up(k, 16 // itemsize)
+    chunk = min(kp, _CHUNK_BYTES // itemsize)
+    return chunk, padded_row(chunk * itemsize)
+
+
+def tile_stages(stage_bytes: int, fixed: int) -> int:
+    """Stages of pass 1's item-tile ring: enough that all but the one
+    being read hold ``_INFLIGHT_BYTES`` of copies, as many as fit beside
+    ``fixed`` bytes in ``SMEM_BUDGET``, at most 16, at least 2."""
+    want = 1 + -(-_INFLIGHT_BYTES // stage_bytes)
+    fit = (SMEM_BUDGET - fixed) // stage_bytes
+    return max(2, min(want, fit, _MAX_STAGES))
+
+
+def list_region(rn: int, it: int) -> int:
+    """Slots per list: ``rn`` plus room for a whole tile of candidates
+    (plus ``rn`` slots for a rank fold's result when ``rn`` is at most
+    ``_RANK_LIST``), rounded up to a power of two (longer lists fold by
+    bitonic sort)."""
+    return _pow2_at_least((2 * rn if rn <= _RANK_LIST else rn) + it)
+
+
+def _pass1_layout(qt, batch, region, k, itemsize):
+    """(bytes of lists and queries, bytes of one ring stage, stages)."""
+    _, stride = item_chunk(k, itemsize)
+    kp = _round_up(k, 16 // itemsize)
+    stage = item_tile(qt) * stride
+    fixed = min(qt, batch) * region * 8 + qt * padded_row(kp * 4)
+    return fixed, stage, tile_stages(stage, fixed)
+
+
+def pass1_smem(qt: int, batch: int, region: int, k: int,
+               itemsize: int) -> int:
+    """Dynamic shared bytes of one pass-1 block: a list region per query
+    of the tile, the tile's queries (padded rows), and the ring of item
+    tiles. Mirrors ``pass1_smem`` in the CUDA source."""
+    fixed, stage, stages = _pass1_layout(qt, batch, region, k, itemsize)
+    return fixed + stages * stage
+
+
+@dataclasses.dataclass(frozen=True)
+class Pass1Plan:
+    qt: int           # queries per block (its lists live in shared memory)
+    item_tile: int    # items per tile streamed through shared memory
+    region: int       # slots per list (list_region)
+    stages: int       # item tiles in the shared-memory ring
+    splits: int       # item splits (grid y)
+    split_len: int    # items per split, a multiple of item_tile
+    smem: int         # dynamic shared bytes per block
+
+
+def plan_pass1(batch: int, n_items: int, rn: int, k: int, itemsize: int,
+               n_sms: int) -> Pass1Plan:
+    """Pass 1's launch: the widest query tile (a power of two up to 64,
+    no wider than the batch needs) whose block fits ``SMEM_BUDGET``, so
+    two blocks share an SM; then item splits giving about two blocks per
+    SM over the grid, none shorter than two tiles or twice ``rn``."""
+    qt = min(MAX_QT, _pow2_at_least(batch))
+    while True:
+        region = list_region(rn, item_tile(qt))
+        smem = pass1_smem(qt, batch, region, k, itemsize)
+        if smem <= SMEM_BUDGET or qt == 1:
+            break
+        qt //= 2
+    it = item_tile(qt)
+    tiles = -(-batch // qt)
+    splits = max(1, -(-2 * n_sms // tiles))
+    min_len = max(2 * it, 2 * rn)
     splits = min(splits, max(1, -(-n_items // min_len)), 65535)
-    split_len = -(-n_items // splits)
-    return -(-n_items // split_len), split_len
+    split_len = _round_up(-(-n_items // splits), it)
+    stages = _pass1_layout(qt, batch, region, k, itemsize)[2]
+    return Pass1Plan(qt, it, region, stages,
+                     -(-n_items // split_len), split_len, smem)
 
 
 def _launch(queries, items, num, mask, scale):
@@ -180,24 +281,25 @@ def _launch(queries, items, num, mask, scale):
     )
     for off in range(0, num, NUM_CAP):
         rn = min(NUM_CAP, num - off)
-        # a list plus room for one chunk of candidates, a power of two
-        region = 1 << (rn + _THREADS - 1).bit_length()
-        splits, split_len = _plan_splits(batch, n_items, rn, n_sms)
-        partial = torch.empty((batch, splits, rn), dtype=torch.int64,
+        plan = plan_pass1(batch, n_items, rn, k, items.element_size(), n_sms)
+        partial = torch.empty((batch, plan.splits, rn), dtype=torch.int64,
                               device=dev)
         rc = lib.pio_topk_pass1(
-            _query_tile(batch), queries.data_ptr(), items.data_ptr(),
+            plan.qt, queries.data_ptr(), items.data_ptr(),
             _DTYPE_CODE[form],
             scale.data_ptr() if scale is not None else None,
             mask.data_ptr() if mask is not None else None, mask_kind,
             bound.data_ptr() if off > 0 else None, partial.data_ptr(),
-            batch, n_items, k, rn, region, split_len, splits, vec, stream,
+            batch, n_items, k, rn, plan.region, plan.split_len, plan.splits,
+            vec, stream,
         )
         if rc != 0:
             raise RuntimeError(f"fused top-k pass 1 launch failed: CUDA "
                                f"error {rc}")
+        # pass 2 offers one chunk of kThreads keys at a time
         rc = lib.pio_topk_pass2(
-            partial.data_ptr(), batch, splits, rn, region,
+            partial.data_ptr(), batch, plan.splits, rn,
+            _pow2_at_least(rn + _THREADS),
             out_s.data_ptr(), out_i.data_ptr(), num, off,
             bound.data_ptr() if bound is not None else None, stream,
         )

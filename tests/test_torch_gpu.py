@@ -52,11 +52,24 @@ def _inputs(form, b, n, k, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("batch", [1, 2, 3, 7, 9])
-@pytest.mark.parametrize("num", [1, 10, 128, fused_topk.NUM_CAP + 100])
+@pytest.mark.parametrize("batch", [1, 2, 3, 7, 9, 32, 33, 64, 65])
+@pytest.mark.parametrize("num", [1, 10, 20, 128, fused_topk.NUM_CAP + 100])
 def test_kernel_matches_plain_version_on_card(cuda_device, form, batch,
                                                num):
-    q, items, mask, scale = _inputs(form, batch, 20_011, 32, num,
+    _check_against_plain(cuda_device, form, batch, 32, num)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("k", [33, 256])
+def test_kernel_matches_plain_version_at_row_widths(cuda_device, form, k):
+    """k = 33: rows off the 16-byte grid take the plain-load copy; k = 256:
+    the widest rows, streamed in several chunks along k."""
+    _check_against_plain(cuda_device, form, 33, k, 10)
+
+
+def _check_against_plain(cuda_device, form, batch, k, num):
+    q, items, mask, scale = _inputs(form, batch, 20_011, k, num,
                                     cuda_device)
     before = fused_topk.LAUNCHES[form]
     ks, ki = fused_topk.fused_top_k_dot(q, items, num, mask, scale)
