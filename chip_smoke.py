@@ -30,7 +30,25 @@ and PyTorch built for CUDA. In order:
    version and the ``torch.topk(q @ items.T, num)`` yardstick at
    B = 1, 8, 64, 256, with pass 1's plan (query tile, item tile, list
    slots, splits, shared bytes), and the per-request latency over HTTP;
-6. prints one ``{"kernels": [...]}`` line and, last, the device line.
+6. trains ALS at the MovieLens-20M shape (bench.py's ``ml20m``: 138,493
+   users × 26,744 items, 20M interactions from its generator, seed 42),
+   rank 32, implicit, 5 epochs, once in float32 and once with bf16
+   gathers: prints the packing seconds (native and numpy, whose arrays
+   must be identical), the epoch time (median of epochs 2-5, CUDA
+   events), each half-step's device split from the profiler (gather +
+   Gramian, Cholesky solve, heavy ``index_add_``), the peak device
+   memory and the epoch's bound; holds every heavy item row, 1,024
+   sampled items and (after one more user half-step) 1,024 sampled users
+   to a relative residual of 1e-4 against their normal equations
+   rebuilt in float64 on the host;
+7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
+   users × 5,000 items, the same generator) into a memory event store,
+   the port's ``run_train`` on ``recommendation_engine()`` with the
+   default ``ALSParams`` into a local model store, ``create_engine_server``
+   on that generation, and HTTP queries, every answer checked against
+   the plain top-k on the trained factors; prints the read, prepare,
+   train and persist seconds;
+8. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -73,6 +91,18 @@ PEAK_FP32_FLOPS = 67e12
 TIME_BATCHES = (1, 8, 64, 256)
 CUDA_SOURCE = "predictionio_tpu_torch/csrc/fused_topk.cu"
 TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
+#: training at bench.py's "ml20m" shape (users, items, interactions)
+ML20M = (138_493, 26_744, 20_000_000)
+TRAIN_EPOCHS = 5
+TRAIN_REG, TRAIN_ALPHA = 0.01, 1.0
+#: a row's solve against its normal equations rebuilt in float64; true
+#: fp32 products and sums stay near 1e-6, TF32 products near 1e-3
+RESIDUAL_TOL = 1e-4
+RESIDUAL_SAMPLE = 1024
+#: the DASE phase: users, items, rate events
+DASE = (20_000, 5_000, 200_000)
+#: names of the profiler ranges ops/als.py opens
+ALS_RANGES = ("als/gather_gramian", "als/solve", "als/heavy_add")
 
 
 def log(msg: str) -> None:
@@ -519,6 +549,395 @@ def time_forms(table_f32, device, seed: int) -> dict:
     return out
 
 
+# -- phase 6: ALS training at full width ---------------------------------------
+
+
+def make_interactions(n_users: int, n_items: int, nnz: int, seed: int = 42):
+    """bench.py's generator (``make_data``): uniform users, power-law
+    (zipf 1.3) item popularity, ratings 1..5; duplicates are kept."""
+    rng = np.random.default_rng(seed)
+    pop = rng.zipf(1.3, nnz) % n_items
+    rows = rng.integers(0, n_users, nnz).astype(np.int32)
+    cols = pop.astype(np.int32)
+    vals = rng.integers(1, 6, nnz).astype(np.float32)
+    return rows, cols, vals
+
+
+def pack_sides(rows, cols, vals, n_users: int, n_items: int) -> dict:
+    """Both sides packed natively and with numpy (timed apart); the two
+    paths must give identical arrays."""
+    from predictionio_tpu_torch.ops import als
+
+    assert als._load_alspack() is not None, "native alspack did not build"
+    out = {}
+    for path in ("native", "numpy"):
+        if path == "numpy":
+            os.environ["PIO_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            users = als.build_bucketed(rows, cols, vals, n_users)
+            items = als.build_bucketed(cols, rows, vals, n_items)
+            out[f"{path}_s"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PIO_NO_NATIVE", None)
+        out[path] = (users, items)
+    for a, b in zip(out["native"], out["numpy"]):
+        assert np.array_equal(a.inv_perm, b.inv_perm)
+        for sa, sb in zip(a.slabs + a.heavy, b.slabs + b.heavy):
+            for field in ("idx", "weights", "valid"):
+                assert np.array_equal(getattr(sa, field),
+                                      getattr(sb, field)), field
+    return out
+
+
+def _rows_by(keys: np.ndarray, n: int):
+    order = np.argsort(keys, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=n))])
+    return order, starts
+
+
+def _rounded(x: np.ndarray, compute) -> np.ndarray:
+    """float64 copy of ``x`` as the card sees it: rounded to ``compute``
+    first when the gathers run in it."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    if compute is not None:
+        t = t.to(compute)
+    return t.double().numpy()
+
+
+def max_residual(x_card: np.ndarray, ids: np.ndarray, opposite: np.ndarray,
+                 other: np.ndarray, vals: np.ndarray, grouped,
+                 compute) -> tuple[float, float]:
+    """Largest and median ``‖A x − b‖ / ‖b‖`` over rows ``ids``, with each
+    row's implicit normal equations ``A = YᵀY + Σ αw·y·yᵀ + λI``,
+    ``b = Σ (1+αw)·y`` rebuilt in float64 from the interactions and the
+    opposite factors ``opposite`` (rounded as the card rounded them)."""
+    order, starts = grouped
+    y = _rounded(opposite, compute)
+    w = _rounded(vals, compute)
+    gram = y.T @ y
+    k = y.shape[1]
+    eye = np.eye(k)
+    res = []
+    for r in ids:
+        sel = order[starts[r]:starts[r + 1]]
+        a = gram + TRAIN_REG * eye
+        b = np.zeros(k)
+        for lo in range(0, len(sel), 1 << 20):
+            part = sel[lo:lo + (1 << 20)]
+            yg = y[other[part]]
+            ww = w[part]
+            a += (yg * (TRAIN_ALPHA * ww)[:, None]).T @ yg
+            b += ((1.0 + TRAIN_ALPHA * ww)[:, None] * yg).sum(axis=0)
+        x = x_card[r].astype(np.float64)
+        res.append(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+    return float(np.max(res)), float(np.median(res))
+
+
+def profile_half_step(solve, y, lam) -> dict:
+    """One half-step: its time (CUDA events), then its device time by the
+    ranges ops/als.py opens and the sum of all its kernels (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    split = {"ms": time_ms(lambda: solve(y, lam), reps=3, warmup=1)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(y, lam)
+        torch.cuda.synchronize()
+    split.update({name: 0.0 for name in ALS_RANGES})
+    kernels_us = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0))
+        if evt.key in ALS_RANGES:
+            split[evt.key] = max(split[evt.key], dev_us / 1e3)
+        elif str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels_us += dev_us  # a kernel, not a host op or a range
+    split["kernels_ms"] = kernels_us / 1e3
+    return split
+
+
+def epoch_bound(packed_u, packed_i, n_users: int, n_items: int,
+                k: int, elem: int) -> dict:
+    """Least time of one epoch on the card: each slab array (index,
+    weight, valid: 12 bytes a slot) and each factor matrix read once and
+    each solved matrix written once, over HBM bandwidth; the Gramian and
+    right-hand-side products of every padded slot (2k² + 2k) and the
+    Cholesky solves (k³/3 + 2k² a row) over the fp32 peak. Beside it the
+    bytes of the gathered rows themselves (a slot's factor row, which
+    the L2 can serve: both factor matrices fit in it)."""
+    slots = packed_u.padded_nnz + packed_i.padded_nnz
+    nbytes = slots * 12 + 2 * (n_users + n_items) * k * elem
+    flops = slots * (2 * k * k + 2 * k) + (n_users + n_items) * (
+        k ** 3 / 3 + 2 * k * k)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {
+        "padded_slots": slots,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes,
+        "ops_ms": t_ops,
+        "gather_bytes": slots * k * elem,
+        "gather_ms_at_peak": slots * k * elem / PEAK_BYTES_S * 1e3,
+    }
+
+
+def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
+    """One ALS run through ``train_als`` at full width, its residual
+    checks, then the epoch timed and profiled on the same geometry."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    rows, cols, vals = data
+    n_users, n_items, _ = ML20M
+    ctx = ComputeContext.create(device=device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = als.train_als(ctx, rows, cols, vals, n_users, n_items, rank=RANK,
+                      iterations=TRAIN_EPOCHS, reg=TRAIN_REG,
+                      alpha=TRAIN_ALPHA, implicit=True,
+                      compute_dtype=compute)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    for name, m in (("user", f.user_factors), ("item", f.item_factors)):
+        assert m.shape[1] == RANK and np.isfinite(m).all(), (compute, name)
+
+    packed_u, packed_i = packs["native"]
+    cdt = als._resolve_compute(compute)
+    solve_u = als.make_solve_side(ctx, packed_u, True, TRAIN_ALPHA, compute)
+    solve_i = als.make_solve_side(ctx, packed_i, True, TRAIN_ALPHA, compute)
+    items_dev = torch.from_numpy(f.item_factors).to(device)
+    users_next = solve_u(items_dev, TRAIN_REG).cpu().numpy()
+
+    # residuals: every heavy item, sampled items, sampled users
+    rng = np.random.default_rng(seed + 3)
+    by_item = _rows_by(cols, n_items)
+    deg = np.diff(by_item[1])
+    heavy = np.nonzero(deg > 16 * 64)[0]  # s_max blocks of block_len
+    # rows with no interactions solve to zero against b = 0: no residual
+    light = np.nonzero((deg > 0) & (deg <= 16 * 64))[0]
+    sampled = rng.choice(light, min(RESIDUAL_SAMPLE, len(light)),
+                         replace=False)
+    t0 = time.perf_counter()
+    heavy_max, heavy_med = max_residual(
+        f.item_factors, heavy, f.user_factors, rows, vals, by_item, cdt)
+    item_max, item_med = max_residual(
+        f.item_factors, sampled, f.user_factors, rows, vals, by_item, cdt)
+    by_user = _rows_by(rows, n_users)
+    users = rng.choice(np.nonzero(np.diff(by_user[1]))[0],
+                       RESIDUAL_SAMPLE, replace=False)
+    user_max, user_med = max_residual(
+        users_next, users, f.item_factors, cols, vals, by_user, cdt)
+    check_s = time.perf_counter() - t0
+    for what, r in (("heavy items", heavy_max), ("items", item_max),
+                    ("users", user_max)):
+        assert r <= RESIDUAL_TOL, f"{compute}: {what} residual {r:.3g}"
+
+    # the epoch, timed apart (CUDA events, no wait between epochs)
+    step = als.make_train_step(solve_u, solve_i)
+    x = torch.zeros((packed_u.n_rows_padded, RANK), device=device)
+    y = items_dev.clone()
+    torch.cuda.synchronize()
+    epoch_ms = []
+    for _ in range(TRAIN_EPOCHS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x, y = step(x, y, TRAIN_REG, 1)
+        stop.record()
+        epoch_ms.append((start, stop))
+    torch.cuda.synchronize()
+    epoch_ms = [a.elapsed_time(b) for a, b in epoch_ms]
+    split_u = profile_half_step(solve_u, y, TRAIN_REG)
+    split_i = profile_half_step(solve_i, x, TRAIN_REG)
+    bound = epoch_bound(packed_u, packed_i, n_users, n_items, RANK,
+                        2 if cdt is torch.bfloat16 else 4)
+    median = float(np.median(epoch_ms[1:]))
+    return {
+        "compute": compute,
+        "train_als_s": train_s,
+        "epoch_ms": epoch_ms,
+        "epoch_ms_median_2_5": median,
+        "peak_bytes": peak,
+        "user_half_step": split_u,
+        "item_half_step": split_i,
+        "bound": bound,
+        "bound_share": bound["bound_ms"] / median,
+        "heavy_items": int(len(heavy)),
+        "residual_max": {"heavy_items": heavy_max, "items": item_max,
+                         "users": user_max},
+        "residual_median": {"heavy_items": heavy_med, "items": item_med,
+                            "users": user_med},
+        "residual_check_s": check_s,
+    }
+
+
+def train_phase(device, seed: int) -> dict:
+    n_users, n_items, nnz = ML20M
+    t0 = time.perf_counter()
+    data = make_interactions(n_users, n_items, nnz, seed=42)
+    gen_s = time.perf_counter() - t0
+    packs = pack_sides(*data, n_users, n_items)
+    log(f"train data: {nnz} interactions in {gen_s:.2f} s; pack native "
+        f"{packs['native_s']:.3f} s, numpy {packs['numpy_s']:.3f} s "
+        f"(identical); padded slots user "
+        f"{packs['native'][0].padded_nnz} item "
+        f"{packs['native'][1].padded_nnz}, heavy sub-row groups "
+        f"{len(packs['native'][1].heavy)}")
+    out = {"pack_native_s": packs["native_s"],
+           "pack_numpy_s": packs["numpy_s"]}
+    for compute in ("float32", "bfloat16"):
+        run = train_full_width(device, data, packs, compute, seed)
+        log("train " + json.dumps(run))
+        out[compute] = run
+    return out
+
+
+# -- phase 7: the DASE path end to end ------------------------------------------
+
+
+def dase_phase(device, store_dir: str, seed: int) -> dict:
+    """Events into a memory event store → the port's ``run_train`` →
+    ``create_engine_server`` on the published generation → HTTP queries,
+    each answer held against the plain top-k on the trained factors."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import App, Storage, set_storage
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    n_users, n_items, n_events = DASE
+    rows, cols, vals = make_interactions(n_users, n_items, n_events, seed=42)
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": store_dir,
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    app_id = storage.get_meta_data_apps().insert(App(0, "chip-smoke"))
+    events = storage.get_events()
+    events.init(app_id)
+    t0 = time.perf_counter()
+    events.insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": float(r)})
+        for u, i, r in zip(rows.tolist(), cols.tolist(), vals.tolist())
+    ], app_id)
+    insert_s = time.perf_counter() - t0
+
+    engine = recommendation_engine()
+    params = engine.params_from_variant({
+        "datasource": {"params": {"app_name": "chip-smoke"}},
+        "algorithms": [{"name": "als", "params": {}}],
+    })
+    ctx = ComputeContext.create(device=device)
+    # the data source reads through the process-default storage
+    set_storage(storage)
+    try:
+        t0 = time.perf_counter()
+        iid = run_train(engine, params, "chip-smoke-dase", ctx=ctx,
+                        storage=storage)
+        run_train_s = time.perf_counter() - t0
+    finally:
+        set_storage(None)
+    instance = storage.get_meta_data_engine_instances().get(iid)
+    assert instance.status == "COMPLETED", instance.status
+    assert instance.mesh_conf["platform"] == device.type, instance.mesh_conf
+    timing = json.loads(instance.env["timing"])
+    (model,) = [m for _tag, m in deserialize_models(
+        load_generation(storage.get_model_data_models(), iid))]
+    n_trained = len(model.item_map)
+    assert model.item_factors.shape == (n_trained, RANK)
+    assert np.isfinite(model.item_factors).all()
+    assert np.isfinite(model.user_factors).all()
+
+    fused_topk.reset_launch_counts()
+    es, http = create_engine_server(
+        engine, params, "chip-smoke-dase", host="127.0.0.1", port=0,
+        storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
+    )
+    http.start()
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        with urllib.request.urlopen(base + "/", timeout=30) as resp:
+            status = json.loads(resp.read())
+        assert status["engineInstanceId"] == iid, status
+        rng = np.random.default_rng(seed + 11)
+        users = [f"u{u}" for u in rng.integers(0, n_users, 164)]
+        nums = [1, 5, 10, 20, 50, 128]
+        singles = [{"user": u, "num": nums[i % len(nums)]}
+                   for i, u in enumerate(users[:64])]
+        singles.append({"user": "nobody", "num": 10})
+        answers = []
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(_post, base, "/queries.json", q)
+                    for q in singles]
+            answers += [(q, f.result()[0]) for q, f in zip(singles, futs)]
+        batch = [{"user": u, "num": 10} for u in users[64:]]
+        out, _ = _post(base, "/batch/queries.json", batch)
+        assert all(r["status"] == 200 for r in out), out[:3]
+        answers += [(q, r["prediction"]) for q, r in zip(batch, out)]
+        launches = dict(fused_topk.LAUNCHES)
+    finally:
+        es.close()
+    assert launches["f32"] > 0, "the trained model served without the kernel"
+
+    user_f = torch.as_tensor(model.user_factors).to(device)
+    item_f = torch.as_tensor(model.item_factors).to(device)
+    n_checked, n_ties, max_err = 0, 0, 0.0
+    for q, ans in answers:
+        uid = model.user_map.get(q["user"], -1)
+        if uid < 0:
+            assert ans == {"itemScores": []}, ans
+            continue
+        n = min(q["num"], n_trained)
+        assert len(ans["itemScores"]) == n, (q, len(ans["itemScores"]))
+        got_i = torch.tensor(
+            [[model.item_map(e["item"]) for e in ans["itemScores"]]],
+            dtype=torch.int32, device=device,
+        )
+        got_s = torch.tensor([[e["score"] for e in ans["itemScores"]]],
+                             device=device)
+        qv = user_f[uid:uid + 1]
+        want = fused_topk.fused_top_k_dot_reference(qv, item_f, n)
+        res = compare(qv, item_f, None, None, n, (got_s, got_i), want)
+        n_checked += 1
+        n_ties += res["tied_mismatches"]
+        max_err = max(max_err, res["max_abs_err"])
+    return {
+        "events": n_events,
+        "insert_s": insert_s,
+        "run_train_s": run_train_s,
+        "read_s": timing["train/read"]["total_s"],
+        "prepare_s": timing["train/prepare"]["total_s"],
+        "train_s": timing["train/algorithm"]["total_s"],
+        "persist_s": timing["train/persist"]["total_s"],
+        "users_trained": len(model.user_map),
+        "items_trained": n_trained,
+        "answers_checked": n_checked,
+        "tied_mismatches": n_ties,
+        "max_abs_err": max_err,
+        "launches": launches,
+    }
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -592,6 +1011,16 @@ def main() -> int:
         log(f"http {run['form']}: p50_ms={run['p50_ms']:.3f} "
             f"batch_request_ms={run['batch_request_ms']:.3f} "
             f"startup_s={run['startup_s']:.2f}")
+    del model, table_f32
+    log(f"phase timings: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    train_phase(device, args.seed)
+    log(f"phase train: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dase-") as store:
+        dase = dase_phase(device, store, args.seed)
+    log("dase " + json.dumps(dase))
+    log(f"phase dase: ok ({time.perf_counter() - t_start:.1f} s)")
 
     kernels = []
     for form in FORMS:

@@ -1,12 +1,16 @@
-"""Engine — the DASE assembly and its deploy-time model recovery.
+"""Engine — the DASE assembly, its training pipeline and its
+deploy-time model recovery.
 
-Counterpart of ``predictionio_tpu/core/engine.py`` for the serving
-slice: component maps, ``prepare_deploy`` and ``params_from_variant``.
-``train`` and ``eval`` come with the training slice.
+Counterpart of ``predictionio_tpu/core/engine.py``: component maps,
+``train`` (read → sanity check → prepare → sanity check → per-algorithm
+train → sanity check, with the stop-after-read / stop-after-prepare
+interruptions), ``prepare_deploy`` and ``params_from_variant``. ``eval``
+comes with the evaluation slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Any, Callable, Mapping, Sequence
@@ -19,12 +23,21 @@ from predictionio_tpu_torch.core.controller import (
     ParamsError,
     PersistenceMode,
     Preparator,
+    SanityCheck,
     Serving,
     params_from_json,
 )
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
 logger = logging.getLogger(__name__)
+
+
+class StopAfterReadInterruption(Exception):
+    pass
+
+
+class StopAfterPrepareInterruption(Exception):
+    pass
 
 
 @dataclasses.dataclass
@@ -45,6 +58,14 @@ class EngineParams:
     preparator: tuple[str, Params] = ("", EmptyParams())
     algorithms: Sequence[tuple[str, Params]] = (("", EmptyParams()),)
     serving: tuple[str, Params] = ("", EmptyParams())
+
+
+def _sanity(obj: Any, stage: str, skip: bool) -> None:
+    if skip:
+        return
+    if isinstance(obj, SanityCheck):
+        logger.debug("sanity_check %s (%s)", stage, type(obj).__name__)
+        obj.sanity_check()
 
 
 class Engine:
@@ -98,6 +119,52 @@ class Engine:
     def make_serving(self, params: EngineParams) -> Serving:
         name, p = params.serving
         return self._one(self.serving_classes, name, "serving")(p)
+
+    def train(
+        self,
+        ctx: ComputeContext,
+        params: EngineParams,
+        workflow: WorkflowParams | None = None,
+        algorithms: list[Algorithm] | None = None,
+        timer=None,
+    ) -> list[Any]:
+        """``algorithms`` may be pre-built so callers (run_train) keep the
+        same instances for MANUAL-persistence ``save_model`` calls. A
+        ``timer`` (:class:`~predictionio_tpu_torch.utils.profiling.StepTimer`)
+        records the read, prepare and per-algorithm train steps."""
+        workflow = workflow or WorkflowParams()
+
+        def step(name):
+            return timer.step(name) if timer else contextlib.nullcontext()
+
+        # resolve every component up front (fail fast on bad names/params)
+        data_source = self.make_data_source(params)
+        preparator = self.make_preparator(params)
+        if algorithms is None:
+            algorithms = self.make_algorithms(params)
+        with step("train/read"):
+            td = data_source.read_training(ctx)
+        _sanity(td, "training data", workflow.skip_sanity_check)
+        if workflow.stop_after_read:
+            raise StopAfterReadInterruption()
+
+        with step("train/prepare"):
+            pd = preparator.prepare(ctx, td)
+        _sanity(pd, "prepared data", workflow.skip_sanity_check)
+        if workflow.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+
+        models: list[Any] = []
+        for i, algo in enumerate(algorithms):
+            logger.info(
+                "training algorithm %d/%d (%s)",
+                i + 1, len(algorithms), type(algo).__name__,
+            )
+            with step("train/algorithm"):
+                model = algo.train(ctx, pd)
+            _sanity(model, f"model[{i}]", workflow.skip_sanity_check)
+            models.append(model)
+        return models
 
     def prepare_deploy(
         self,

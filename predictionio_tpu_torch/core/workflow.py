@@ -1,27 +1,207 @@
-"""Workflow runtime — deploy-side model recovery.
+"""Workflow runtime — train and publish, and deploy-side model recovery.
 
-Counterpart of ``load_deployment`` in ``predictionio_tpu/core/workflow.py``.
-``run_train`` comes with the training slice.
+Counterpart of ``apply_checkpoint_params``, ``latest_completed_id``,
+``run_train`` and ``load_deployment`` in
+``predictionio_tpu/core/workflow.py``. The training span timeline, its
+trace file and the metric-registry publish belong to the observability
+work (ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime as _dt
 import logging
 import pickle
 from typing import Any, Sequence
 
+import torch
+
 from predictionio_tpu_torch.core.controller import PersistenceMode
-from predictionio_tpu_torch.core.engine import Engine, EngineParams
+from predictionio_tpu_torch.core.engine import (
+    Engine,
+    EngineParams,
+    StopAfterPrepareInterruption,
+    StopAfterReadInterruption,
+    WorkflowParams,
+)
 from predictionio_tpu_torch.core.persistence import (
     ModelIntegrityError,
     deserialize_models,
     load_generation,
+    publish_generation,
     quarantine_generation,
+    serialize_models,
 )
-from predictionio_tpu_torch.data.storage import Storage, get_storage
+from predictionio_tpu_torch.data.storage import (
+    EngineInstance,
+    Storage,
+    get_storage,
+)
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
+from predictionio_tpu_torch.utils.profiling import StepTimer
 
 logger = logging.getLogger(__name__)
+
+
+def _now() -> _dt.datetime:
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def apply_checkpoint_params(
+    algorithms: Sequence[Any],
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+) -> int:
+    """Thread checkpoint settings into every algorithm whose params
+    dataclass declares ``checkpoint_dir``/``checkpoint_every``/``resume``
+    (the ``ops/als.py`` contract). Returns how many were rewired; 0
+    means the flags are inert (logged, not an error)."""
+    if not checkpoint_dir:
+        return 0
+    rewired = 0
+    for algo in algorithms:
+        p = algo.params
+        if not dataclasses.is_dataclass(p):
+            continue
+        names = {f.name for f in dataclasses.fields(p)}
+        if not {"checkpoint_dir", "checkpoint_every", "resume"} <= names:
+            continue
+        algo.params = dataclasses.replace(
+            p,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
+            resume=resume,
+        )
+        rewired += 1
+    if rewired == 0:
+        logger.warning(
+            "checkpoint_dir=%s requested but no algorithm supports "
+            "checkpointing; training runs without restore points",
+            checkpoint_dir,
+        )
+    return rewired
+
+
+def latest_completed_id(
+    storage: Storage,
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+) -> str | None:
+    """Id of the current latest COMPLETED instance (the parent of the
+    next published generation), or None for a first train."""
+    latest = storage.get_meta_data_engine_instances().get_latest_completed(
+        engine_id, engine_version, engine_variant
+    )
+    return latest.id if latest is not None else None
+
+
+def _device_conf(ctx: ComputeContext) -> dict[str, str]:
+    """The card a run trained on, for its instance record."""
+    dev = ctx.device
+    name = (
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+    )
+    return {"platform": dev.type, "device": name,
+            "devices": str(ctx.n_devices)}
+
+
+def run_train(
+    engine: Engine,
+    params: EngineParams,
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    engine_factory: str = "",
+    workflow: WorkflowParams | None = None,
+    ctx: ComputeContext | None = None,
+    storage: Storage | None = None,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    watermark: dict | None = None,
+) -> str:
+    """Train, publish, and return the EngineInstance id.
+
+    The instance is INIT on entry and COMPLETED only after the model
+    generation is published (blob first, checksum manifest last), so
+    deploy never picks a half-written run; FAILED on an error,
+    INTERRUPTED on a stop-after-read/prepare. The manifest records the
+    parent generation (the latest COMPLETED one before this run) and the
+    ``watermark`` the data was read at. ``checkpoint_*`` thread through
+    :func:`apply_checkpoint_params`. ``ctx=None`` takes the current CUDA
+    device and raises, before any record is written, without one."""
+    workflow = workflow or WorkflowParams()
+    storage = storage or get_storage()
+    ctx = ctx or ComputeContext.create(batch=workflow.batch or engine_id)
+    instances = storage.get_meta_data_engine_instances()
+    instance_id = instances.insert(EngineInstance(
+        id="",
+        status="INIT",
+        start_time=_now(),
+        end_time=_now(),
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
+        engine_factory=engine_factory,
+        batch=workflow.batch,
+    ))
+    instance = instances.get(instance_id)
+    try:
+        instance = dataclasses.replace(instance, mesh_conf=_device_conf(ctx))
+        instances.update(instance)
+        # the SAME algorithm objects train and (MANUAL persistence) save
+        algorithms = engine.make_algorithms(params)
+        apply_checkpoint_params(
+            algorithms,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
+            resume=resume,
+        )
+        parent_generation = latest_completed_id(
+            storage, engine_id, engine_version, engine_variant
+        )
+        timer = StepTimer()
+        for algo in algorithms:
+            algo.timer = timer
+        with timer.step("train/total"):
+            models = engine.train(
+                ctx, params, workflow, algorithms=algorithms, timer=timer
+            )
+        if workflow.save_model:
+            with timer.step("train/persist"):
+                blob = serialize_models(instance_id, algorithms, models)
+                publish_generation(
+                    storage.get_model_data_models(),
+                    instance_id,
+                    blob,
+                    watermark=watermark,
+                    parent=parent_generation,
+                )
+            logger.info(
+                "persisted %d model(s) for instance %s (%d bytes)",
+                len(models), instance_id, len(blob),
+            )
+        timer.log_summary(prefix=f"[{engine_id}] ")
+        instance = dataclasses.replace(
+            instance, env={"timing": timer.to_json()}
+        )
+        instances.update(
+            dataclasses.replace(instance, status="COMPLETED", end_time=_now())
+        )
+        return instance_id
+    except (StopAfterReadInterruption, StopAfterPrepareInterruption):
+        instances.update(
+            dataclasses.replace(instance, status="INTERRUPTED", end_time=_now())
+        )
+        raise
+    except Exception:
+        instances.update(
+            dataclasses.replace(instance, status="FAILED", end_time=_now())
+        )
+        raise
 
 
 def load_deployment(

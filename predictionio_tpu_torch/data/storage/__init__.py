@@ -1,13 +1,15 @@
-"""Env-var-driven storage for the two repositories deploy reads.
+"""Env-var-driven storage for the three repositories.
 
 Counterpart of ``Storage`` in ``predictionio_tpu/data/storage/__init__.py``
 with the same variables: sources are declared with
 ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-source keys such as ``PATH``)
-and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE``. This slice
-knows two backend types: ``memory`` (engine instances and models) and
-``localfs`` (models only). With no source declared, metadata lives in
-memory and models under ``$PIO_FS_BASEDIR/models`` (default
-``~/.piotpu/models``), the JAX package's model directory.
+and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA
+(apps, channels, engine instances), EVENTDATA (events) and MODELDATA
+(model blobs). The port knows two backend types: ``memory`` (all of
+them) and ``localfs`` (models only); sqlite and the native event log
+come with the event-server slice. With no source declared, metadata and
+events live in memory and models under ``$PIO_FS_BASEDIR/models``
+(default ``~/.piotpu/models``), the JAX package's model directory.
 """
 
 from __future__ import annotations
@@ -18,32 +20,43 @@ from typing import Mapping
 
 from predictionio_tpu_torch.data.storage import localfs, memory
 from predictionio_tpu_torch.data.storage.base import (
+    App,
+    AppsBackend,
+    Channel,
+    ChannelsBackend,
     EngineInstance,
     EngineInstancesBackend,
+    EventsBackend,
     Model,
     ModelsBackend,
     StorageError,
 )
 
 __all__ = [
-    "EngineInstance", "EngineInstancesBackend", "Model", "ModelsBackend",
+    "App", "AppsBackend", "Channel", "ChannelsBackend", "EngineInstance",
+    "EngineInstancesBackend", "EventsBackend", "Model", "ModelsBackend",
     "Storage", "StorageError", "get_storage", "set_storage",
 ]
 
 
 class _MemoryClient:
     def __init__(self, config: dict):
+        self.apps = memory.MemoryApps()
+        self.channels = memory.MemoryChannels()
         self.engine_instances = memory.MemoryEngineInstances()
         self.models = memory.MemoryModels()
+        self.events = memory.MemoryEvents()
 
+
+_MEMORY_DAOS = ("apps", "channels", "engine_instances", "models", "events")
 
 #: type name → (client factory, {dao attribute: factory(client)})
 _BACKENDS = {
     "memory": (
         _MemoryClient,
         {
-            "engine_instances": lambda c: c.engine_instances,
-            "models": lambda c: c.models,
+            name: (lambda c, name=name: getattr(c, name))
+            for name in _MEMORY_DAOS
         },
     ),
     "localfs": (
@@ -52,7 +65,7 @@ _BACKENDS = {
     ),
 }
 
-_REPOSITORIES = ("METADATA", "MODELDATA")
+_REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
 
 class Storage:
@@ -107,7 +120,11 @@ class Storage:
                 {"TYPE": "localfs", "PATH": os.path.join(base, "models")},
             ),
         }
-        self._repo_source = {"METADATA": "MEMORY", "MODELDATA": "LOCALFS"}
+        self._repo_source = {
+            "METADATA": "MEMORY",
+            "EVENTDATA": "MEMORY",
+            "MODELDATA": "LOCALFS",
+        }
 
     def _client(self, source: str):
         with self._lock:
@@ -136,11 +153,20 @@ class Storage:
             )
         return factory(self._client(source))
 
+    def get_meta_data_apps(self) -> AppsBackend:
+        return self._dao("METADATA", "apps")
+
+    def get_meta_data_channels(self) -> ChannelsBackend:
+        return self._dao("METADATA", "channels")
+
     def get_meta_data_engine_instances(self) -> EngineInstancesBackend:
         return self._dao("METADATA", "engine_instances")
 
     def get_model_data_models(self) -> ModelsBackend:
         return self._dao("MODELDATA", "models")
+
+    def get_events(self) -> EventsBackend:
+        return self._dao("EVENTDATA", "events")
 
 
 _default_storage: Storage | None = None

@@ -1,9 +1,10 @@
-"""Storage records and DAO interfaces that deploy reads.
+"""Storage records and DAO interfaces that training and deploy use.
 
-Counterpart of the ``EngineInstance`` and ``Model`` records and the
-``EngineInstancesBackend`` / ``ModelsBackend`` interfaces of
-``predictionio_tpu/data/storage/base.py``. Event storage, apps and keys
-come with the event-server slice.
+Counterpart of ``predictionio_tpu/data/storage/base.py``: the ``App``,
+``Channel``, ``EngineInstance`` and ``Model`` records and the apps,
+channels, events, engine-instance and model interfaces. Access keys,
+manifests and evaluation records come with the event-server and
+evaluation slices.
 """
 
 from __future__ import annotations
@@ -11,10 +12,36 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime as _dt
+from typing import Iterator, Sequence
+
+from predictionio_tpu_torch.data.event import Event
 
 
 class StorageError(RuntimeError):
     """Unknown backend types, unbound repositories, unsupported DAOs."""
+
+
+@dataclasses.dataclass(frozen=True)
+class App:
+    id: int
+    name: str
+    description: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Channel:
+    """A named event channel of an app (name: 1-16 word characters)."""
+
+    id: int
+    name: str
+    appid: int
+
+    @staticmethod
+    def is_valid_name(name: str) -> bool:
+        return (
+            0 < len(name) <= 16
+            and all(c.isalnum() or c in "-_" for c in name)
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +71,41 @@ class Model:
 
     id: str
     models: bytes
+
+
+class AppsBackend(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, app: App) -> int | None:
+        """Insert; ``app.id == 0`` means auto-assign. Returns assigned id."""
+
+    @abc.abstractmethod
+    def get(self, app_id: int) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> bool: ...
+
+
+class ChannelsBackend(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> int | None: ...
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Channel | None: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
 
 
 class EngineInstancesBackend(abc.ABC):
@@ -100,3 +162,65 @@ class ModelsBackend(abc.ABC):
         )
         self.delete(model_id)
         return True
+
+
+class EventsBackend(abc.ABC):
+    """Event DAO. Every method takes ``(app_id, channel_id)``;
+    ``channel_id=None`` is the app's default channel."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Initialize storage for an (app, channel)."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Drop all events of an (app, channel)."""
+
+    @abc.abstractmethod
+    def close(self) -> None: ...
+
+    @abc.abstractmethod
+    def insert(
+        self, event: Event, app_id: int, channel_id: int | None = None
+    ) -> str:
+        """Insert one event; returns the assigned event id."""
+
+    def insert_batch(
+        self,
+        events: Sequence[Event],
+        app_id: int,
+        channel_id: int | None = None,
+    ) -> list[str]:
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool: ...
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        limit: int | None = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        """Filtered scan, time-ascending (descending when ``reversed``).
+
+        ``target_entity_type``/``target_entity_id`` are tri-state:
+        ``...`` (Ellipsis) = no filter, ``None`` = must be absent, a
+        string = must match.
+        """

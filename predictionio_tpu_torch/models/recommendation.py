@@ -1,12 +1,13 @@
-"""Recommendation template — serving an ALS model.
+"""Recommendation template — implicit/explicit ALS.
 
-Counterpart of ``predictionio_tpu/models/recommendation.py``. Queries
-``{"user": id, "num": N}`` answer ``{"itemScores": [{"item": id,
-"score": s}, ...]}``; an unknown user answers ``{"itemScores": []}``.
-Serving gathers the users' factor rows on the card and ranks the whole
-item table with the fused score + top-k kernel. Training (ALS, the event
-read and the preparator) belongs to the training slice (ROADMAP.md,
-"Modules to port", item 2).
+Counterpart of ``predictionio_tpu/models/recommendation.py``: ``rate``
+events (user → item, with a rating property) are read from the event
+store, deduplicated, and trained into factor matrices on the card
+(``ops/als.py``); queries ``{"user": id, "num": N}`` answer
+``{"itemScores": [{"item": id, "score": s}, ...]}``, and an unknown user
+answers ``{"itemScores": []}``. Serving gathers the users' factor rows on
+the card and ranks the whole item table with the fused score + top-k
+kernel.
 """
 
 from __future__ import annotations
@@ -26,17 +27,16 @@ from predictionio_tpu_torch.core import (
     Preparator,
     register_engine,
 )
+from predictionio_tpu_torch.core.controller import SanityCheck
+from predictionio_tpu_torch.data.eventframe import Interactions
+from predictionio_tpu_torch.data.store import EventStore
 from predictionio_tpu_torch.ops import similarity
+from predictionio_tpu_torch.ops.als import train_als
 from predictionio_tpu_torch.parallel import partition
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 from predictionio_tpu_torch.utils.bimap import BiMap
 
 logger = logging.getLogger(__name__)
-
-_TRAINING_SLICE = (
-    "is not ported yet: ALS training and the event read are the "
-    "training slice (ROADMAP.md, 'Modules to port', item 2)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,23 +47,56 @@ class RecDataSourceParams(Params):
     eval_k: int = 0
 
 
+@dataclasses.dataclass
+class RecTrainingData(SanityCheck):
+    interactions: Interactions
+
+    def sanity_check(self) -> None:
+        if self.interactions.nnz == 0:
+            raise ValueError("no interaction events found")
+
+
 class RecDataSource(DataSource):
     params_class = RecDataSourceParams
 
-    def read_training(self, ctx: ComputeContext):
-        raise NotImplementedError(f"RecDataSource.read_training {_TRAINING_SLICE}")
+    def read_training(self, ctx: ComputeContext) -> RecTrainingData:
+        p = self.params
+        return RecTrainingData(
+            interactions=EventStore().interactions(
+                p.app_name,
+                event_names=list(p.event_names),
+                value_key=p.rating_key,
+            )
+        )
+
+    def read_eval(self, ctx: ComputeContext):
+        raise NotImplementedError(
+            "RecDataSource.read_eval is not ported yet: evaluation is "
+            "ROADMAP.md, queue 1, item 7"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class RecPreparatorParams(Params):
-    dedupe: str = "sum"
+    dedupe: str = "sum"  # "sum" (implicit counts) | "latest" (ratings)
 
 
 class RecPreparator(Preparator):
+    """Dedupe repeated (user, item) events: sum for implicit counts,
+    keep the latest for rating data."""
+
     params_class = RecPreparatorParams
 
-    def prepare(self, ctx: ComputeContext, training_data):
-        raise NotImplementedError(f"RecPreparator.prepare {_TRAINING_SLICE}")
+    def prepare(
+        self, ctx: ComputeContext, td: RecTrainingData
+    ) -> RecTrainingData:
+        inter = td.interactions
+        deduped = (
+            inter.dedupe_latest()
+            if self.params.dedupe == "latest"
+            else inter.dedupe_sum()
+        )
+        return RecTrainingData(interactions=deduped)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,9 +121,9 @@ class ALSParams(Params):
 
 @dataclasses.dataclass
 class ALSRecModel:
-    # np.ndarray when loaded from the model store; tensors on the card
-    # after ALSAlgorithm.stage_model (or QuantizedFactors after a
-    # quantized deploy)
+    # np.ndarray after train and when loaded from the model store;
+    # tensors on the card after ALSAlgorithm.stage_model (or
+    # QuantizedFactors after a quantized deploy)
     user_factors: "np.ndarray | torch.Tensor"
     item_factors: "np.ndarray | torch.Tensor"
     user_map: BiMap
@@ -104,8 +137,40 @@ class ALSRecModel:
 class ALSAlgorithm(Algorithm):
     params_class = ALSParams
 
-    def train(self, ctx: ComputeContext, pd) -> ALSRecModel:
-        raise NotImplementedError(f"ALSAlgorithm.train {_TRAINING_SLICE}")
+    def train(self, ctx: ComputeContext, pd: RecTrainingData) -> ALSRecModel:
+        """ALS on ``ctx.device`` (``ctx=None``: the current CUDA device,
+        raising without one); the model keeps host numpy factors, which
+        is what the model store persists."""
+        p = self.params
+        inter = pd.interactions
+        factors = train_als(
+            ctx,
+            inter.rows,
+            inter.cols,
+            inter.values,
+            n_users=inter.n_rows,
+            n_items=inter.n_cols,
+            rank=p.rank,
+            iterations=p.num_iterations,
+            reg=p.lambda_,
+            alpha=p.alpha,
+            implicit=p.implicit,
+            seed=p.seed,
+            block_len=p.block_len,
+            row_chunk=p.row_chunk,
+            compute_dtype=p.compute_dtype or None,
+            timer=self.timer,
+            checkpoint_dir=p.checkpoint_dir or None,
+            checkpoint_every=p.checkpoint_every,
+            resume=p.resume,
+            factor_sharding=p.factor_sharding,
+        )
+        return ALSRecModel(
+            user_factors=factors.user_factors,
+            item_factors=factors.item_factors,
+            user_map=inter.entity_map,
+            item_map=inter.target_map,
+        )
 
     # -- serving ----------------------------------------------------------
     def stage_model(

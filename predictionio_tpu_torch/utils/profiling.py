@@ -8,10 +8,14 @@ step that should include device work ends in :func:`sync`.
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
 import time
 from collections import defaultdict
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def sync(value=None) -> None:
@@ -60,3 +64,13 @@ class StepTimer:
                 "max_s": round(max(xs), 6),
             }
         return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.summary())
+
+    def log_summary(self, prefix: str = "") -> None:
+        for name, s in self.summary().items():
+            logger.info(
+                "%s%s: %d step(s), mean %.4fs, total %.2fs",
+                prefix, name, s["count"], s["mean_s"], s["total_s"],
+            )

@@ -1,4 +1,5 @@
-"""The fused top-k CUDA kernel against its plain version, on the card.
+"""The fused top-k CUDA kernel against its plain version, and ALS on the
+card against ALS on the CPU.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -8,7 +9,16 @@ Tolerance: scores within 1e-4 absolute + 1e-5 relative (the kernel sums
 the k products in order, cuBLAS in another). Indices are equal except
 where two items' plain scores tie within that tolerance, where the two
 summation orders may rank them either way; planted exact ties must come
-lower index first.
+lower index first. ALS (``ops/als.py``, torch ops only) runs the same
+code on both devices; what differs on the card is cuSOLVER's batched
+Cholesky, cuBLAS's batched products and ``index_add_``'s atomics, so
+float32 factors agree within rtol 1e-3 / atol 1e-4 after three epochs.
+With bf16 gathers each half-step rounds the factors to bf16, and two
+float32 values a last bit apart can round one bf16 step (2^-8) apart;
+through explicit mode's less well conditioned solves that grows to
+about half a percent of the factors' scale, so bf16 runs must agree
+within 1 % of it (rtol 1e-2, atol 1e-2 × the largest factor). A system
+that is not positive definite still solves to zeros.
 """
 
 import numpy as np
@@ -108,3 +118,50 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         fused_topk.fused_top_k_dot(q, items.cpu(), 5)
     with pytest.raises(ValueError):
         fused_topk.fused_top_k_dot(q, items, 5, mask[:10])
+
+
+@pytest.mark.gpu
+def test_als_solve_zeroes_non_pd_systems_on_card(cuda_device):
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((3, 3)).astype(np.float32)
+    a = torch.from_numpy(np.stack([
+        np.eye(3), np.diag([1.0, -1.0, 1.0]), np.zeros((3, 3)),
+        m @ m.T + np.eye(3),
+    ]).astype(np.float32))
+    b = torch.ones(4, 3)
+    cnt = torch.tensor([3.0, 3.0, 0.0, 3.0])
+    want = als._solve(a, b, cnt, None, 0.0, False)
+    got = als._solve(a.to(cuda_device), b.to(cuda_device),
+                     cnt.to(cuda_device), None, 0.0, False).cpu()
+    assert torch.equal(got[:3], torch.tensor(
+        [[1.0, 1.0, 1.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]))
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [None, "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("implicit", [True, False],
+                         ids=["implicit", "explicit"])
+def test_als_on_card_matches_cpu(cuda_device, implicit, compute):
+    """300 users × 120 items, zipf items (heavy rows), small slabs."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 300, 6000).astype(np.int32)
+    cols = (rng.zipf(1.3, 6000) % 120).astype(np.int32)
+    vals = rng.integers(1, 6, 6000).astype(np.float32)
+    kw = dict(rank=8, iterations=3, reg=0.05, implicit=implicit,
+              compute_dtype=compute, max_slab_slots=512)
+    want = als.train_als(ComputeContext.create(device="cpu"), rows, cols,
+                         vals, 300, 120, **kw)
+    got = als.train_als(ComputeContext.create(device=cuda_device), rows,
+                        cols, vals, 300, 120, return_layout="device", **kw)
+    assert got.item_factors.device.type == "cuda"
+    for g, w in ((got.user_factors, want.user_factors),
+                 (got.item_factors, want.item_factors)):
+        tol = (dict(rtol=1e-3, atol=1e-4) if compute is None else
+               dict(rtol=1e-2, atol=1e-2 * float(np.abs(w).max())))
+        np.testing.assert_allclose(g.cpu(), w, **tol)

@@ -128,3 +128,66 @@ def test_build_is_keyed_by_source_and_lazy():
     for fn, argtypes in _build.SIGNATURES["fused_topk"].items():
         assert fn.startswith("pio_topk_pass")
         assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
+
+
+def test_alspack_builds_under_build_never_native(tmp_path, monkeypatch):
+    """The port's loader for ``native/alspack.cc`` compiles into
+    ``build/native/`` (the JAX package's loader owns ``native/``)."""
+    from predictionio_tpu_torch.ops import als
+
+    assert als.alspack_library_path().parent == ROOT / "build" / "native"
+    assert als.ALSPACK_SOURCE == ROOT / "native" / "alspack.cc"
+    monkeypatch.delenv("PIO_NO_NATIVE", raising=False)
+    monkeypatch.setattr(als, "NATIVE_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(als, "_alspack", {})
+    outputs = []
+    real_run = subprocess.run
+
+    def recording_run(cmd, *args, **kwargs):
+        outputs.append(pathlib.Path(cmd[cmd.index("-o") + 1]))
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(als.subprocess, "run", recording_run)
+    lib = als._load_alspack()
+    assert lib is not None and hasattr(lib, "pio_alspack_fill")
+    assert outputs and all(
+        p.parent == tmp_path / "build" for p in outputs
+    )
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [
+        als.alspack_library_path().name
+    ]
+    monkeypatch.setenv("PIO_NO_NATIVE", "1")
+    assert als._load_alspack() is None
+
+
+def test_training_refuses_to_fall_back(monkeypatch):
+    """With no context, training takes the CUDA device and raises
+    without one; it never trains on the CPU unasked."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.eventframe import Interactions
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        RecTrainingData,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pd = RecTrainingData(Interactions(
+        entity_map=BiMap(["u0", "u1"]), target_map=BiMap(["i0"]),
+        rows=np.array([0, 1], np.int32), cols=np.array([0, 0], np.int32),
+        values=np.ones(2, np.float32), times=np.zeros(2),
+    ))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ALSAlgorithm().train(None, pd)
+    storage = Storage(env={"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+    engine = recommendation_engine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_train(engine, engine.params_from_variant({}), "rec",
+                  storage=storage)
+    assert storage.get_meta_data_engine_instances().get_all() == []
+    model = ALSAlgorithm().train(ComputeContext.create(device="cpu"), pd)
+    assert model.item_factors.shape == (1, 32)
