@@ -43,12 +43,24 @@ and PyTorch built for CUDA. In order:
    rebuilt in float64 on the host;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
    users × 5,000 items, the same generator) into a memory event store,
-   the port's ``run_train`` on ``recommendation_engine()`` with the
-   default ``ALSParams`` into a local model store, ``create_engine_server``
-   on that generation, and HTTP queries, every answer checked against
-   the plain top-k on the trained factors; prints the read, prepare,
-   train and persist seconds;
-8. prints one ``{"kernels": [...]}`` line and, last, the device line.
+   then (``train_and_serve``) the port's ``run_train`` on
+   ``recommendation_engine()`` with the default ``ALSParams`` into a
+   local model store, ``create_engine_server`` on that generation, and
+   HTTP queries, every answer checked against the plain top-k on the
+   trained factors; prints the read, prepare, train and persist seconds;
+8. drives the event server and its stores: sqlite metadata with a
+   generated access key and a second key limited to ``view``, the port's
+   ``create_event_server``, and the same 200,000 events as 4,000
+   ``POST /batch/events.json`` requests of 50 from 8 keep-alive client
+   threads into the native event log (every event 201), the probes (no
+   key 401, limited key 403, 51 events 400, a latest-5 find, a delete
+   then 404), ``EventStore.interactions`` through the log's native scan
+   (its triples equal to the generator's), then ``train_and_serve``;
+   once more with the events in sqlite (the zero-config wiring, read
+   through the frame path) on the first 50,000 events; prints events/s,
+   batch-request p50/p99, the read seconds of both stores beside phase
+   7's memory read, and the train answers;
+9. prints one ``{"kernels": [...]}`` line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -101,6 +113,11 @@ RESIDUAL_TOL = 1e-4
 RESIDUAL_SAMPLE = 1024
 #: the DASE phase: users, items, rate events
 DASE = (20_000, 5_000, 200_000)
+#: the ingest phase: events a batch request, client threads, and the
+#: events of the sqlite run (the first of the same stream)
+INGEST_BATCH = 50
+INGEST_THREADS = 8
+SQLITE_EVENTS = 50_000
 #: names of the profiler ranges ops/als.py opens
 ALS_RANGES = ("als/gather_gramian", "als/solve", "als/heavy_add")
 
@@ -800,17 +817,21 @@ def train_phase(device, seed: int) -> dict:
 # -- phase 7: the DASE path end to end ------------------------------------------
 
 
-def dase_phase(device, store_dir: str, seed: int) -> dict:
-    """Events into a memory event store → the port's ``run_train`` →
-    ``create_engine_server`` on the published generation → HTTP queries,
-    each answer held against the plain top-k on the trained factors."""
+def train_and_serve(device, storage, app_name: str, engine_id: str,
+                    seed: int) -> dict:
+    """The port's ``run_train`` on the app's events → ``create_engine_server``
+    on the published generation → 165 HTTP queries for users it trained
+    (64 singles on 8 threads, one unknown user, one batch of 100), each
+    answer held
+    against the plain top-k on the trained factors. The kernel's launch
+    counts are set to 0 before the server starts and read after it
+    stops."""
     from predictionio_tpu_torch.core.persistence import (
         deserialize_models,
         load_generation,
     )
     from predictionio_tpu_torch.core.workflow import run_train
-    from predictionio_tpu_torch.data.event import Event
-    from predictionio_tpu_torch.data.storage import App, Storage, set_storage
+    from predictionio_tpu_torch.data.storage import set_storage
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
@@ -820,31 +841,9 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
         create_engine_server,
     )
 
-    n_users, n_items, n_events = DASE
-    rows, cols, vals = make_interactions(n_users, n_items, n_events, seed=42)
-    storage = Storage(env={
-        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
-        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
-        "PIO_STORAGE_SOURCES_FS_PATH": store_dir,
-        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
-        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
-        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
-    })
-    app_id = storage.get_meta_data_apps().insert(App(0, "chip-smoke"))
-    events = storage.get_events()
-    events.init(app_id)
-    t0 = time.perf_counter()
-    events.insert_batch([
-        Event(event="rate", entity_type="user", entity_id=f"u{u}",
-              target_entity_type="item", target_entity_id=f"i{i}",
-              properties={"rating": float(r)})
-        for u, i, r in zip(rows.tolist(), cols.tolist(), vals.tolist())
-    ], app_id)
-    insert_s = time.perf_counter() - t0
-
     engine = recommendation_engine()
     params = engine.params_from_variant({
-        "datasource": {"params": {"app_name": "chip-smoke"}},
+        "datasource": {"params": {"app_name": app_name}},
         "algorithms": [{"name": "als", "params": {}}],
     })
     ctx = ComputeContext.create(device=device)
@@ -852,8 +851,7 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
     set_storage(storage)
     try:
         t0 = time.perf_counter()
-        iid = run_train(engine, params, "chip-smoke-dase", ctx=ctx,
-                        storage=storage)
+        iid = run_train(engine, params, engine_id, ctx=ctx, storage=storage)
         run_train_s = time.perf_counter() - t0
     finally:
         set_storage(None)
@@ -870,7 +868,7 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
 
     fused_topk.reset_launch_counts()
     es, http = create_engine_server(
-        engine, params, "chip-smoke-dase", host="127.0.0.1", port=0,
+        engine, params, engine_id, host="127.0.0.1", port=0,
         storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
     )
     http.start()
@@ -880,7 +878,7 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
             status = json.loads(resp.read())
         assert status["engineInstanceId"] == iid, status
         rng = np.random.default_rng(seed + 11)
-        users = [f"u{u}" for u in rng.integers(0, n_users, 164)]
+        users = rng.choice(model.user_map.keys(), 164).tolist()
         nums = [1, 5, 10, 20, 50, 128]
         singles = [{"user": u, "num": nums[i % len(nums)]}
                    for i, u in enumerate(users[:64])]
@@ -894,9 +892,9 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
         out, _ = _post(base, "/batch/queries.json", batch)
         assert all(r["status"] == 200 for r in out), out[:3]
         answers += [(q, r["prediction"]) for q, r in zip(batch, out)]
-        launches = dict(fused_topk.LAUNCHES)
     finally:
         es.close()
+    launches = dict(fused_topk.LAUNCHES)
     assert launches["f32"] > 0, "the trained model served without the kernel"
 
     user_f = torch.as_tensor(model.user_factors).to(device)
@@ -921,9 +919,8 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
         n_checked += 1
         n_ties += res["tied_mismatches"]
         max_err = max(max_err, res["max_abs_err"])
+    assert n_checked == 164, n_checked
     return {
-        "events": n_events,
-        "insert_s": insert_s,
         "run_train_s": run_train_s,
         "read_s": timing["train/read"]["total_s"],
         "prepare_s": timing["train/prepare"]["total_s"],
@@ -936,6 +933,208 @@ def dase_phase(device, store_dir: str, seed: int) -> dict:
         "max_abs_err": max_err,
         "launches": launches,
     }
+
+
+def dase_phase(device, store_dir: str, seed: int) -> dict:
+    """Events into a memory event store, then :func:`train_and_serve`."""
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import App, Storage
+
+    n_users, n_items, n_events = DASE
+    rows, cols, vals = make_interactions(n_users, n_items, n_events, seed=42)
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": store_dir,
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    app_id = storage.get_meta_data_apps().insert(App(0, "chip-smoke"))
+    events = storage.get_events()
+    events.init(app_id)
+    t0 = time.perf_counter()
+    events.insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": float(r)})
+        for u, i, r in zip(rows.tolist(), cols.tolist(), vals.tolist())
+    ], app_id)
+    insert_s = time.perf_counter() - t0
+    out = {"events": n_events, "insert_s": insert_s}
+    out.update(train_and_serve(device, storage, "chip-smoke",
+                               "chip-smoke-dase", seed))
+    return out
+
+
+# -- phase 8: the event server and its stores ----------------------------------
+
+
+def _http_call(conn, method: str, path: str, body=None):
+    """One request on a keep-alive ``http.client`` connection."""
+    data = body if body is None or isinstance(body, bytes) else (
+        json.dumps(body).encode())
+    headers = {"Content-Type": "application/json"} if data else {}
+    conn.request(method, path, body=data, headers=headers)
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read() or b"null")
+
+
+def ingest_phase(device, tmpdir: str, backend: str, n_events: int,
+                 seed: int) -> dict:
+    """``rate`` events over HTTP into the port's event server, on sqlite
+    metadata and an ``eventlog`` or ``sqlite`` event store; the probes;
+    the training read through ``EventStore.interactions``, held against
+    the generator's triples; then :func:`train_and_serve`."""
+    import http.client
+
+    from predictionio_tpu_torch.data.storage import (
+        AccessKey,
+        AccessKeysBackend,
+        App,
+        Storage,
+    )
+    from predictionio_tpu_torch.data.storage.eventlog import EventLogEvents
+    from predictionio_tpu_torch.data.store import EventStore
+    from predictionio_tpu_torch.serving.event_server import (
+        create_event_server,
+    )
+
+    n_users, n_items, _ = DASE
+    rows, cols, vals = (a[:n_events] for a in make_interactions(
+        n_users, n_items, DASE[2], seed=42))
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(tmpdir, "pio.sqlite"),
+        "PIO_STORAGE_SOURCES_LOG_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(tmpdir, "eventlog"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(tmpdir, "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE":
+            "LOG" if backend == "eventlog" else "SQL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    app_name = "chip-smoke-ingest"
+    app_id = storage.get_meta_data_apps().insert(App(0, app_name))
+    keys = storage.get_meta_data_access_keys()
+    key = keys.insert(AccessKey(AccessKeysBackend.generate_key(), app_id))
+    limited = keys.insert(AccessKey("", app_id, ("view",)))
+    storage.get_events().init(app_id)
+    bodies = [
+        json.dumps([
+            {"event": "rate", "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{i}",
+             "properties": {"rating": r}}
+            for u, i, r in zip(rows[lo:lo + INGEST_BATCH].tolist(),
+                               cols[lo:lo + INGEST_BATCH].tolist(),
+                               vals[lo:lo + INGEST_BATCH].tolist())
+        ]).encode()
+        for lo in range(0, n_events, INGEST_BATCH)
+    ]
+
+    server = create_event_server(host="127.0.0.1", port=0, storage=storage,
+                                 stats=True)
+    server.start()
+    try:
+        def client(part: int):
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=120)
+            out = []
+            try:
+                for b in range(part, len(bodies), INGEST_THREADS):
+                    t0 = time.perf_counter()
+                    status, res = _http_call(
+                        conn, "POST", f"/batch/events.json?accessKey={key}",
+                        bodies[b])
+                    out.append((b, time.perf_counter() - t0, status, res))
+            finally:
+                conn.close()
+            return out
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(INGEST_THREADS) as pool:
+            parts = [f.result() for f in
+                     [pool.submit(client, p) for p in range(INGEST_THREADS)]]
+        ingest_s = time.perf_counter() - t0
+        results = sorted(r for part in parts for r in part)
+        assert len(results) == len(bodies)
+        for _b, _s, status, res in results:
+            assert status == 200, (status, res)
+            assert [r["status"] for r in res] == [201] * len(res), res[:3]
+        first_id = results[0][3][0]["eventId"]
+        lat_ms = np.array([s for _b, s, _st, _r in results]) * 1e3
+
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        try:
+            one = [{"event": "rate", "entityType": "user", "entityId": "x",
+                    "targetEntityType": "item", "targetEntityId": "y"}]
+            probes = {
+                "missing_key": _http_call(conn, "POST", "/events.json",
+                                          one[0])[0],
+                "limited_key": _http_call(
+                    conn, "POST", f"/events.json?accessKey={limited}",
+                    one[0])[0],
+                "batch_of_51": _http_call(
+                    conn, "POST", f"/batch/events.json?accessKey={key}",
+                    one * 51)[0],
+            }
+            status, latest = _http_call(
+                conn, "GET", f"/events.json?accessKey={key}&limit=5"
+                "&reversed=true")
+            probes["find_latest_5"] = status
+            assert len(latest) == 5, latest
+            path = f"/events/{first_id}.json?accessKey={key}"
+            probes["get"] = _http_call(conn, "GET", path)[0]
+            probes["delete"] = _http_call(conn, "DELETE", path)[0]
+            probes["get_deleted"] = _http_call(conn, "GET", path)[0]
+            status, stats = _http_call(conn, "GET",
+                                       f"/stats.json?accessKey={key}")
+        finally:
+            conn.close()
+    finally:
+        server.shutdown()
+    assert probes == {"missing_key": 401, "limited_key": 403,
+                      "batch_of_51": 400, "find_latest_5": 200, "get": 200,
+                      "delete": 200, "get_deleted": 404}, probes
+    assert status == 200 and stats["statusCount"]["201"] == n_events, stats
+
+    # the training read: the log's native scan, or sqlite's frame path
+    events_backend = storage.get_events()
+    assert isinstance(events_backend, EventLogEvents) == (
+        backend == "eventlog"), type(events_backend)
+    assert hasattr(events_backend, "interactions") == (backend == "eventlog")
+    t0 = time.perf_counter()
+    inter = EventStore(storage).interactions(app_name, value_key="rating")
+    read_s = time.perf_counter() - t0
+    got = np.stack([
+        np.char.lstrip(inter.entity_map.decode(inter.rows), "u").astype(
+            np.int64),
+        np.char.lstrip(inter.target_map.decode(inter.cols), "i").astype(
+            np.int64),
+        inter.values.astype(np.int64),
+    ])
+    # the deleted event was the first batch's first
+    want = np.stack([rows[1:], cols[1:], vals[1:]]).astype(np.int64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert np.array_equal(got[:, np.lexsort(got[::-1])],
+                          want[:, np.lexsort(want[::-1])]), "triples differ"
+
+    out = {
+        "backend": backend,
+        "events": n_events,
+        "batch_requests": len(bodies),
+        "ingest_s": ingest_s,
+        "events_per_s": n_events / ingest_s,
+        "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+        "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+        "interactions_read_s": read_s,
+        "probes": probes,
+    }
+    out.update(train_and_serve(device, storage, app_name,
+                               f"chip-smoke-ingest-{backend}", seed))
+    return out
 
 
 # -- main ---------------------------------------------------------------------
@@ -1021,6 +1220,31 @@ def main() -> int:
         dase = dase_phase(device, store, args.seed)
     log("dase " + json.dumps(dase))
     log(f"phase dase: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    ingest = {}
+    for backend, n in (("eventlog", DASE[2]), ("sqlite", SQLITE_EVENTS)):
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-ingest-") as d:
+            ingest[backend] = ingest_phase(device, d, backend, n, args.seed)
+        log("ingest " + json.dumps(ingest[backend]))
+    for backend, run in ingest.items():
+        log(f"ingest {backend}: {run['events']} events in "
+            f"{run['batch_requests']} batch requests, "
+            f"{run['events_per_s']:.0f} events/s, batch p50 "
+            f"{run['batch_p50_ms']:.2f} ms p99 {run['batch_p99_ms']:.2f} ms")
+    log(f"interactions read: eventlog native scan "
+        f"{ingest['eventlog']['interactions_read_s']:.3f} s "
+        f"({DASE[2]} events), sqlite frame path "
+        f"{ingest['sqlite']['interactions_read_s']:.3f} s "
+        f"({SQLITE_EVENTS} events), memory frame path (phase 7) "
+        f"{dase['read_s']:.3f} s ({DASE[2]} events)")
+    for backend, run in ingest.items():
+        log(f"ingest {backend} train: read {run['read_s']:.3f} s, prepare "
+            f"{run['prepare_s']:.3f} s, train {run['train_s']:.3f} s, "
+            f"persist {run['persist_s']:.3f} s; answers checked "
+            f"{run['answers_checked']}, tied swaps {run['tied_mismatches']}, "
+            f"max score error {run['max_abs_err']:.3g}, f32 launches "
+            f"{run['launches']['f32']}")
+    log(f"phase ingest: ok ({time.perf_counter() - t_start:.1f} s)")
 
     kernels = []
     for form in FORMS:

@@ -4,12 +4,13 @@ Counterpart of ``Storage`` in ``predictionio_tpu/data/storage/__init__.py``
 with the same variables: sources are declared with
 ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-source keys such as ``PATH``)
 and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA
-(apps, channels, engine instances), EVENTDATA (events) and MODELDATA
-(model blobs). The port knows two backend types: ``memory`` (all of
-them) and ``localfs`` (models only); sqlite and the native event log
-come with the event-server slice. With no source declared, metadata and
-events live in memory and models under ``$PIO_FS_BASEDIR/models``
-(default ``~/.piotpu/models``), the JAX package's model directory.
+(apps, access keys, channels, engine manifests, engine and evaluation
+instances), EVENTDATA (events) and MODELDATA (model blobs). The port
+knows four backend types: ``memory`` and ``sqlite`` (every DAO),
+``localfs`` (models only) and ``eventlog``, the native event log (events
+only). With no source declared, the wiring is the JAX package's:
+metadata and events in ``$PIO_FS_BASEDIR/pio.sqlite``, models under
+``$PIO_FS_BASEDIR/models`` (default base ``~/.piotpu``).
 """
 
 from __future__ import annotations
@@ -18,14 +19,27 @@ import os
 import threading
 from typing import Mapping
 
-from predictionio_tpu_torch.data.storage import localfs, memory
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage import (
+    eventlog,
+    localfs,
+    memory,
+    sql_common,
+    sqlite,
+)
 from predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
+    AccessKeysBackend,
     App,
     AppsBackend,
     Channel,
     ChannelsBackend,
     EngineInstance,
     EngineInstancesBackend,
+    EngineManifest,
+    EngineManifestsBackend,
+    EvaluationInstance,
+    EvaluationInstancesBackend,
     EventsBackend,
     Model,
     ModelsBackend,
@@ -33,22 +47,37 @@ from predictionio_tpu_torch.data.storage.base import (
 )
 
 __all__ = [
-    "App", "AppsBackend", "Channel", "ChannelsBackend", "EngineInstance",
-    "EngineInstancesBackend", "EventsBackend", "Model", "ModelsBackend",
-    "Storage", "StorageError", "get_storage", "set_storage",
+    "AccessKey", "AccessKeysBackend", "App", "AppsBackend", "Channel",
+    "ChannelsBackend", "EngineInstance", "EngineInstancesBackend",
+    "EngineManifest", "EngineManifestsBackend", "EvaluationInstance",
+    "EvaluationInstancesBackend", "EventsBackend", "Model",
+    "ModelsBackend", "Storage", "StorageError", "get_storage",
+    "set_storage",
 ]
 
 
 class _MemoryClient:
     def __init__(self, config: dict):
         self.apps = memory.MemoryApps()
+        self.access_keys = memory.MemoryAccessKeys()
         self.channels = memory.MemoryChannels()
         self.engine_instances = memory.MemoryEngineInstances()
+        self.engine_manifests = memory.MemoryEngineManifests()
+        self.evaluation_instances = memory.MemoryEvaluationInstances()
         self.models = memory.MemoryModels()
         self.events = memory.MemoryEvents()
 
 
-_MEMORY_DAOS = ("apps", "channels", "engine_instances", "models", "events")
+_SQL_DAOS = {
+    "apps": sql_common.SQLApps,
+    "access_keys": sql_common.SQLAccessKeys,
+    "channels": sql_common.SQLChannels,
+    "engine_instances": sql_common.SQLEngineInstances,
+    "engine_manifests": sql_common.SQLEngineManifests,
+    "evaluation_instances": sql_common.SQLEvaluationInstances,
+    "models": sql_common.SQLModels,
+    "events": sql_common.SQLEvents,
+}
 
 #: type name → (client factory, {dao attribute: factory(client)})
 _BACKENDS = {
@@ -56,14 +85,19 @@ _BACKENDS = {
         _MemoryClient,
         {
             name: (lambda c, name=name: getattr(c, name))
-            for name in _MEMORY_DAOS
+            for name in _SQL_DAOS
         },
     ),
+    "sqlite": (sqlite.SQLiteClient, _SQL_DAOS),
     "localfs": (
         lambda config: config,
         {"models": lambda config: localfs.LocalFSModels(config)},
     ),
+    "eventlog": (eventlog.EventLogEvents, {"events": lambda client: client}),
 }
+
+#: the JAX package's networked backends, not ported yet
+_NOT_PORTED = ("postgres", "mysql", "httpstore", "replicated")
 
 _REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -74,6 +108,7 @@ class Storage:
     def __init__(self, env: Mapping[str, str] | None = None):
         self._env = dict(env if env is not None else os.environ)
         self._clients: dict[str, object] = {}
+        self._daos: dict[tuple[str, str], object] = {}
         self._specs: dict[str, tuple[str, dict]] = {}
         self._repo_source: dict[str, str] = {}
         self._lock = threading.Lock()
@@ -91,6 +126,11 @@ class Storage:
             type_name = conf.get("TYPE")
             if type_name is None:
                 continue
+            if type_name in _NOT_PORTED:
+                raise StorageError(
+                    f"storage source {name}: backend type {type_name!r} is "
+                    "not ported yet (ROADMAP.md, queue 1, item 3b)"
+                )
             if type_name not in _BACKENDS:
                 raise StorageError(
                     f"storage source {name}: unknown backend type "
@@ -109,20 +149,25 @@ class Storage:
             self._default_wiring()
 
     def _default_wiring(self) -> None:
+        """Zero-config default: sqlite for metadata and events, localfs
+        models, under ``PIO_FS_BASEDIR`` (default ``~/.piotpu``)."""
         base = self._env.get(
             "PIO_FS_BASEDIR",
             os.path.join(os.path.expanduser("~"), ".piotpu"),
         )
         self._specs = {
-            "MEMORY": ("memory", {"TYPE": "memory"}),
+            "SQLITE": (
+                "sqlite",
+                {"TYPE": "sqlite", "PATH": os.path.join(base, "pio.sqlite")},
+            ),
             "LOCALFS": (
                 "localfs",
                 {"TYPE": "localfs", "PATH": os.path.join(base, "models")},
             ),
         }
         self._repo_source = {
-            "METADATA": "MEMORY",
-            "EVENTDATA": "MEMORY",
+            "METADATA": "SQLITE",
+            "EVENTDATA": "SQLITE",
             "MODELDATA": "LOCALFS",
         }
 
@@ -132,6 +177,21 @@ class Storage:
                 type_name, conf = self._specs[source]
                 self._clients[source] = _BACKENDS[type_name][0](conf)
             return self._clients[source]
+
+    def _source_dao(self, source: str, attr: str, repo: str):
+        type_name, _conf = self._specs[source]
+        factory = _BACKENDS[type_name][1].get(attr)
+        if factory is None:
+            raise StorageError(
+                f"storage source {source} does not support {attr} "
+                f"(repository {repo})"
+            )
+        client = self._client(source)
+        with self._lock:
+            dao = self._daos.get((source, attr))
+            if dao is None:
+                dao = self._daos[(source, attr)] = factory(client)
+            return dao
 
     def _dao(self, repo: str, attr: str):
         source = self._repo_source.get(repo)
@@ -144,17 +204,13 @@ class Storage:
                     f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE to one of "
                     f"{sorted(self._specs)}"
                 )
-        type_name, _conf = self._specs[source]
-        factory = _BACKENDS[type_name][1].get(attr)
-        if factory is None:
-            raise StorageError(
-                f"storage source {source} does not support {attr} "
-                f"(repository {repo})"
-            )
-        return factory(self._client(source))
+        return self._source_dao(source, attr, repo)
 
     def get_meta_data_apps(self) -> AppsBackend:
         return self._dao("METADATA", "apps")
+
+    def get_meta_data_access_keys(self) -> AccessKeysBackend:
+        return self._dao("METADATA", "access_keys")
 
     def get_meta_data_channels(self) -> ChannelsBackend:
         return self._dao("METADATA", "channels")
@@ -162,11 +218,59 @@ class Storage:
     def get_meta_data_engine_instances(self) -> EngineInstancesBackend:
         return self._dao("METADATA", "engine_instances")
 
+    def get_meta_data_engine_manifests(self) -> EngineManifestsBackend:
+        return self._dao("METADATA", "engine_manifests")
+
+    def get_meta_data_evaluation_instances(
+        self,
+    ) -> EvaluationInstancesBackend:
+        return self._dao("METADATA", "evaluation_instances")
+
     def get_model_data_models(self) -> ModelsBackend:
         return self._dao("MODELDATA", "models")
 
     def get_events(self) -> EventsBackend:
         return self._dao("EVENTDATA", "events")
+
+    def backend_for_source(self, source: str) -> EventsBackend:
+        """Events backend of one declared source, whatever the
+        repository bindings (a migration reads one source, writes
+        another)."""
+        if source not in self._specs:
+            raise StorageError(
+                f"unknown storage source {source}; declared: "
+                f"{sorted(self._specs)}"
+            )
+        return self._source_dao(source, "events", "EVENTDATA")
+
+    def verify_all_data_objects(self) -> list[str]:
+        """Build every DAO, then write and remove one event on app id 0;
+        returns the problems found (empty = healthy)."""
+        problems: list[str] = []
+        for name in (
+            "get_meta_data_apps",
+            "get_meta_data_access_keys",
+            "get_meta_data_channels",
+            "get_meta_data_engine_instances",
+            "get_meta_data_engine_manifests",
+            "get_meta_data_evaluation_instances",
+            "get_model_data_models",
+        ):
+            try:
+                getattr(self, name)()
+            except Exception as e:  # noqa: BLE001 - health check surface
+                problems.append(f"{name}: {e}")
+        try:
+            events = self.get_events()
+            events.init(0)
+            eid = events.insert(
+                Event(event="$set", entity_type="health", entity_id="0"), 0
+            )
+            events.delete(eid, 0)
+            events.remove(0)
+        except Exception as e:  # noqa: BLE001 - health check surface
+            problems.append(f"events: {e}")
+        return problems
 
 
 _default_storage: Storage | None = None

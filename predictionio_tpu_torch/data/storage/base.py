@@ -1,10 +1,9 @@
 """Storage records and DAO interfaces that training and deploy use.
 
 Counterpart of ``predictionio_tpu/data/storage/base.py``: the ``App``,
-``Channel``, ``EngineInstance`` and ``Model`` records and the apps,
-channels, events, engine-instance and model interfaces. Access keys,
-manifests and evaluation records come with the event-server and
-evaluation slices.
+``AccessKey``, ``Channel``, ``EngineManifest``, ``EngineInstance``,
+``EvaluationInstance`` and ``Model`` records and one DAO interface for
+each, plus ``PartialBatchError`` for batch inserts that fail partway.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime as _dt
+import secrets
 from typing import Iterator, Sequence
 
 from predictionio_tpu_torch.data.event import Event
@@ -21,11 +21,31 @@ class StorageError(RuntimeError):
     """Unknown backend types, unbound repositories, unsupported DAOs."""
 
 
+class PartialBatchError(StorageError):
+    """A batch insert failed partway; ``inserted_ids`` are the events
+    durably stored BEFORE the failure (an append-only backend cannot roll
+    them back), so callers can report per-event success and clients
+    resend only the unsaved suffix."""
+
+    def __init__(self, message: str, inserted_ids: list[str]):
+        super().__init__(message)
+        self.inserted_ids = inserted_ids
+
+
 @dataclasses.dataclass(frozen=True)
 class App:
     id: int
     name: str
     description: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AccessKey:
+    """An app's event-API key; empty ``events`` allows every event."""
+
+    key: str
+    appid: int
+    events: tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +62,18 @@ class Channel:
             0 < len(name) <= 16
             and all(c.isalnum() or c in "-_" for c in name)
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineManifest:
+    """A registered engine build, keyed by (id, version)."""
+
+    id: str
+    version: str
+    name: str
+    description: str | None = None
+    files: tuple[str, ...] = ()
+    engine_factory: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +95,23 @@ class EngineInstance:
     preparator_params: str = "{}"
     algorithms_params: str = "[]"
     serving_params: str = "{}"
+
+
+@dataclasses.dataclass(frozen=True)
+class EvaluationInstance:
+    """An evaluation run record."""
+
+    id: str
+    status: str  # INIT | EVALUATING | EVALCOMPLETED
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = dataclasses.field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +143,32 @@ class AppsBackend(abc.ABC):
     def delete(self, app_id: int) -> bool: ...
 
 
+class AccessKeysBackend(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> str | None:
+        """Insert; empty ``key`` means generate one. Returns the key."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> AccessKey | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        """64 url-safe random characters."""
+        return secrets.token_urlsafe(48)
+
+
 class ChannelsBackend(abc.ABC):
     @abc.abstractmethod
     def insert(self, channel: Channel) -> int | None: ...
@@ -106,6 +181,23 @@ class ChannelsBackend(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, channel_id: int) -> bool: ...
+
+
+class EngineManifestsBackend(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, manifest: EngineManifest) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, manifest_id: str, version: str) -> EngineManifest | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def update(self, manifest: EngineManifest, upsert: bool = False) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, manifest_id: str, version: str) -> bool: ...
 
 
 class EngineInstancesBackend(abc.ABC):
@@ -132,6 +224,26 @@ class EngineInstancesBackend(abc.ABC):
 
     @abc.abstractmethod
     def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstancesBackend(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EvaluationInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -1,9 +1,8 @@
-"""In-process storage: apps, channels, events, engine instances and
-model blobs.
+"""In-process storage: every DAO with plain dicts behind a lock.
 
-Counterpart of ``MemoryApps``, ``MemoryChannels``, ``MemoryEvents``,
-``MemoryEngineInstances`` and ``MemoryModels`` in
-``predictionio_tpu/data/storage/memory.py``.
+Counterpart of ``predictionio_tpu/data/storage/memory.py``: apps, access
+keys, channels, engine manifests, engine and evaluation instances, model
+blobs and events.
 """
 
 from __future__ import annotations
@@ -17,12 +16,18 @@ from typing import Iterator, Sequence
 
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import (
+    AccessKey,
+    AccessKeysBackend,
     App,
     AppsBackend,
     Channel,
     ChannelsBackend,
     EngineInstance,
     EngineInstancesBackend,
+    EngineManifest,
+    EngineManifestsBackend,
+    EvaluationInstance,
+    EvaluationInstancesBackend,
     EventsBackend,
     Model,
     ModelsBackend,
@@ -67,6 +72,42 @@ class MemoryApps(AppsBackend):
     def delete(self, app_id: int) -> bool:
         with self._lock:
             return self._apps.pop(app_id, None) is not None
+
+
+class MemoryAccessKeys(AccessKeysBackend):
+    def __init__(self, config=None):
+        self._lock = threading.Lock()
+        self._keys: dict[str, AccessKey] = {}
+
+    def insert(self, access_key: AccessKey) -> str | None:
+        with self._lock:
+            key = access_key.key or self.generate_key()
+            if key in self._keys:
+                return None
+            self._keys[key] = AccessKey(
+                key, access_key.appid, tuple(access_key.events)
+            )
+            return key
+
+    def get(self, key: str) -> AccessKey | None:
+        return self._keys.get(key)
+
+    def get_all(self) -> list[AccessKey]:
+        return list(self._keys.values())
+
+    def get_by_app_id(self, app_id: int) -> list[AccessKey]:
+        return [k for k in self._keys.values() if k.appid == app_id]
+
+    def update(self, access_key: AccessKey) -> bool:
+        with self._lock:
+            if access_key.key not in self._keys:
+                return False
+            self._keys[access_key.key] = access_key
+            return True
+
+    def delete(self, key: str) -> bool:
+        with self._lock:
+            return self._keys.pop(key, None) is not None
 
 
 class MemoryChannels(ChannelsBackend):
@@ -140,6 +181,70 @@ class MemoryEngineInstances(EngineInstancesBackend):
         return completed[0] if completed else None
 
     def update(self, instance: EngineInstance) -> bool:
+        with self._lock:
+            if instance.id not in self._instances:
+                return False
+            self._instances[instance.id] = instance
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._lock:
+            return self._instances.pop(instance_id, None) is not None
+
+
+class MemoryEngineManifests(EngineManifestsBackend):
+    def __init__(self, config=None):
+        self._lock = threading.Lock()
+        self._manifests: dict[tuple[str, str], EngineManifest] = {}
+
+    def insert(self, manifest: EngineManifest) -> None:
+        with self._lock:
+            self._manifests[(manifest.id, manifest.version)] = manifest
+
+    def get(self, manifest_id: str, version: str) -> EngineManifest | None:
+        return self._manifests.get((manifest_id, version))
+
+    def get_all(self) -> list[EngineManifest]:
+        return list(self._manifests.values())
+
+    def update(self, manifest: EngineManifest, upsert: bool = False) -> None:
+        with self._lock:
+            key = (manifest.id, manifest.version)
+            if key not in self._manifests and not upsert:
+                raise KeyError(f"engine manifest {key} not found")
+            self._manifests[key] = manifest
+
+    def delete(self, manifest_id: str, version: str) -> bool:
+        with self._lock:
+            return (
+                self._manifests.pop((manifest_id, version), None) is not None
+            )
+
+
+class MemoryEvaluationInstances(EvaluationInstancesBackend):
+    def __init__(self, config=None):
+        self._lock = threading.Lock()
+        self._instances: dict[str, EvaluationInstance] = {}
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        with self._lock:
+            iid = instance.id or uuid.uuid4().hex
+            self._instances[iid] = dataclasses.replace(instance, id=iid)
+            return iid
+
+    def get(self, instance_id: str) -> EvaluationInstance | None:
+        return self._instances.get(instance_id)
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def get_completed(self) -> list[EvaluationInstance]:
+        out = [
+            i for i in self._instances.values() if i.status == "EVALCOMPLETED"
+        ]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+    def update(self, instance: EvaluationInstance) -> bool:
         with self._lock:
             if instance.id not in self._instances:
                 return False

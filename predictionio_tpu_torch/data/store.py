@@ -86,9 +86,22 @@ class EventStore:
         value_key: str | None = None,
         default_value: float = 1.0,
     ) -> Interactions:
-        """Dense COO interactions for training reads (through the
-        columnar frame: the port's only event backend, memory, has no
-        native scan)."""
+        """Dense COO interactions for training reads.
+
+        Dispatches to the backend's native columnar scan when it has one
+        (the event log scans straight to dense-id arrays); otherwise
+        goes through the ``EventFrame`` conversion.
+        """
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        backend = self._storage.get_events()
+        if hasattr(backend, "interactions"):
+            return backend.interactions(
+                app_id,
+                channel_id,
+                event_names=event_names,
+                value_key=value_key,
+                default_value=default_value,
+            )
         frame = self.frame(
             app_name, channel_name=channel_name, event_names=event_names
         )

@@ -27,13 +27,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import logging
 import math
 import os
-import subprocess
-import threading
-from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -43,16 +39,10 @@ from predictionio_tpu_torch.parallel.mesh import (
     ComputeContext,
     assert_phantom_rows_zero,
 )
+from predictionio_tpu_torch.utils import native
 from predictionio_tpu_torch.utils.profiling import sync
 
 logger = logging.getLogger(__name__)
-
-_ROOT = Path(__file__).resolve().parents[2]
-#: the C++ fill pass shared with the JAX package (read, never written)
-ALSPACK_SOURCE = _ROOT / "native" / "alspack.cc"
-#: where the port builds it: the JAX package's loader owns native/
-NATIVE_BUILD_DIR = _ROOT / "build" / "native"
-_GXX = ("g++", "-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 # --------------------------------------------------------------------------
@@ -175,63 +165,23 @@ class Bucketed:
         return total
 
 
-_alspack_lock = threading.Lock()
-_alspack: dict[str, ctypes.CDLL | None] = {}
-
-
-def alspack_library_path() -> Path:
-    """``build/native/libpio_alspack_<hash>.so``: keyed by the source
-    and the compiler flags, so an edited source builds anew."""
-    digest = hashlib.sha256(
-        ALSPACK_SOURCE.read_bytes() + " ".join(_GXX).encode()
-    ).hexdigest()[:16]
-    return NATIVE_BUILD_DIR / f"libpio_alspack_{digest}.so"
-
-
-def _build_alspack() -> Path:
-    out = alspack_library_path()
-    if out.exists():
-        return out
-    NATIVE_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(
-            [*_GXX, "-o", str(tmp), str(ALSPACK_SOURCE)],
-            check=True, capture_output=True, text=True,
-        )
-        os.replace(tmp, out)  # another process sees the old or the new
-    finally:
-        if tmp.exists():
-            tmp.unlink()
-    return out
-
-
 def _load_alspack():
-    """ctypes handle to the native fill pass, built with ``g++`` on first
-    use into ``build/native/``; None when ``PIO_NO_NATIVE=1`` or when the
-    source or the compiler is missing — callers then take the numpy
-    path, which gives identical arrays."""
+    """ctypes handle to the native fill pass, built on first use into
+    ``build/native/`` by :mod:`predictionio_tpu_torch.utils.native`
+    (which raises when the build fails); None when ``PIO_NO_NATIVE=1``
+    asks for the numpy path, which gives identical arrays."""
     if os.environ.get("PIO_NO_NATIVE", "").strip() in ("1", "true"):
         return None
-    with _alspack_lock:
-        if "alspack" not in _alspack:
-            try:
-                lib = ctypes.CDLL(str(_build_alspack()))
-            except (OSError, subprocess.CalledProcessError) as e:
-                logger.warning("native alspack unavailable (%s); packing "
-                               "with numpy", e)
-                lib = None
-            else:
-                c = ctypes
-                lib.pio_alspack_fill.restype = None
-                lib.pio_alspack_fill.argtypes = [
-                    c.POINTER(c.c_int32), c.POINTER(c.c_int32),
-                    c.POINTER(c.c_float), c.c_int64, c.POINTER(c.c_int64),
-                    c.POINTER(c.c_int64), c.POINTER(c.c_int32),
-                    c.POINTER(c.c_float), c.POINTER(c.c_float),
-                ]
-            _alspack["alspack"] = lib
-        return _alspack["alspack"]
+    lib = native.load("alspack")
+    c = ctypes
+    lib.pio_alspack_fill.restype = None
+    lib.pio_alspack_fill.argtypes = [
+        c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+        c.POINTER(c.c_float), c.c_int64, c.POINTER(c.c_int64),
+        c.POINTER(c.c_int64), c.POINTER(c.c_int32),
+        c.POINTER(c.c_float), c.POINTER(c.c_float),
+    ]
+    return lib
 
 
 def _fill_flat(rows, cols, vals, off_of_row, total_flat, deg):
@@ -250,8 +200,6 @@ def _fill_flat(rows, cols, vals, off_of_row, total_flat, deg):
         return flat_idx, flat_w, flat_vd
     lib = _load_alspack()
     if lib is not None:
-        import ctypes
-
         c = ctypes
         cursor = np.zeros(len(off_of_row), np.int64)
         off64 = np.ascontiguousarray(off_of_row, np.int64)

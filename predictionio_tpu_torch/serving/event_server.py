@@ -1,0 +1,388 @@
+"""Event server: REST event collection (default port 7070).
+
+Counterpart of ``predictionio_tpu/serving/event_server.py``, with the
+same routes, status codes and bodies:
+
+* auth by ``accessKey`` query parameter or HTTP Basic user name, with an
+  optional ``channel`` query parameter;
+* ``GET  /``                     → alive status
+* ``POST /events.json``          → 201 {"eventId"} (the access key's
+  event-name whitelist enforced)
+* ``GET  /events.json``          → filtered query (every filter, ``limit``,
+  ``reversed``; ``targetEntity*=none`` means "must be absent")
+* ``GET/DELETE /events/<id>.json``
+* ``POST /batch/events.json``    → at most 50 events, a status per event
+* ``GET  /stats.json``           → hourly counters (``stats=True``)
+* ``POST /webhooks/<name>.json`` / ``.form`` → connector-mapped events
+* ``GET  /webhooks/<name>.json`` / ``.form`` → connector probe, 200 / 404
+* ``GET  /plugins.json``, ``/plugins/inputsniffer/<name>/<path>``
+
+Not ported yet (ROADMAP.md, queue 1): admission control, TLS and the
+``/debug`` routes of ``server_config``, ``reuse_port`` workers (item 5);
+the metric registry with its ``pio_events_ingested_total`` counter, the
+tracer and its spans, the metrics routes and the ``/healthz`` extras
+(item 8). The constructor takes none of their options.
+"""
+
+from __future__ import annotations
+
+import base64
+import datetime as _dt
+import logging
+import os
+from typing import Callable
+
+from predictionio_tpu_torch.data.event import Event, EventValidationError
+from predictionio_tpu_torch.data.storage import Storage, get_storage
+from predictionio_tpu_torch.data.storage.base import PartialBatchError
+from predictionio_tpu_torch.serving.http import (
+    HTTPError,
+    HTTPServer,
+    Request,
+    Response,
+    Router,
+)
+from predictionio_tpu_torch.serving.plugins import (
+    INPUT_SNIFFER,
+    PluginContext,
+    PluginRejection,
+    install_plugin_routes,
+)
+from predictionio_tpu_torch.serving.stats import Stats
+from predictionio_tpu_torch.serving.webhooks import (
+    FORM_CONNECTORS,
+    JSON_CONNECTORS,
+    ConnectorError,
+)
+
+logger = logging.getLogger(__name__)
+
+MAX_BATCH_SIZE = 50
+
+#: input blocker: raise to reject an event before storage
+InputBlocker = Callable[[Event, int, int | None], None]
+
+
+class EventServer:
+    def __init__(
+        self,
+        storage: Storage | None = None,
+        stats: bool = False,
+        input_blockers: list[InputBlocker] | None = None,
+        plugins: PluginContext | None = None,
+    ):
+        self._storage = storage or get_storage()
+        self._stats = Stats() if stats else None
+        self._input_blockers = list(input_blockers or [])
+        self._plugins = plugins or PluginContext()
+        self.router = Router()
+        r = self.router
+        r.route("GET", "/", self._status)
+        r.route("POST", "/events.json", self._create_event)
+        r.route("GET", "/events.json", self._find_events)
+        r.route("GET", "/events/<event_id>.json", self._get_event)
+        r.route("DELETE", "/events/<event_id>.json", self._delete_event)
+        r.route("POST", "/batch/events.json", self._batch)
+        r.route("GET", "/stats.json", self._stats_route)
+        r.route("POST", "/webhooks/<name>.json", self._webhook_json)
+        r.route("POST", "/webhooks/<name>.form", self._webhook_form)
+        r.route("GET", "/webhooks/<name>.json", self._webhook_json_probe)
+        r.route("GET", "/webhooks/<name>.form", self._webhook_form_probe)
+        install_plugin_routes(r, self._plugins, INPUT_SNIFFER)
+
+    # -- auth -------------------------------------------------------------
+    def _auth(self, request: Request) -> tuple[int, int | None, tuple]:
+        key = request.query.get("accessKey")
+        if key is None:
+            auth = request.headers.get("Authorization", "")
+            if auth.startswith("Basic "):
+                try:
+                    decoded = base64.b64decode(auth[6:]).decode()
+                    key = decoded.split(":", 1)[0]
+                except ValueError:  # bad base64 or not UTF-8
+                    key = None
+        if not key:
+            raise HTTPError(401, "Missing accessKey.")
+        access_key = self._storage.get_meta_data_access_keys().get(key)
+        if access_key is None:
+            raise HTTPError(401, "Invalid accessKey.")
+        channel_id = None
+        channel_name = request.query.get("channel")
+        if channel_name is not None:
+            channels = self._storage.get_meta_data_channels().get_by_app_id(
+                access_key.appid
+            )
+            match = next(
+                (c for c in channels if c.name == channel_name), None
+            )
+            if match is None:
+                raise HTTPError(400, "Invalid channel.")
+            channel_id = match.id
+        return access_key.appid, channel_id, tuple(access_key.events)
+
+    def _count(
+        self, app_id: int, status: int, event: Event | None = None
+    ) -> None:
+        """One ingest observation into the hourly ``/stats.json`` view,
+        when ``stats`` is on."""
+        if self._stats:
+            self._stats.update(app_id, status, event)
+
+    # -- routes -----------------------------------------------------------
+    def _status(self, request: Request) -> Response:
+        # pid: which process answered (the JAX package's multi-worker
+        # servers need it; kept so both packages answer alike)
+        return Response(200, {"status": "alive", "pid": os.getpid()})
+
+    def _validate(
+        self, event: Event, app_id: int, channel_id, whitelist
+    ) -> dict | None:
+        """Everything that can reject an event, without storing it.
+        Returns the event's JSON form when plugins are registered (the
+        caller passes it to the sniffers after the store)."""
+        if whitelist and event.event not in whitelist:
+            raise HTTPError(
+                403, f"{event.event} events are not allowed"
+            )
+        for blocker in self._input_blockers:
+            blocker(event, app_id, channel_id)
+        # only pay the JSON build when plugins are registered
+        event_json = (
+            event.to_json_dict() if self._plugins.plugins else None
+        )
+        if event_json is not None:
+            try:
+                self._plugins.block_input(
+                    event_json, app_id, channel_id
+                )
+            except PluginRejection as e:
+                raise HTTPError(e.status, str(e)) from e
+        return event_json
+
+    def _store(self, event: Event, app_id: int, channel_id, whitelist):
+        event_json = self._validate(event, app_id, channel_id, whitelist)
+        event_id = self._storage.get_events().insert(
+            event, app_id, channel_id
+        )
+        if event_json is not None:
+            self._plugins.sniff_input(event_json, app_id, channel_id)
+        return event_id
+
+    def _create_event(self, request: Request) -> Response:
+        app_id, channel_id, whitelist = self._auth(request)
+        try:
+            event = Event.from_json_dict(request.json() or {})
+            event_id = self._store(event, app_id, channel_id, whitelist)
+        except (EventValidationError, HTTPError) as e:
+            status = e.status if isinstance(e, HTTPError) else 400
+            self._count(app_id, status)
+            if isinstance(e, HTTPError):
+                raise
+            raise HTTPError(400, str(e)) from e
+        self._count(app_id, 201, event)
+        return Response(201, {"eventId": event_id})
+
+    def _parse_time(self, raw: str | None) -> _dt.datetime | None:
+        if raw is None:
+            return None
+        try:
+            t = _dt.datetime.fromisoformat(raw.replace("Z", "+00:00"))
+        except ValueError as e:
+            raise HTTPError(400, f"bad time {raw!r}: {e}") from e
+        return t if t.tzinfo else t.replace(tzinfo=_dt.timezone.utc)
+
+    def _find_events(self, request: Request) -> Response:
+        app_id, channel_id, _ = self._auth(request)
+        q = request.query
+        # tri-state target filters: "none" means must-be-absent
+        tet = q.get("targetEntityType", ...)
+        tei = q.get("targetEntityId", ...)
+        tet = None if tet == "none" else tet
+        tei = None if tei == "none" else tei
+        try:
+            limit = int(q.get("limit", 20))
+        except ValueError as e:
+            raise HTTPError(400, f"bad limit: {e}") from e
+        events = self._storage.get_events().find(
+            app_id,
+            channel_id,
+            start_time=self._parse_time(q.get("startTime")),
+            until_time=self._parse_time(q.get("untilTime")),
+            entity_type=q.get("entityType"),
+            entity_id=q.get("entityId"),
+            event_names=[q["event"]] if "event" in q else None,
+            target_entity_type=tet,
+            target_entity_id=tei,
+            limit=limit,
+            reversed=q.get("reversed", "false").lower() == "true",
+        )
+        return Response(200, [e.to_json_dict() for e in events])
+
+    def _get_event(self, request: Request) -> Response:
+        app_id, channel_id, _ = self._auth(request)
+        event = self._storage.get_events().get(
+            request.path_params["event_id"], app_id, channel_id
+        )
+        if event is None:
+            raise HTTPError(404, "event not found")
+        return Response(200, event.to_json_dict())
+
+    def _delete_event(self, request: Request) -> Response:
+        app_id, channel_id, _ = self._auth(request)
+        found = self._storage.get_events().delete(
+            request.path_params["event_id"], app_id, channel_id
+        )
+        if not found:
+            raise HTTPError(404, "event not found")
+        return Response(200, {"message": "deleted"})
+
+    def _batch(self, request: Request) -> Response:
+        """A status per event: validate every event first, then store the
+        accepted ones in one ``insert_batch``."""
+        app_id, channel_id, whitelist = self._auth(request)
+        payload = request.json()
+        if not isinstance(payload, list):
+            raise HTTPError(400, "request body must be a JSON array")
+        if len(payload) > MAX_BATCH_SIZE:
+            raise HTTPError(
+                400,
+                f"Batch request must have less than or equal to "
+                f"{MAX_BATCH_SIZE} events",
+            )
+        # one insert_batch: a backend pays its write lock or its
+        # transaction once for the batch
+        results: list[dict | None] = []
+        accepted: list[tuple[int, Event, dict | None]] = []
+        for item in payload:
+            try:
+                event = Event.from_json_dict(item)
+                event_json = self._validate(
+                    event, app_id, channel_id, whitelist
+                )
+                accepted.append((len(results), event, event_json))
+                results.append(None)  # filled after the batch insert
+            except (EventValidationError, HTTPError, TypeError) as e:
+                status = e.status if isinstance(e, HTTPError) else 400
+                results.append({"status": status, "message": str(e)})
+                self._count(app_id, status)
+        if accepted:
+            try:
+                ids = self._storage.get_events().insert_batch(
+                    [e for _, e, _ in accepted], app_id, channel_id
+                )
+            except Exception as exc:  # noqa: BLE001 - per-item contract
+                # storage failed mid-batch: keep the per-event status
+                # list (rejections already computed) instead of blowing
+                # up the whole response with a bare 500. Only
+                # PartialBatchError guarantees which prefix is durable;
+                # other failures leave saved-ness unknown, and the
+                # message must say so (a false "not saved" invites
+                # duplicating retries).
+                logger.exception("batch insert failed")
+                if isinstance(exc, PartialBatchError):
+                    saved = list(exc.inserted_ids)
+                    fail_msg = "storage error; event was not saved"
+                else:
+                    saved = []
+                    fail_msg = "storage error; event may not be saved"
+                for i, (slot, event, event_json) in enumerate(accepted):
+                    if i < len(saved):
+                        results[slot] = {
+                            "status": 201, "eventId": saved[i]
+                        }
+                        self._count(app_id, 201, event)
+                        if event_json is not None:
+                            self._plugins.sniff_input(
+                                event_json, app_id, channel_id
+                            )
+                    else:
+                        results[slot] = {
+                            "status": 500, "message": fail_msg,
+                        }
+                        self._count(app_id, 500)
+                return Response(200, results)
+            for (slot, event, event_json), event_id in zip(accepted, ids):
+                results[slot] = {"status": 201, "eventId": event_id}
+                self._count(app_id, 201, event)
+                if event_json is not None:
+                    self._plugins.sniff_input(
+                        event_json, app_id, channel_id
+                    )
+        return Response(200, results)
+
+    def _stats_route(self, request: Request) -> Response:
+        app_id, _, _ = self._auth(request)
+        if self._stats is None:
+            raise HTTPError(
+                404, "stats are not enabled (run with stats=True)"
+            )
+        return Response(200, self._stats.snapshot(app_id))
+
+    def _webhook_json(self, request: Request) -> Response:
+        app_id, channel_id, whitelist = self._auth(request)
+        connector = JSON_CONNECTORS.get(request.path_params["name"])
+        if connector is None:
+            raise HTTPError(404, "webhook connector not found")
+        try:
+            event = Event.from_json_dict(
+                connector.to_event_json(request.json() or {})
+            )
+            event_id = self._store(event, app_id, channel_id, whitelist)
+        except (ConnectorError, EventValidationError) as e:
+            raise HTTPError(400, str(e)) from e
+        self._count(app_id, 201, event)
+        return Response(201, {"eventId": event_id})
+
+    def _webhook_probe(self, request: Request, connectors) -> Response:
+        """Connector probe: 200 Ok when registered, else 404; external
+        services (segment.io) ping this before sending."""
+        self._auth(request)
+        if request.path_params["name"] not in connectors:
+            raise HTTPError(
+                404,
+                f"webhooks connection for "
+                f"{request.path_params['name']} is not supported.",
+            )
+        return Response(200, {"message": "Ok"})
+
+    def _webhook_json_probe(self, request: Request) -> Response:
+        return self._webhook_probe(request, JSON_CONNECTORS)
+
+    def _webhook_form_probe(self, request: Request) -> Response:
+        return self._webhook_probe(request, FORM_CONNECTORS)
+
+    def _webhook_form(self, request: Request) -> Response:
+        app_id, channel_id, whitelist = self._auth(request)
+        connector = FORM_CONNECTORS.get(request.path_params["name"])
+        if connector is None:
+            raise HTTPError(404, "webhook connector not found")
+        try:
+            event = Event.from_json_dict(
+                connector.to_event_json(request.form())
+            )
+            event_id = self._store(event, app_id, channel_id, whitelist)
+        except (ConnectorError, EventValidationError) as e:
+            raise HTTPError(400, str(e)) from e
+        self._count(app_id, 201, event)
+        return Response(201, {"eventId": event_id})
+
+    def close(self) -> None:
+        """Release the plugin sniffer dispatcher thread."""
+        self._plugins.close()
+
+
+def create_event_server(
+    host: str = "0.0.0.0",
+    port: int = 7070,
+    storage: Storage | None = None,
+    stats: bool = False,
+    plugins: PluginContext | None = None,
+) -> HTTPServer:
+    """An HTTP server on an :class:`EventServer` (default port 7070);
+    ``start()`` it, and ``shutdown()`` also releases the plugin
+    dispatcher."""
+    server = EventServer(storage=storage, stats=stats, plugins=plugins)
+    http = HTTPServer(server.router, host=host, port=port,
+                      service="eventserver")
+    http.add_shutdown_hook(server.close)
+    return http

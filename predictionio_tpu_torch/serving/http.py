@@ -49,6 +49,10 @@ class Request:
             return None
         return json.loads(self.body.decode("utf-8"))
 
+    def form(self) -> dict[str, str]:
+        data = parse_qs(self.body.decode("utf-8"))
+        return {k: v[0] for k, v in data.items()}
+
 
 class Response:
     def __init__(
@@ -213,6 +217,7 @@ class HTTPServer:
 
         self._httpd = _Server((host, port), _Handler)
         self._thread: threading.Thread | None = None
+        self._shutdown_hooks: list[Callable[[], None]] = []
         self.router = router
 
     @property
@@ -228,8 +233,14 @@ class HTTPServer:
     def serve_forever(self) -> None:
         self._httpd.serve_forever()
 
+    def add_shutdown_hook(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` after the server has stopped taking requests."""
+        self._shutdown_hooks.append(fn)
+
     def shutdown(self) -> None:
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        for fn in self._shutdown_hooks:
+            fn()

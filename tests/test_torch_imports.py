@@ -130,16 +130,18 @@ def test_build_is_keyed_by_source_and_lazy():
         assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
 
 
-def test_alspack_builds_under_build_never_native(tmp_path, monkeypatch):
-    """The port's loader for ``native/alspack.cc`` compiles into
-    ``build/native/`` (the JAX package's loader owns ``native/``)."""
+def _builds_under_build_never_native(tmp_path, monkeypatch, name):
+    """The port's loader compiles ``native/<name>.cc`` into
+    ``build/native/`` (the JAX package's loader owns ``native/``), once,
+    and a failed build raises with the compiler's output."""
     from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.utils import native
 
-    assert als.alspack_library_path().parent == ROOT / "build" / "native"
-    assert als.ALSPACK_SOURCE == ROOT / "native" / "alspack.cc"
+    assert native.library_path(name).parent == ROOT / "build" / "native"
+    assert native.source_path(name) == ROOT / "native" / f"{name}.cc"
     monkeypatch.delenv("PIO_NO_NATIVE", raising=False)
-    monkeypatch.setattr(als, "NATIVE_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(als, "_alspack", {})
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_loaded", {})
     outputs = []
     real_run = subprocess.run
 
@@ -147,18 +149,33 @@ def test_alspack_builds_under_build_never_native(tmp_path, monkeypatch):
         outputs.append(pathlib.Path(cmd[cmd.index("-o") + 1]))
         return real_run(cmd, *args, **kwargs)
 
-    monkeypatch.setattr(als.subprocess, "run", recording_run)
-    lib = als._load_alspack()
-    assert lib is not None and hasattr(lib, "pio_alspack_fill")
+    monkeypatch.setattr(native.subprocess, "run", recording_run)
+    lib = native.load(name)
+    assert hasattr(lib, f"pio_{name}_fill" if name == "alspack"
+                   else "pio_log_open")
     assert outputs and all(
         p.parent == tmp_path / "build" for p in outputs
     )
     assert [p.name for p in (tmp_path / "build").iterdir()] == [
-        als.alspack_library_path().name
+        native.library_path(name).name
     ]
-    monkeypatch.setenv("PIO_NO_NATIVE", "1")
-    assert als._load_alspack() is None
+    assert native.load(name) is lib and len(outputs) == 1
+    if name == "alspack":
+        assert als._load_alspack() is lib
+        monkeypatch.setenv("PIO_NO_NATIVE", "1")
+        assert als._load_alspack() is None
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(native, "GXX", ("g++", "--no-such-flag"))
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        native.load(name)
 
+
+def test_alspack_builds_under_build_never_native(tmp_path, monkeypatch):
+    _builds_under_build_never_native(tmp_path, monkeypatch, "alspack")
+
+
+def test_eventlog_builds_under_build_never_native(tmp_path, monkeypatch):
+    _builds_under_build_never_native(tmp_path, monkeypatch, "eventlog")
 
 def test_training_refuses_to_fall_back(monkeypatch):
     """With no context, training takes the CUDA device and raises

@@ -14,11 +14,16 @@ each other: the two packages' scores differ by a few 1e-6 and some
 neighbouring scores of this data lie closer than 1e-5, so the order of
 such a pair depends on summation order, not on the port.
 
+The same again with the events posted over HTTP, half to each package's
+event server, into one native event log that both packages' training
+reads through its columnar scan.
+
 Then the port's run lifecycle: COMPLETED with the parent generation and
 the watermark in the manifest and the card in the instance record,
 FAILED when there are no events, INTERRUPTED on stop-after-read.
 """
 
+import datetime as dt
 import json
 import urllib.request
 
@@ -32,6 +37,7 @@ from predictionio_tpu.core.persistence import (
 from predictionio_tpu.core.workflow import run_train as jax_run_train
 from predictionio_tpu.data.event import Event as JaxEvent
 from predictionio_tpu.data.storage import (
+    AccessKey as JaxAccessKey,
     App as JaxApp,
     Storage as JaxStorage,
     set_storage as jax_set_storage,
@@ -40,15 +46,24 @@ from predictionio_tpu.models.recommendation import (
     recommendation_engine as jax_engine,
 )
 from predictionio_tpu.serving.engine_server import EngineServer as JaxServer
+from predictionio_tpu.serving.event_server import (
+    create_event_server as jax_create_event_server,
+)
 from predictionio_tpu_torch.core.engine import WorkflowParams
 from predictionio_tpu_torch.core.persistence import load_manifest
 from predictionio_tpu_torch.core.workflow import latest_completed_id, run_train
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.data.storage import App, Storage, set_storage
+from predictionio_tpu_torch.data.storage import (
+    AccessKey,
+    App,
+    Storage,
+    set_storage,
+)
 from predictionio_tpu_torch.models.recommendation import recommendation_engine
 from predictionio_tpu_torch.ops.als import _write_checkpoint, checkpoint_path
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 from predictionio_tpu_torch.serving.engine_server import create_engine_server
+from predictionio_tpu_torch.serving.event_server import create_event_server
 
 N_USERS, N_ITEMS, N_EVENTS, RANK = 60, 40, 900, 8
 VARIANT = {
@@ -147,8 +162,9 @@ def trained(tmp_path_factory):
     return jax_storage, jax_id, storage, port_id, sorted(users)
 
 
-def test_run_train_then_serve_matches_jax(trained, cpu):
-    jax_storage, jax_id, storage, port_id, users = trained
+def _assert_served_alike(jax_storage, jax_id, storage, port_id, users, cpu):
+    """Both packages' engine servers deploy their generation; every
+    ``/queries.json`` answer names the same items, ties aside."""
     queries = (
         [{"user": u, "num": n} for u, n in zip(users, [1, 3, 5, 10, 40] * 20)]
         + [{"user": "nobody", "num": 4}]
@@ -198,6 +214,105 @@ def test_run_train_then_serve_matches_jax(trained, cpu):
             [e["score"] for e in w["itemScores"]], **TOL,
         )
     assert swaps <= len(queries) // 10  # ties are rare, not the rule
+
+
+def test_run_train_then_serve_matches_jax(trained, cpu):
+    _assert_served_alike(*trained, cpu)
+
+
+def _events_json():
+    """The same events in the Event API's JSON, with distinct times."""
+    t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+    out = []
+    for n, e in enumerate(_events(Event)):
+        d = e.to_json_dict()
+        d.pop("creationTime")
+        d["eventTime"] = (t0 + dt.timedelta(seconds=n)).isoformat()
+        out.append(d)
+    return out
+
+
+def _post_batches(base, events):
+    for lo in range(0, len(events), 50):
+        req = urllib.request.Request(
+            base + "/batch/events.json?accessKey=k",
+            data=json.dumps(events[lo:lo + 50]).encode(), method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert [r["status"] for r in json.loads(resp.read())] == [
+                201] * len(events[lo:lo + 50])
+
+
+@pytest.fixture(scope="module")
+def trained_over_http(tmp_path_factory):
+    """Events posted over HTTP, half to each package's event server,
+    into ONE event log; each package's metadata in its own sqlite file
+    and its models in its own directory; both train from it."""
+    base = tmp_path_factory.mktemp("http-slice")
+    users = sorted({e.entity_id for e in _events(Event)})
+    items = {e.target_entity_id for e in _events(Event)}
+    ckpt = base / "ckpt"
+    _start_checkpoint(ckpt, len(users), len(items))
+    kw = dict(checkpoint_dir=str(ckpt), resume=True)
+
+    def env(pkg):
+        return {
+            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_SQL_PATH": str(base / pkg / "pio.sqlite"),
+            "PIO_STORAGE_SOURCES_LOG_TYPE": "eventlog",
+            "PIO_STORAGE_SOURCES_LOG_PATH": str(base / "eventlog"),
+            "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_FS_PATH": str(base / pkg / "models"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+        }
+
+    jax_storage, storage = JaxStorage(env=env("jax")), Storage(env=env("port"))
+    for st, app_cls, key_cls in ((jax_storage, JaxApp, JaxAccessKey),
+                                 (storage, App, AccessKey)):
+        app_id = st.get_meta_data_apps().insert(app_cls(0, "shop"))
+        st.get_meta_data_access_keys().insert(key_cls("k", app_id))
+    servers = [
+        jax_create_event_server(host="127.0.0.1", port=0,
+                                storage=jax_storage, admission=False),
+        create_event_server(host="127.0.0.1", port=0, storage=storage),
+    ]
+    for http in servers:
+        http.start()
+    try:
+        events = _events_json()
+        for n, lo in enumerate(range(0, len(events), 100)):
+            _post_batches(f"http://127.0.0.1:{servers[n % 2].port}",
+                          events[lo:lo + 100])
+    finally:
+        for http in servers:
+            http.shutdown()
+
+    engine = jax_engine()
+    jax_set_storage(jax_storage)
+    try:
+        jax_id = jax_run_train(engine, engine.params_from_variant(VARIANT),
+                               "rec", storage=jax_storage, **kw)
+    finally:
+        jax_set_storage(None)
+    engine = recommendation_engine()
+    set_storage(storage)
+    try:
+        port_id = run_train(engine, engine.params_from_variant(VARIANT),
+                            "rec", ctx=ComputeContext.create(device="cpu"),
+                            storage=storage, **kw)
+    finally:
+        set_storage(None)
+    return jax_storage, jax_id, storage, port_id, users
+
+
+def test_http_ingest_into_one_event_log_then_serve_matches_jax(
+        trained_over_http, cpu):
+    _, _, storage, _, _ = trained_over_http
+    assert len(list(storage.get_events().find(1))) == N_EVENTS
+    _assert_served_alike(*trained_over_http, cpu)
 
 
 def test_run_train_records_the_run(trained):
