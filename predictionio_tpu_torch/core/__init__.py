@@ -1,13 +1,15 @@
 """Core: DASE controller API, engine assembly and deploy runtime.
 
-Counterpart of ``predictionio_tpu/core`` for the serving slice.
+Counterpart of ``predictionio_tpu/core``.
 """
 
 from predictionio_tpu_torch.core.controller import (
     Algorithm,
+    AverageServing,
     DataSource,
     EmptyParams,
     FirstServing,
+    IdentityPreparator,
     Params,
     PersistenceMode,
     Preparator,
@@ -21,11 +23,13 @@ from predictionio_tpu_torch.core.registry import (
 
 __all__ = [
     "Algorithm",
+    "AverageServing",
     "DataSource",
     "EmptyParams",
     "Engine",
     "EngineParams",
     "FirstServing",
+    "IdentityPreparator",
     "Params",
     "PersistenceMode",
     "Preparator",

@@ -96,6 +96,9 @@ class DataSource(_Controller, Generic[TD, EI, Q, A], abc.ABC):
     def read_eval(
         self, ctx: ComputeContext
     ) -> list[tuple[TD, EI, list[tuple[Q, A]]]]:
+        """k evaluation folds, ``(trainingData, evalInfo, [(query,
+        actual)])``, for ``Engine.eval``; a data source that does not
+        override this cannot be evaluated."""
         raise NotImplementedError(
             f"{type(self).__name__} does not implement read_eval; "
             "evaluation is unsupported for this data source."
@@ -105,6 +108,13 @@ class DataSource(_Controller, Generic[TD, EI, Q, A], abc.ABC):
 class Preparator(_Controller, Generic[TD, PD], abc.ABC):
     @abc.abstractmethod
     def prepare(self, ctx: ComputeContext, training_data: TD) -> PD: ...
+
+
+class IdentityPreparator(Preparator[TD, TD]):
+    """Pass the training data through unchanged."""
+
+    def prepare(self, ctx: ComputeContext, training_data: TD) -> TD:
+        return training_data
 
 
 class PersistenceMode(enum.Enum):
@@ -192,3 +202,10 @@ class FirstServing(Serving[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class AverageServing(Serving[Q, Any]):
+    """Numeric mean of the algorithms' predictions."""
+
+    def serve(self, query: Q, predictions: Sequence[Any]) -> Any:
+        return sum(predictions) / len(predictions)

@@ -4,8 +4,9 @@ deploy-time model recovery.
 Counterpart of ``predictionio_tpu/core/engine.py``: component maps,
 ``train`` (read → sanity check → prepare → sanity check → per-algorithm
 train → sanity check, with the stop-after-read / stop-after-prepare
-interruptions), ``prepare_deploy`` and ``params_from_variant``. ``eval``
-comes with the evaluation slice.
+interruptions), ``eval`` (per fold: prepare, train, stage the model on
+the card, one ``batch_predict`` for every query of the fold, serve),
+``prepare_deploy`` and ``params_from_variant``.
 """
 
 from __future__ import annotations
@@ -165,6 +166,44 @@ class Engine:
             _sanity(model, f"model[{i}]", workflow.skip_sanity_check)
             models.append(model)
         return models
+
+    def eval(
+        self,
+        ctx: ComputeContext,
+        params: EngineParams,
+        workflow: WorkflowParams | None = None,
+    ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+        """Per evaluation fold: (evalInfo, [(query, prediction, actual)]).
+        Each fold's trained model is staged on ``ctx.device`` before its
+        one ``batch_predict``, so the fold's factors go to the card once
+        and the batch runs where the context says."""
+        workflow = workflow or WorkflowParams()
+        data_source = self.make_data_source(params)
+        preparator = self.make_preparator(params)
+        algorithms = self.make_algorithms(params)
+        serving = self.make_serving(params)
+
+        results = []
+        for fold, (td, eval_info, qa) in enumerate(
+            data_source.read_eval(ctx)
+        ):
+            _sanity(td, f"fold[{fold}] training data",
+                    workflow.skip_sanity_check)
+            pd = preparator.prepare(ctx, td)
+            _sanity(pd, f"fold[{fold}] prepared data",
+                    workflow.skip_sanity_check)
+            queries = [serving.supplement(q) for q, _ in qa]
+            actuals = [a for _, a in qa]
+            per_algo: list[list[Any]] = []
+            for algo in algorithms:
+                model = algo.stage_model(ctx, algo.train(ctx, pd))
+                per_algo.append(list(algo.batch_predict(model, queries)))
+            qpa = [
+                (q, serving.serve(q, [preds[i] for preds in per_algo]), a)
+                for i, (q, a) in enumerate(zip(queries, actuals))
+            ]
+            results.append((eval_info, qpa))
+        return results
 
     def prepare_deploy(
         self,

@@ -105,6 +105,7 @@ def serialize_models(
 #: (module of this package, name) to import instead
 _MODEL_CLASSES = {
     "models.recommendation": ("ALSRecModel",),
+    "models.similarproduct": ("SimilarModel",),
     "utils.bimap": ("BiMap",),
 }
 _NUMPY_GLOBALS = {

@@ -1,7 +1,8 @@
-"""Workflow runtime — train and publish, and deploy-side model recovery.
+"""Workflow runtime — train and publish, evaluate, and deploy-side model
+recovery.
 
 Counterpart of ``apply_checkpoint_params``, ``latest_completed_id``,
-``run_train`` and ``load_deployment`` in
+``run_train``, ``run_evaluation`` and ``load_deployment`` in
 ``predictionio_tpu/core/workflow.py``. The training span timeline, its
 trace file and the metric-registry publish belong to the observability
 work (ROADMAP.md, queue 1, item 8).
@@ -25,6 +26,11 @@ from predictionio_tpu_torch.core.engine import (
     StopAfterReadInterruption,
     WorkflowParams,
 )
+from predictionio_tpu_torch.core.evaluation import (
+    MetricEvaluator,
+    MetricEvaluatorResult,
+)
+from predictionio_tpu_torch.core.fasteval import FastEvalEngine
 from predictionio_tpu_torch.core.persistence import (
     ModelIntegrityError,
     deserialize_models,
@@ -35,6 +41,7 @@ from predictionio_tpu_torch.core.persistence import (
 )
 from predictionio_tpu_torch.data.storage import (
     EngineInstance,
+    EvaluationInstance,
     Storage,
     get_storage,
 )
@@ -202,6 +209,65 @@ def run_train(
             dataclasses.replace(instance, status="FAILED", end_time=_now())
         )
         raise
+
+
+def run_evaluation(
+    evaluation,
+    batch: str = "",
+    workflow: WorkflowParams | None = None,
+    ctx: ComputeContext | None = None,
+    storage: Storage | None = None,
+) -> tuple[str, MetricEvaluatorResult]:
+    """Run an :class:`~predictionio_tpu_torch.core.evaluation.Evaluation`;
+    returns ``(instance_id, MetricEvaluatorResult)``.
+
+    The EvaluationInstance is INIT on entry, then EVALCOMPLETED with the
+    one-liner, HTML and JSON results, or FAILED on an error. A plain
+    ``Engine`` is wrapped in :class:`FastEvalEngine` (unless
+    ``evaluation.fast_eval`` is False) so a grid sweep reads, prepares
+    and trains each distinct prefix once; a subclass keeps its own
+    ``eval``. ``ctx=None`` takes the current CUDA device and raises,
+    before any record is written, without one."""
+    workflow = workflow or WorkflowParams()
+    storage = storage or get_storage()
+    ctx = ctx or ComputeContext.create(batch=batch or "evaluation")
+    instances = storage.get_meta_data_evaluation_instances()
+    instance_id = instances.insert(EvaluationInstance(
+        id="",
+        status="INIT",
+        start_time=_now(),
+        end_time=_now(),
+        evaluation_class=type(evaluation).__name__,
+        batch=batch,
+    ))
+    instance = instances.get(instance_id)
+    try:
+        engine = evaluation.engine
+        if getattr(evaluation, "fast_eval", True) and type(engine) is Engine:
+            engine = FastEvalEngine.from_engine(engine)
+        evaluator = MetricEvaluator(
+            metric=evaluation.metric,
+            other_metrics=evaluation.other_metrics,
+            output_path=evaluation.output_path,
+            parallelism=getattr(evaluation, "parallelism", None),
+        )
+        result = evaluator.evaluate(
+            ctx, engine, evaluation.engine_params_list, workflow
+        )
+    except Exception:
+        instances.update(
+            dataclasses.replace(instance, status="FAILED", end_time=_now())
+        )
+        raise
+    instances.update(dataclasses.replace(
+        instance,
+        status="EVALCOMPLETED",
+        end_time=_now(),
+        evaluator_results=result.to_one_liner(),
+        evaluator_results_html=result.to_html(),
+        evaluator_results_json=result.to_json(),
+    ))
+    return instance_id, result
 
 
 def load_deployment(

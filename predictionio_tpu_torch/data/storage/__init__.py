@@ -5,19 +5,22 @@ with the same variables: sources are declared with
 ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-source keys such as ``PATH``)
 and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA
 (apps, access keys, channels, engine manifests, engine and evaluation
-instances), EVENTDATA (events) and MODELDATA (model blobs). The port
-knows four backend types: ``memory`` and ``sqlite`` (every DAO),
-``localfs`` (models only) and ``eventlog``, the native event log (events
-only). With no source declared, the wiring is the JAX package's:
-metadata and events in ``$PIO_FS_BASEDIR/pio.sqlite``, models under
-``$PIO_FS_BASEDIR/models`` (default base ``~/.piotpu``).
+instances), EVENTDATA (events) and MODELDATA (model blobs). Backend
+types come from a registry (``register_backend`` with a
+:class:`BackendSpec`, as in the JAX package); four are built in:
+``memory`` and ``sqlite`` (every DAO), ``localfs`` (models only) and
+``eventlog``, the native event log (events only). With no source
+declared, the wiring is the JAX package's: metadata and events in
+``$PIO_FS_BASEDIR/pio.sqlite``, models under ``$PIO_FS_BASEDIR/models``
+(default base ``~/.piotpu``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Mapping
+from dataclasses import dataclass
+from typing import Callable, Mapping
 
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import (
@@ -47,13 +50,43 @@ from predictionio_tpu_torch.data.storage.base import (
 )
 
 __all__ = [
-    "AccessKey", "AccessKeysBackend", "App", "AppsBackend", "Channel",
-    "ChannelsBackend", "EngineInstance", "EngineInstancesBackend",
+    "AccessKey", "AccessKeysBackend", "App", "AppsBackend", "BackendSpec",
+    "Channel", "ChannelsBackend", "EngineInstance", "EngineInstancesBackend",
     "EngineManifest", "EngineManifestsBackend", "EvaluationInstance",
     "EvaluationInstancesBackend", "EventsBackend", "Model",
     "ModelsBackend", "Storage", "StorageError", "get_storage",
-    "set_storage",
+    "register_backend", "set_storage",
 ]
+
+
+@dataclass
+class BackendSpec:
+    """Factories for one backend type: ``client(config)`` builds the
+    source's client, and each DAO factory takes that client. A DAO left
+    None means the backend does not serve that repository (``localfs``
+    holds models only, ``eventlog`` events only)."""
+
+    client: Callable[[dict], object]
+    apps: Callable[[object], AppsBackend] | None = None
+    access_keys: Callable[[object], AccessKeysBackend] | None = None
+    channels: Callable[[object], ChannelsBackend] | None = None
+    engine_instances: Callable[[object], EngineInstancesBackend] | None = None
+    engine_manifests: Callable[[object], EngineManifestsBackend] | None = None
+    evaluation_instances: (
+        Callable[[object], EvaluationInstancesBackend] | None
+    ) = None
+    models: Callable[[object], ModelsBackend] | None = None
+    events: Callable[[object], EventsBackend] | None = None
+
+
+_BACKENDS: dict[str, BackendSpec] = {}
+
+
+def register_backend(type_name: str, spec: BackendSpec) -> None:
+    """Make ``PIO_STORAGE_SOURCES_<NAME>_TYPE=<type_name>`` build sources
+    from ``spec`` (a later registration of the same name replaces the
+    earlier one)."""
+    _BACKENDS[type_name] = spec
 
 
 class _MemoryClient:
@@ -79,22 +112,19 @@ _SQL_DAOS = {
     "events": sql_common.SQLEvents,
 }
 
-#: type name → (client factory, {dao attribute: factory(client)})
-_BACKENDS = {
-    "memory": (
-        _MemoryClient,
-        {
-            name: (lambda c, name=name: getattr(c, name))
-            for name in _SQL_DAOS
-        },
-    ),
-    "sqlite": (sqlite.SQLiteClient, _SQL_DAOS),
-    "localfs": (
-        lambda config: config,
-        {"models": lambda config: localfs.LocalFSModels(config)},
-    ),
-    "eventlog": (eventlog.EventLogEvents, {"events": lambda client: client}),
-}
+register_backend("memory", BackendSpec(
+    client=_MemoryClient,
+    **{name: (lambda c, name=name: getattr(c, name)) for name in _SQL_DAOS},
+))
+register_backend("sqlite", BackendSpec(client=sqlite.SQLiteClient,
+                                       **_SQL_DAOS))
+register_backend("localfs", BackendSpec(
+    client=lambda config: config,
+    models=lambda config: localfs.LocalFSModels(config),
+))
+register_backend("eventlog", BackendSpec(
+    client=eventlog.EventLogEvents, events=lambda client: client,
+))
 
 #: the JAX package's networked backends, not ported yet
 _NOT_PORTED = ("postgres", "mysql", "httpstore", "replicated")
@@ -126,7 +156,7 @@ class Storage:
             type_name = conf.get("TYPE")
             if type_name is None:
                 continue
-            if type_name in _NOT_PORTED:
+            if type_name in _NOT_PORTED and type_name not in _BACKENDS:
                 raise StorageError(
                     f"storage source {name}: backend type {type_name!r} is "
                     "not ported yet (ROADMAP.md, queue 1, item 3b)"
@@ -134,7 +164,7 @@ class Storage:
             if type_name not in _BACKENDS:
                 raise StorageError(
                     f"storage source {name}: unknown backend type "
-                    f"{type_name!r} (this package knows: {sorted(_BACKENDS)})"
+                    f"{type_name!r} (registered: {sorted(_BACKENDS)})"
                 )
             self._specs[name] = (type_name, conf)
         for repo in _REPOSITORIES:
@@ -175,12 +205,12 @@ class Storage:
         with self._lock:
             if source not in self._clients:
                 type_name, conf = self._specs[source]
-                self._clients[source] = _BACKENDS[type_name][0](conf)
+                self._clients[source] = _BACKENDS[type_name].client(conf)
             return self._clients[source]
 
     def _source_dao(self, source: str, attr: str, repo: str):
         type_name, _conf = self._specs[source]
-        factory = _BACKENDS[type_name][1].get(attr)
+        factory = getattr(_BACKENDS[type_name], attr)
         if factory is None:
             raise StorageError(
                 f"storage source {source} does not support {attr} "

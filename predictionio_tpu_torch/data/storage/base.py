@@ -3,7 +3,8 @@
 Counterpart of ``predictionio_tpu/data/storage/base.py``: the ``App``,
 ``AccessKey``, ``Channel``, ``EngineManifest``, ``EngineInstance``,
 ``EvaluationInstance`` and ``Model`` records and one DAO interface for
-each, plus ``PartialBatchError`` for batch inserts that fail partway.
+each (the events one with a default ``aggregate_properties``), plus
+``PartialBatchError`` for batch inserts that fail partway.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import abc
 import dataclasses
 import datetime as _dt
 import secrets
-from typing import Iterator, Sequence
+from typing import Iterable, Iterator, Sequence
 
+from predictionio_tpu_torch.data import aggregation
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 
 
@@ -336,3 +339,36 @@ class EventsBackend(abc.ABC):
         ``...`` (Ellipsis) = no filter, ``None`` = must be absent, a
         string = must match.
         """
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        *,
+        entity_type: str,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        required: Iterable[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Fold the entity type's ``$set/$unset/$delete`` events into
+        ``{entity_id: PropertyMap}``; with ``required``, only entities
+        holding every one of those keys."""
+        if not entity_type:
+            raise ValueError("entity_type is required for aggregation")
+        events = self.find(
+            app_id,
+            channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=["$set", "$unset", "$delete"],
+        )
+        result = aggregation.aggregate_properties(events)
+        if required is not None:
+            req = list(required)
+            result = {
+                eid: pm
+                for eid, pm in result.items()
+                if all(k in pm for k in req)
+            }
+        return result

@@ -1,11 +1,10 @@
 """Engine-facing event reads, addressed by app name.
 
 Counterpart of ``EventStore`` in ``predictionio_tpu/data/store.py``:
-bulk training-time reads (``find``, ``frame``, ``interactions``) and the
-latest-first serve-time scan ``find_by_entity``, with app and channel
-names resolved to ids through the metadata store. Property aggregation
-(``aggregate_properties``, ``extract_entity_map``) waits for the
-templates that use it (ROADMAP.md, queue 1, item 6).
+bulk training-time reads (``find``, ``frame``, ``interactions``), entity
+property aggregation (``aggregate_properties``, ``extract_entity_map``)
+and the latest-first serve-time scan ``find_by_entity``, with app and
+channel names resolved to ids through the metadata store.
 """
 
 from __future__ import annotations
@@ -13,9 +12,11 @@ from __future__ import annotations
 import datetime as _dt
 from typing import Iterator, Sequence
 
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.eventframe import EventFrame, Interactions
 from predictionio_tpu_torch.data.storage import Storage, get_storage
+from predictionio_tpu_torch.utils.bimap import EntityMap
 
 
 class EventStoreError(RuntimeError):
@@ -108,6 +109,47 @@ class EventStore:
         return frame.to_interactions(
             value_key=value_key, default_value=default_value
         )
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """``{entity_id: PropertyMap}`` folded from the entity type's
+        ``$set/$unset/$delete`` events."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self._storage.get_events().aggregate_properties(
+            app_id,
+            channel_id,
+            entity_type=entity_type,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        )
+
+    def extract_entity_map(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> EntityMap:
+        """The aggregated properties as an :class:`EntityMap`: string id
+        ↔ dense index ↔ PropertyMap."""
+        return EntityMap(self.aggregate_properties(
+            app_name,
+            entity_type,
+            channel_name=channel_name,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        ))
 
     # -- serve-time -------------------------------------------------------
     def find_by_entity(

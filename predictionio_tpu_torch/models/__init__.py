@@ -1,3 +1,6 @@
 """Engine templates. Importing this package registers them."""
 
-from predictionio_tpu_torch.models import recommendation  # noqa: F401
+from predictionio_tpu_torch.models import (  # noqa: F401
+    recommendation,
+    similarproduct,
+)

@@ -7,6 +7,8 @@ store, deduplicated, and trained into factor matrices on the card
 ``{"itemScores": [{"item": id, "score": s}, ...]}``, and an unknown user
 answers ``{"itemScores": []}``. Serving gathers the users' factor rows on
 the card and ranks the whole item table with the fused score + top-k
+kernel; evaluation (``read_eval``) holds out k folds of the events and
+ranks every held-out user of a fold in one batch through the same
 kernel.
 """
 
@@ -28,6 +30,7 @@ from predictionio_tpu_torch.core import (
     register_engine,
 )
 from predictionio_tpu_torch.core.controller import SanityCheck
+from predictionio_tpu_torch.core.evaluation import kfold_indices
 from predictionio_tpu_torch.data.eventframe import Interactions
 from predictionio_tpu_torch.data.store import EventStore
 from predictionio_tpu_torch.ops import similarity
@@ -59,21 +62,55 @@ class RecTrainingData(SanityCheck):
 class RecDataSource(DataSource):
     params_class = RecDataSourceParams
 
-    def read_training(self, ctx: ComputeContext) -> RecTrainingData:
+    def _interactions(self) -> Interactions:
         p = self.params
-        return RecTrainingData(
-            interactions=EventStore().interactions(
-                p.app_name,
-                event_names=list(p.event_names),
-                value_key=p.rating_key,
-            )
+        return EventStore().interactions(
+            p.app_name,
+            event_names=list(p.event_names),
+            value_key=p.rating_key,
         )
 
+    def read_training(self, ctx: ComputeContext) -> RecTrainingData:
+        return RecTrainingData(interactions=self._interactions())
+
     def read_eval(self, ctx: ComputeContext):
-        raise NotImplementedError(
-            "RecDataSource.read_eval is not ported yet: evaluation is "
-            "ROADMAP.md, queue 1, item 7"
-        )
+        """``eval_k`` folds by index modulo k over the interactions. Each
+        training fold keeps the full user and item maps (so every fold
+        trains factors of one shape); the held-out items, grouped by
+        user in first-seen order, are the actuals of one query a user,
+        whose ``num`` is ``max(10, len(items))``."""
+        inter = self._interactions()
+        folds = []
+        for fold, train_idx, test_idx in kfold_indices(
+            inter.nnz, self.params.eval_k
+        ):
+            train = Interactions(
+                entity_map=inter.entity_map,
+                target_map=inter.target_map,
+                rows=inter.rows[train_idx],
+                cols=inter.cols[train_idx],
+                values=inter.values[train_idx],
+                times=inter.times[train_idx],
+            )
+            by_user: dict[int, list[str]] = {}
+            for r, c in zip(inter.rows[test_idx], inter.cols[test_idx]):
+                by_user.setdefault(int(r), []).append(
+                    inter.target_map.inverse(int(c))
+                )
+            qa = [
+                (
+                    {
+                        "user": inter.entity_map.inverse(u),
+                        "num": max(10, len(items)),
+                    },
+                    items,
+                )
+                for u, items in by_user.items()
+            ]
+            folds.append(
+                (RecTrainingData(interactions=train), {"fold": fold}, qa)
+            )
+        return folds
 
 
 @dataclasses.dataclass(frozen=True)

@@ -86,6 +86,9 @@ def fused_top_k_dot_reference(
     scores = queries.float() @ items.float().T
     if scale is not None:
         scores = scores * scale.float()[None, :]
+    # -0.0 ranks as +0.0, then by index, as the kernel's key ranks it (a
+    # radix sort on the card would put it below +0.0)
+    scores = torch.where(scores == 0, 0.0, scores)
     scores = scores.masked_fill(torch.isnan(scores), _NEG)
     mask = _as_mask(mask)
     if mask is not None:

@@ -1,7 +1,8 @@
 """Scoring for serving: dot-product and cosine top-k over a factor table.
 
 Counterpart of ``predictionio_tpu/ops/similarity.py`` (``l2_normalize``,
-``top_k_dot``, ``top_k_cosine``, ``stage_factors``, ``gather_top_k_dot``).
+``top_k_dot``, ``top_k_cosine``, ``stage_factors``, ``gather_top_k_dot``,
+``gather_mean_top_k_cosine``).
 Every top-k here goes through :func:`ops.fused_topk.fused_top_k_dot`: on
 a CUDA tensor that launches the hand-written kernel at every size, with
 no size threshold and no library path beside it; on a CPU tensor it runs
@@ -99,3 +100,42 @@ def gather_top_k_dot(
     idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
     vecs = torch.index_select(factors, 0, idx)
     return fused_top_k_dot(vecs, items, min(num, items.shape[0]), mask)
+
+
+def _basket_mean(rows: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """``[1, k]`` mean of the gathered rows whose ``idx`` is not ``-1``;
+    the divisor is ``max(valid, 1)``."""
+    w = torch.as_tensor(idx >= 0, device=rows.device).to(rows.dtype)[:, None]
+    return (rows * w).sum(dim=0, keepdim=True) / torch.clamp(w.sum(), min=1.0)
+
+
+def gather_mean_top_k_cosine(
+    items_f, idx, num: int, mask=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Similar-product query: the mean of the gathered item rows of
+    ``idx`` (``-1`` entries are padding), then cosine against the whole
+    catalog and top-``num``. ``mask`` ([I] bool, True = exclude) drops
+    rows from the ranking. The catalog's normalization is a plain torch
+    pass before the kernel; a quantized table keeps its int8/bf16 data
+    with a ``1/‖row‖`` scale instead. A host table is moved to the CUDA
+    device. Returns ``([1, num] scores, [1, num] indices)``."""
+    idx = np.asarray(idx, np.int64)
+    num = min(num, items_f.shape[0])
+    if _quantized(items_f):
+        from predictionio_tpu_torch.ops import quantize
+
+        q = _basket_mean(quantize.gather_rows(items_f, np.clip(idx, 0, None)),
+                         idx)
+        return quantize.top_k_dot_quantized(
+            l2_normalize(q), quantize.normalized(items_f), num, mask
+        )
+    device = (items_f.device if isinstance(items_f, torch.Tensor)
+              else torch.device("cuda"))
+    items_f = stage_factors(items_f, device)
+    rows = torch.index_select(
+        items_f, 0, torch.as_tensor(np.clip(idx, 0, None), device=device)
+    )
+    return fused_top_k_dot(
+        l2_normalize(_basket_mean(rows, idx)), l2_normalize(items_f), num,
+        mask,
+    )

@@ -3,14 +3,17 @@
 Counterpart of ``Request``, ``Response``, ``HTTPError``, ``Router`` and
 ``HTTPServer`` in ``predictionio_tpu/serving/http.py``, on the standard
 library's ``ThreadingHTTPServer``: thread per connection, JSON bodies,
-``X-Request-ID`` forwarded or minted. TLS, SLO scoring, admission
-control and the metrics routes come with later slices.
+``X-Request-ID`` forwarded or minted, the base ``GET /healthz`` probe
+answered before routing, access keys blanked out of the access log.
+TLS, SLO scoring, admission control, draining, the probe's extras and
+the metrics routes come with later slices.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 import threading
 import uuid
@@ -21,6 +24,14 @@ from urllib.parse import parse_qs, urlparse
 logger = logging.getLogger(__name__)
 
 Handler = Callable[["Request"], "Response"]
+
+#: keys travel in query strings; they must never land in logs
+_ACCESS_KEY = re.compile(r"(accessKey=)[^&\s\"]+")
+
+
+def redact_keys(text: str) -> str:
+    """Blank accessKey values out of a URL or log line."""
+    return _ACCESS_KEY.sub(r"\1[redacted]", text)
 
 
 class Request:
@@ -151,7 +162,8 @@ class HTTPServer:
             disable_nagle_algorithm = True
 
             def log_message(self, fmt, *args):  # route through logging
-                logger.debug("%s %s", self.address_string(), fmt % args)
+                line = redact_keys(fmt % args)
+                logger.debug("%s %s", self.address_string(), line)
 
             def _handle(self):
                 parsed = urlparse(self.path)
@@ -172,7 +184,14 @@ class HTTPServer:
                     self.headers.get("X-Request-ID") or uuid.uuid4().hex
                 )
                 try:
-                    response = router_ref.dispatch(request)
+                    if parsed.path == "/healthz" and self.command == "GET":
+                        # the liveness probe answers before routing
+                        response = Response(200, {
+                            "status": "ok", "service": service,
+                            "pid": os.getpid(),
+                        })
+                    else:
+                        response = router_ref.dispatch(request)
                 except HTTPError as e:
                     response = Response(
                         e.status, {"message": e.message},

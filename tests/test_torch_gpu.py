@@ -165,3 +165,104 @@ def test_als_on_card_matches_cpu(cuda_device, implicit, compute):
         tol = (dict(rtol=1e-3, atol=1e-4) if compute is None else
                dict(rtol=1e-2, atol=1e-2 * float(np.abs(w).max())))
         np.testing.assert_allclose(g.cpu(), w, **tol)
+
+
+def _assert_topk_alike(q, items, scale, got, want):
+    """Scores within 1e-4 + 1e-5·|s|; differing indices only where the
+    kernel's item scores (plain arithmetic) tie with the plain pick."""
+    gs, gi = (t.cpu() for t in got)
+    ws, wi = (t.cpu() for t in want)
+    fin = torch.isfinite(ws)
+    assert torch.equal(torch.isneginf(gs), ~fin)
+    np.testing.assert_allclose(gs[fin], ws[fin], rtol=1e-5, atol=1e-4)
+    rows, cols = torch.nonzero((gi != wi) & fin, as_tuple=True)
+    if len(rows):
+        picked = gi[rows, cols].long()
+        rescored = (q.cpu()[rows].double()
+                    * items.cpu()[picked].double()).sum(1)
+        if scale is not None:
+            rescored = rescored * scale.cpu()[picked].double()
+        gap = (rescored - ws[rows, cols].double()).abs()
+        assert (gap <= 1e-4 + 1e-5 * ws[rows, cols].double().abs()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+def test_similar_product_cosine_launches_on_card(cuda_device, form):
+    """gather_mean_top_k_cosine on a table on the card launches the
+    kernel once (per form) and agrees with the plain version."""
+    from predictionio_tpu_torch.ops import quantize, similarity
+
+    rng = np.random.default_rng(5)
+    items = torch.from_numpy(
+        rng.standard_normal((5000, 16)).astype(np.float32)).to(cuda_device)
+    table = items if form == "f32" else quantize.quantize_factors(items, form)
+    mask = torch.zeros(5000, dtype=torch.bool, device=cuda_device)
+    mask[::11] = True
+    idx = np.array([3, 70, 4000, -1], np.int32)
+    before = fused_topk.LAUNCHES[form]
+    got = similarity.gather_mean_top_k_cosine(table, idx, 32, mask)
+    torch.cuda.synchronize()
+    assert fused_topk.LAUNCHES[form] == before + 1
+    assert got[0].device.type == "cuda"
+    valid = torch.from_numpy(idx >= 0).to(cuda_device)
+    rows = (quantize.gather_rows(table, np.clip(idx, 0, None))
+            if form != "f32" else items[torch.from_numpy(
+                np.clip(idx, 0, None)).long().to(cuda_device)])
+    qv = similarity.l2_normalize(
+        (rows * valid[:, None]).sum(0, keepdim=True) / valid.sum())
+    if form == "f32":
+        plain_items, scale = similarity.l2_normalize(items), None
+    else:
+        normed = quantize.normalized(table)
+        plain_items, scale = normed.data, normed.scale
+    want = fused_topk.fused_top_k_dot_reference(qv, plain_items, 32, mask,
+                                                scale)
+    _assert_topk_alike(qv, plain_items.float(), scale, got, want)
+
+
+@pytest.mark.gpu
+def test_evaluation_sized_batch_on_card(cuda_device):
+    """An evaluation fold's batch: 20,000 users padded to 32,768, a
+    5,000-item catalog, rank 32, num 16. One split in pass 1 and the
+    answers equal the plain version's."""
+    from predictionio_tpu_torch.ops import similarity
+
+    n_sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    plan = fused_topk.plan_pass1(32_768, 5_000, 16, 32, 4, n_sms)
+    assert plan.splits == 1 and plan.qt == fused_topk.MAX_QT
+    rng = np.random.default_rng(6)
+    users = torch.from_numpy(
+        rng.standard_normal((20_000, 32)).astype(np.float32)).to(cuda_device)
+    items = torch.from_numpy(
+        rng.standard_normal((5_000, 32)).astype(np.float32)).to(cuda_device)
+    idx = np.pad(rng.integers(0, 20_000, 20_000), (0, 12_768))
+    before = fused_topk.LAUNCHES["f32"]
+    got = similarity.gather_top_k_dot(users, idx, items, 16)
+    torch.cuda.synchronize()
+    assert fused_topk.LAUNCHES["f32"] == before + 1
+    q = users[torch.from_numpy(idx).to(cuda_device)]
+    want = fused_topk.fused_top_k_dot_reference(q, items, 16)
+    _assert_topk_alike(q, items, None, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+def test_zero_query_ranks_by_index_on_card(cuda_device, form):
+    """A zero query scores every item 0.0 or -0.0: all tie, so both the
+    kernel and the plain version list the lowest indices first."""
+    q = torch.zeros(3, 16, device=cuda_device)
+    items = torch.randn(5_000, 16, device=cuda_device)
+    scale = None
+    if form == "bf16":
+        items = items.to(torch.bfloat16)
+    elif form == "int8":
+        qf = quantize_factors(items, "int8")
+        items, scale = qf.data, qf.scale
+    got = fused_topk.fused_top_k_dot(q, items, 40, None, scale)
+    want = fused_topk.fused_top_k_dot_reference(q, items, 40, None, scale)
+    first = torch.arange(40, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got[1], first.expand(3, 40))
+    assert torch.equal(want[1], got[1])
+    assert torch.equal(got[0], want[0]) and not torch.signbit(got[0]).any()

@@ -64,7 +64,10 @@ print("imported", len(sys.argv) - 1)
 
 def test_every_module_imports_with_jax_and_reference_blocked():
     mods = _modules()
-    assert "predictionio_tpu_torch.serving.engine_server" in mods
+    for mod in ("serving.engine_server", "core.evaluation", "core.fasteval",
+                "core.crossvalidation", "data.aggregation", "data.view",
+                "utils.npzio", "models.similarproduct"):
+        assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *mods],
@@ -111,11 +114,40 @@ def test_cpu_tensor_takes_the_plain_version(monkeypatch):
     assert fused_topk.LAUNCHES == before
 
 
+def test_new_routes_take_the_plain_version_on_cpu(monkeypatch):
+    """The similar-product cosine and an evaluation-sized batch (B above
+    the kernel's widest query tile) never build or launch on the CPU."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import _build, quantize, similarity
+
+    def no_build(name):
+        raise AssertionError("the CPU path must never build the kernel")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(fused_topk.LAUNCHES)
+    items = torch.randn(300, 16)
+    for table in (items, quantize.quantize_factors(items, "int8"),
+                  quantize.quantize_factors(items, "bf16")):
+        s, i = similarity.gather_mean_top_k_cosine(
+            table, np.array([4, 9, -1, -1]), 12)
+        assert s.shape == i.shape == (1, 12) and s.device.type == "cpu"
+    users = torch.randn(200, 16)
+    s, i = similarity.gather_top_k_dot(users, np.arange(200) % 150, items,
+                                       16)
+    assert s.shape == (200, 16)
+    assert fused_topk.LAUNCHES == before
+
+
 def test_other_devices_are_refused():
     q = torch.empty(3, 8, device="meta")
     items = torch.empty(100, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_topk.fused_top_k_dot(q, items, 5)
+    from predictionio_tpu_torch.ops import similarity
+
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        similarity.gather_mean_top_k_cosine(items, [1, 2], 5)
 
 
 def test_build_is_keyed_by_source_and_lazy():
