@@ -15,7 +15,9 @@ and PyTorch built for CUDA. In order:
    side of every query-tile width), catalog sizes (one ragged), ``num``
    values (the kernel's per-round cap and one above it), ``[I]`` and
    ``[B, I]`` masks, the served shape (num 16, ``[I]`` mask), an
-   over-masked row, NaN rows and planted exact ties;
+   over-masked row and a NaN query row (their -inf slots must name the
+   plain version's items: the lowest unrankable ones, ascending), NaN
+   rows and planted exact ties;
 4. serves the recommendation template at full width — rank 32, 49,152
    users, 1,048,576 items, random factors from the seed — through the
    port's own entry points: publish a generation into a local model
@@ -84,8 +86,26 @@ and PyTorch built for CUDA. In order:
    bf16 tables of the trained factors against the plain version; prints
    the read, train and persist seconds, the request p50, the launches
    and the catalog normalization's time beside the kernel's;
-11. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-10) and, last, the device line.
+11. drives every other engine template the JAX package registers, each
+   at its ``examples/*/engine.json`` from events through ``run_train``
+   to ``create_engine_server`` and HTTP queries: ``ecommerce`` (20,000
+   users x 5,000 items, 200,000 views and 20,000 buys into sqlite, item
+   categories, an ``unavailableItems`` set replaced halfway through 128
+   requests; each answer held against the plain top-k of the user's
+   staged row with the rules read from the store at that moment; the
+   kernel timed at B = 1, num 64 beside its bound, plain version and
+   ``torch.topk``), ``complementarypurchase`` (100,000 buys in baskets;
+   the card's co-occurrence table against an exact host count, its
+   complement lists against the port's CPU scoring, 64 basket queries),
+   ``classification`` (20,000 users), ``textclassification`` (10,000
+   documents, 4,096 hashed features), ``regression`` (10,000 x 10, three
+   SGD step sizes averaged), ``leadscoring`` (10,000 leads, 500 Adam
+   steps) and ``helloworld``, each trained on the card and on the CPU
+   and held within 1e-5 relative, 256 requests each; then the e2 Markov
+   chain over 5,000 states, card against CPU, and a MANUAL model with a
+   CUDA tensor field saved and loaded back onto the card;
+12. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-11) and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -185,7 +205,7 @@ def form_of(table: dict, form: str):
 
 
 def make_mask(kind: str, batch: int, n_items: int, device, seed: int):
-    if kind == "none":
+    if kind in ("none", "nan-query"):
         return None
     g = torch.Generator(device=device).manual_seed(seed + 1)
     if kind == "item":
@@ -201,7 +221,9 @@ def make_mask(kind: str, batch: int, n_items: int, device, seed: int):
 
 def compare(q, items, scale, mask, num, got, want) -> dict:
     """Hold a top-k answer against the plain version's. Scores must agree
-    within ATOL + RTOL*|s|; -inf slots must match and hold index 0; where
+    within ATOL + RTOL*|s|; -inf slots must match and hold the plain
+    version's indices (the lowest unrankable items, ascending, as
+    ``lax.top_k`` lists them); where
     the indices differ, the answer's item must score (plain arithmetic)
     within the same tolerance of the plain version's score at that slot
     and be rankable, and no row may repeat an item."""
@@ -213,7 +235,8 @@ def compare(q, items, scale, mask, num, got, want) -> dict:
     neg_k, neg_p = torch.isneginf(ks), torch.isneginf(ps)
     assert torch.equal(neg_k, neg_p), "unfilled slots differ"
     assert not torch.isnan(ks).any(), "NaN score returned"
-    assert (ki[neg_k] == 0).all(), "an unfilled slot holds a nonzero index"
+    assert torch.equal(ki[neg_k], pi[neg_p]), (
+        "an unfilled slot names another item than the plain version's")
     fin = ~neg_p
     err = (ks - ps).abs()[fin]
     max_err = float(err.max()) if err.numel() else 0.0
@@ -257,8 +280,11 @@ def kernel_cases(n_items: int, ragged: int, cap: int):
         cases.append((form, 64, n_items, 16, "item"))  # the served shape
         cases.append((form, 64, ragged, 10, "batch"))
         cases.append((form, 256, n_items, 128, "item"))
+        # a NaN query row: every slot -inf, items 0, 1, 2, ... in order
+        cases.append((form, 3, ragged, 64, "nan-query"))
     cases.append(("f32", 33, n_items, cap, "none"))
     cases.append(("f32", 1, n_items, cap + 476, "none"))
+    cases.append(("f32", 3, n_items, cap + 476, "nan-query"))
     return cases
 
 
@@ -277,6 +303,8 @@ def check_kernels(device, n_items: int, ragged: int, k: int, seed: int,
         items, scale = form_of(table, form)
         g = torch.Generator(device=device).manual_seed(seed + b + num)
         q = torch.randn(b, k, generator=g, device=device)
+        if mask_kind == "nan-query":
+            q[b // 2] = float("nan")
         mask = make_mask(mask_kind, b, n, device, seed + b)
         got = fused_topk.fused_top_k_dot(q, items, num, mask, scale)
         if device.type == "cuda":
@@ -284,6 +312,8 @@ def check_kernels(device, n_items: int, ragged: int, k: int, seed: int,
         want = fused_topk.fused_top_k_dot_reference(q, items, num, mask,
                                                     scale)
         res = compare(q, items.float(), scale, mask, min(num, n), got, want)
+        if mask_kind == "nan-query":
+            assert got[1][b // 2].tolist() == list(range(min(num, n)))
         if device.type == "cuda":
             torch.cuda.synchronize()
         worst[form] = max(worst[form], res["max_abs_err"])
@@ -1671,6 +1701,794 @@ def similar_phase(device, store_dir: str, seed: int) -> dict:
     }
 
 
+# -- phase 11: the other engine templates ------------------------------------
+
+#: ecommerce: users, items, (signal, events, generator seed), then the
+#: requests and the size of each unavailableItems set
+ECOMM = (20_000, 5_000, (("view", 200_000, 45), ("buy", 20_000, 46)))
+ECOMM_REQUESTS = 128
+ECOMM_UNAVAILABLE = 50
+ECOMM_TIME_NUM = 64  # the top-k size of a num-10/20 request, pow2(4·num)
+#: complementarypurchase: users, items, buy events, generator seed
+CP_SHAPE = (20_000, 5_000, 100_000, 47)
+CP_QUERIES = 64
+#: entities / documents / rows x features / leads / report weeks
+CLF_ENTITIES = 20_000
+TEXT_DOCS = 10_000
+REG_SHAPE = (10_000, 10)
+LEADS = 10_000
+HELLO_WEEKS = 4
+TEMPLATE_QUERIES = 256
+#: Markov states and transitions
+MARKOV = (5_000, 400_000)
+#: relative (and absolute) tolerance of card against CPU for the
+#: templates' float32 products, steps and logs
+TEMPLATE_RTOL, TEMPLATE_ATOL = 1e-5, 1e-6
+T_BASE = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+
+
+def _engine_json(name: str) -> dict:
+    with open(os.path.join(ROOT, "examples", name, "engine.json")) as f:
+        return json.load(f)
+
+
+def _template_storage(kind: str, tmpdir: str, app_name: str):
+    """A store for one template: memory or sqlite events and metadata,
+    models on the local filesystem under ``tmpdir``; returns (Storage,
+    app id)."""
+    from predictionio_tpu_torch.data.storage import App, Storage
+
+    if kind == "sqlite":
+        env = {"PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+               "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(tmpdir,
+                                                            "pio.sqlite"),
+               "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+               "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL"}
+    else:
+        env = {"PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+               "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+               "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM"}
+    env.update({"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+                "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(tmpdir, "models"),
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS"})
+    storage = Storage(env=env)
+    app_id = storage.get_meta_data_apps().insert(App(0, app_name))
+    storage.get_events().init(app_id)
+    return storage, app_id
+
+
+def _insert(storage, app_id, events) -> float:
+    t0 = time.perf_counter()
+    storage.get_events().insert_batch(events, app_id)
+    return time.perf_counter() - t0
+
+
+def _train_template(engine, params, engine_id, ctx, storage):
+    """``run_train`` through the process-default storage (the data
+    sources read it); returns (the published models, timing)."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data.storage import set_storage
+
+    set_storage(storage)
+    try:
+        t0 = time.perf_counter()
+        iid = run_train(engine, params, engine_id, ctx=ctx, storage=storage)
+        run_train_s = time.perf_counter() - t0
+    finally:
+        set_storage(None)
+    instance = storage.get_meta_data_engine_instances().get(iid)
+    assert instance.status == "COMPLETED", instance.status
+    assert instance.mesh_conf["platform"] == ctx.device.type
+    timing = json.loads(instance.env["timing"])
+    models = [m for _t, m in deserialize_models(
+        load_generation(storage.get_model_data_models(), iid))]
+    return models, {
+        "run_train_s": run_train_s,
+        "read_s": timing["train/read"]["total_s"],
+        "train_s": timing["train/algorithm"]["total_s"],
+        "persist_s": timing["train/persist"]["total_s"],
+    }
+
+
+class _Served:
+    """``create_engine_server`` on the newest generation, with the store
+    as the process default while it serves (serve-time rules read it)."""
+
+    def __init__(self, engine, params, engine_id, ctx, storage):
+        from predictionio_tpu_torch.serving.engine_server import (
+            create_engine_server,
+        )
+
+        self._storage = storage
+        self.es, self.http = create_engine_server(
+            engine, params, engine_id, host="127.0.0.1", port=0,
+            storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
+        )
+        self.latencies: list[float] = []
+
+    def __enter__(self):
+        from predictionio_tpu_torch.data.storage import set_storage
+
+        set_storage(self._storage)
+        self.http.start()
+        self.base = f"http://127.0.0.1:{self.http.port}"
+        return self
+
+    def query(self, body):
+        out, s = _post(self.base, "/queries.json", body)
+        self.latencies.append(s)
+        return out
+
+    def p50_ms(self) -> float:
+        lat = sorted(s * 1e3 for s in self.latencies)
+        return lat[len(lat) // 2]
+
+    def __exit__(self, *exc):
+        from predictionio_tpu_torch.data.storage import set_storage
+
+        self.es.close()
+        set_storage(None)
+
+
+def _close(got, want, what: str) -> float:
+    """Largest relative error of ``got`` against ``want`` (tensors or
+    arrays); fails above TEMPLATE_RTOL (TEMPLATE_ATOL near zero)."""
+    got = torch.as_tensor(np.asarray(got.cpu() if isinstance(
+        got, torch.Tensor) else got), dtype=torch.float64)
+    want = torch.as_tensor(np.asarray(want.cpu() if isinstance(
+        want, torch.Tensor) else want), dtype=torch.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if not want.numel():
+        return 0.0
+    gap = (got - want).abs()
+    assert bool((gap <= TEMPLATE_ATOL + TEMPLATE_RTOL * want.abs()).all()), (
+        f"{what}: card and CPU differ by up to {float(gap.max())}")
+    return float((gap / want.abs().clamp(min=TEMPLATE_ATOL)).max())
+
+
+def _rules_now(storage, app_id, user: str) -> tuple[set, set]:
+    """(items the user viewed or bought, the latest unavailable set),
+    read from the store directly, as the rules stand now."""
+    events = storage.get_events()
+    seen = {e.target_entity_id for e in events.find(
+        app_id, entity_type="user", entity_id=user,
+        event_names=["view", "buy"]) if e.target_entity_id}
+    latest = list(events.find(
+        app_id, entity_type="constraint", entity_id="unavailableItems",
+        event_names=["$set"], limit=1, reversed=True))
+    unavailable = ({str(i) for i in latest[0].properties.get("items")}
+                   if latest else set())
+    return seen, unavailable
+
+
+def _ecomm_queries(user_ids, item_ids, seed: int) -> list:
+    """128 requests, num 10 or 20: a quarter carry 1-2 categories, some
+    a whiteList or a blackList, 8 name unknown users."""
+    rng = np.random.default_rng(seed + 48)
+    out = []
+    for j in range(ECOMM_REQUESTS):
+        q = {"user": str(rng.choice(user_ids)) if j % 16 else f"nobody{j}",
+             "num": int(rng.choice([10, 20]))}
+        if j % 4 == 1:
+            q["categories"] = [f"c{c}" for c in rng.choice(
+                N_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+        if j % 6 == 2:
+            q["whiteList"] = rng.choice(item_ids, len(item_ids) // 4,
+                                        replace=False).tolist()
+        if j % 7 == 3:
+            q["blackList"] = rng.choice(item_ids, len(item_ids) // 50,
+                                        replace=False).tolist()
+        out.append(q)
+    return out
+
+
+def _ecomm_expected(q, cand, scores, seen, unavailable, model) -> list:
+    """The rules applied to a candidate list, as (item, score) pairs."""
+    cats = set(q.get("categories") or [])
+    white = set(q.get("whiteList") or [])
+    black = set(q.get("blackList") or [])
+    out = []
+    for ci, score in zip(cand, scores):
+        item = model.item_map.inverse(int(ci))
+        if item in seen or item in unavailable or item in black:
+            continue
+        if white and item not in white:
+            continue
+        if cats and not cats & set(model.item_categories.get(item, [])):
+            continue
+        out.append((item, float(score)))
+        if len(out) >= q["num"]:
+            break
+    return out
+
+
+def ecommerce_phase(device, tmpdir: str, seed: int) -> dict:
+    """The e-commerce template at its example's width from events to 128
+    HTTP answers, each held against the plain top-k of the user's staged
+    row at the same k with the rules read from the store at that moment
+    (a second unavailableItems $set lands halfway)."""
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models.ecommerce import ecommerce_engine
+    from predictionio_tpu_torch.ops import fused_topk, similarity
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    variant = _engine_json("ecommerce")
+    app_name = variant["datasource"]["params"]["app_name"]
+    n_users, n_items, signals = ECOMM
+    storage, app_id = _template_storage("sqlite", tmpdir, app_name)
+    rng = np.random.default_rng(seed + 49)
+    batch, t = [], 0
+    for name, n, data_seed in signals:
+        rows, cols, _vals = make_interactions(n_users, n_items, n,
+                                              seed=data_seed)
+        batch += [Event(event=name, entity_type="user", entity_id=f"u{u}",
+                        target_entity_type="item", target_entity_id=f"i{i}",
+                        event_time=T_BASE + dt.timedelta(seconds=t + j))
+                  for j, (u, i) in enumerate(zip(rows.tolist(),
+                                                 cols.tolist()))]
+        t += n
+    batch += [
+        Event(event="$set", entity_type="item", entity_id=f"i{i}",
+              properties={"categories": [f"c{c}" for c in rng.choice(
+                  N_CATEGORIES, int(rng.integers(1, 4)), replace=False)]},
+              event_time=T_BASE)
+        for i in range(n_items)
+    ]
+    popular = np.argsort(-np.bincount(
+        make_interactions(n_users, n_items, signals[0][1],
+                          seed=signals[0][2])[1], minlength=n_items),
+        kind="stable")
+    first = [f"i{i}" for i in popular[:ECOMM_UNAVAILABLE]]
+    second = [f"i{i}" for i in popular[ECOMM_UNAVAILABLE:
+                                       2 * ECOMM_UNAVAILABLE]]
+
+    def constraint(items, hours):
+        return Event(event="$set", entity_type="constraint",
+                     entity_id="unavailableItems",
+                     properties={"items": items},
+                     event_time=T_BASE + dt.timedelta(days=30, hours=hours))
+
+    batch.append(constraint(first, 0))
+    insert_s = _insert(storage, app_id, batch)
+
+    engine = ecommerce_engine()
+    params = engine.params_from_variant(variant)
+    (_n, p), = params.algorithms
+    assert (p.rank, p.num_iterations, p.lambda_, p.alpha, p.unseen_only) == (
+        16, 10, 0.01, 1.0, True), p
+    ctx = ComputeContext.create(device=device)
+    (model,), times = _train_template(engine, params, "chip-ecomm", ctx,
+                                      storage)
+    assert model.item_factors.shape == (len(model.item_map), 16)
+    assert np.isfinite(model.user_factors).all()
+    queries = _ecomm_queries(model.user_map.keys(), model.item_map.keys(),
+                             seed)
+    fused_topk.reset_launch_counts()
+    served = []
+    with _Served(engine, params, "chip-ecomm", ctx, storage) as srv:
+        for j, q in enumerate(queries):
+            if j == len(queries) // 2:
+                storage.get_events().insert(constraint(second, 1), app_id)
+            ans = srv.query(q)
+            served.append((q, ans, _rules_now(storage, app_id, q["user"])))
+        p50 = srv.p50_ms()
+    launches = dict(fused_topk.LAUNCHES)
+    known = sum(q["user"] in model.user_map for q in queries)
+    assert launches["f32"] == known, (launches, known)
+
+    # each answer against the plain top-k on the staged model, with the
+    # rules as they stood; the kernel's list for the user, replayed (it
+    # is deterministic), is held to the plain one by the tie rule and
+    # settles ties at the candidate pool's edge
+    algo = engine.make_algorithms(params)[0]
+    staged = algo.stage_model(ctx, model)
+    n_real = len(model.item_map)
+    table = staged.item_factors
+    ties, changed, checked, worst = 0, 0, 0, 0.0
+    for j, (q, ans, (seen, unavailable)) in enumerate(served):
+        assert unavailable == set(first if j < len(queries) // 2
+                                  else second), j
+        uid = model.user_map.get(q["user"], -1)
+        if uid >= 0:
+            k = min(_pow2(4 * q["num"]), n_real)
+            qv = staged.user_factors[uid:uid + 1]
+            want = fused_topk.fused_top_k_dot_reference(
+                qv, table, k, staged.item_phantom_mask)
+            got = similarity.gather_top_k_dot(
+                staged.user_factors, np.asarray([uid], np.int32), table, k,
+                mask=staged.item_phantom_mask)
+            res = compare(qv, table, None, staged.item_phantom_mask, k, got,
+                          want)
+            ties += res["tied_mismatches"]
+            cand = got[1][0].long()
+            scores = (qv * table[cand]).sum(1).tolist()
+            cand = cand.tolist()
+        else:
+            order = np.argsort(-model.popularity)
+            cand = order[:min(4 * q["num"], n_real)]
+            scores = model.popularity[cand].tolist()
+        expected = _ecomm_expected(q, cand, scores, seen, unavailable, model)
+        got_items = [(e["item"], e["score"]) for e in ans["itemScores"]]
+        assert [i for i, _ in got_items] == [i for i, _ in expected], (
+            f"query {j}: {got_items[:5]} != {expected[:5]}")
+        for (_i, gs), (_w, ws) in zip(got_items, expected):
+            assert abs(gs - ws) <= ATOL + RTOL * abs(ws), (j, gs, ws)
+            worst = max(worst, abs(gs - ws))
+        if j >= len(queries) // 2:
+            before = _ecomm_expected(q, cand, scores, seen, set(first),
+                                     model)
+            changed += before != expected
+        checked += 1
+    assert changed > 0, "the second unavailableItems set changed nothing"
+
+    # the kernel at the served shape: B = 1, the whole catalog, num 64
+    qv = staged.user_factors[:1]
+
+    def kernel():
+        return fused_topk.fused_top_k_dot(qv, table, ECOMM_TIME_NUM,
+                                          staged.item_phantom_mask)
+
+    ms = (device_ms(kernel, reps=50, name_part="topk_pass1")
+          + device_ms(kernel, reps=50, name_part="topk_pass2"))
+    call_ms = time_ms(kernel, reps=50)
+    plain_ms = time_ms(lambda: fused_topk.fused_top_k_dot_reference(
+        qv, table, ECOMM_TIME_NUM, staged.item_phantom_mask), reps=20)
+    library_ms = time_ms(lambda: torch.topk(qv @ table.T, ECOMM_TIME_NUM),
+                         reps=20)
+    bound_ms, bound_by = bound(1, table.shape[0], table.shape[1],
+                               ECOMM_TIME_NUM, table, None)
+    return {
+        "events": len(batch) + 1, "insert_s": insert_s, **times,
+        "users": len(model.user_map), "items": n_real,
+        "requests": len(queries), "answers_checked": checked,
+        "known_users": known, "changed_by_second_set": changed,
+        "tied_swaps_in_pools": ties, "max_abs_err": worst, "p50_ms": p50,
+        "launches": launches,
+        "timing": {"batch": 1, "items": table.shape[0],
+                   "k": table.shape[1], "num": ECOMM_TIME_NUM,
+                   "ms": ms if ms > 0 else call_ms, "call_ms": call_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by},
+    }
+
+
+def _cp_events(seed: int):
+    """100,000 buys of the phase 7 generator; each user's buys fall in
+    sessions of 2-6 a minute apart, sessions two hours apart, so the
+    3,600 s window makes baskets of about 2-6."""
+    from predictionio_tpu_torch.data.event import Event
+
+    n_users, n_items, n, data_seed = CP_SHAPE
+    rows, cols, _vals = make_interactions(n_users, n_items, n,
+                                          seed=data_seed)
+    rng = np.random.default_rng(seed + data_seed)
+    order = np.argsort(rows, kind="stable")
+    rank = np.empty(n, np.int64)
+    starts = np.searchsorted(rows[order], np.arange(n_users))
+    rank[order] = np.arange(n) - starts[rows[order]]
+    size = rng.integers(2, 7, n_users)[rows]
+    secs = rows * 10**6 + rank // size * 7200 + rank % size * 60
+    return [Event(event="buy", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  event_time=T_BASE + dt.timedelta(seconds=int(s)))
+            for u, i, s in zip(rows.tolist(), cols.tolist(), secs.tolist())]
+
+
+def cp_phase(device, tmpdir: str, seed: int) -> dict:
+    """Complementary purchase: C on the card against an exact host count,
+    the complement lists against the port's CPU scoring of that count,
+    and 64 basket queries over HTTP against the CPU model's answers."""
+    from predictionio_tpu_torch.models import complementarypurchase as cp
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    variant = _engine_json("complementarypurchase")
+    app_name = variant["datasource"]["params"]["app_name"]
+    storage, app_id = _template_storage("memory", tmpdir, app_name)
+    insert_s = _insert(storage, app_id, _cp_events(seed))
+    engine = cp.complementarypurchase_engine()
+    params = engine.params_from_variant(variant)
+    (_n, p), = params.algorithms
+    ctx = ComputeContext.create(device=device)
+    (model,), times = _train_template(engine, params, "chip-cp", ctx,
+                                      storage)
+    # the same baskets through the data source, C on the card and on the
+    # host (exact pair counts), then the port's CPU scoring
+    from predictionio_tpu_torch.data.storage import set_storage
+
+    set_storage(storage)
+    try:
+        td = engine.make_data_source(params).read_training(ctx)
+    finally:
+        set_storage(None)
+    n_items = len(td.item_map)
+    sizes = np.asarray([len(b) for b in td.baskets])
+    t0 = time.perf_counter()
+    C_card = cp.cooccurrence(td.baskets, n_items, p.chunk, device)
+    torch.cuda.synchronize()
+    cooc_ms = (time.perf_counter() - t0) * 1e3
+    C_host = np.zeros((n_items, n_items), np.float32)
+    for b in td.baskets:
+        ii, jj = np.meshgrid(b, b, indexing="ij")
+        np.add.at(C_host, (ii.ravel(), jj.ravel()), 1.0)
+    assert np.array_equal(C_card.cpu().numpy(), C_host), "C differs"
+    s_cpu, i_cpu = cp.score_top_k(torch.from_numpy(C_host), len(td.baskets),
+                                  p.metric, p.min_support, p.top_k)
+    s_cpu = s_cpu.numpy()
+    i_cpu = np.where(s_cpu > 0, i_cpu.numpy(), -1).astype(np.int32)
+    assert np.array_equal(model.topk_items, i_cpu), "complement lists differ"
+    worst = _close(model.topk_scores, s_cpu, "complement scores")
+    cpu_model = cp.CPModel(item_map=td.item_map, topk_items=i_cpu,
+                           topk_scores=s_cpu)
+    rng = np.random.default_rng(seed + 50)
+    ids = td.item_map.keys()
+    queries = [{"items": rng.choice(ids, int(rng.integers(1, 5)),
+                                    replace=False).tolist(),
+                "num": int(rng.choice([5, 10, 20]))}
+               for _ in range(CP_QUERIES - 1)] + [{"items": ["nope"],
+                                                   "num": 5}]
+    with _Served(engine, params, "chip-cp", ctx, storage) as srv:
+        answers = [srv.query(q) for q in queries]
+        p50 = srv.p50_ms()
+    nonempty = 0
+    for q, ans in zip(queries, answers):
+        want = cp.CPAlgorithm().predict(cpu_model, q)
+        assert [e["item"] for e in ans["itemScores"]] == [
+            e["item"] for e in want["itemScores"]], q
+        _close([e["score"] for e in ans["itemScores"]],
+               [e["score"] for e in want["itemScores"]], "basket scores")
+        nonempty += bool(ans["itemScores"])
+    assert nonempty > CP_QUERIES // 2, nonempty
+    return {"events": CP_SHAPE[2], "insert_s": insert_s, **times,
+            "baskets": len(td.baskets), "basket_p50": float(
+                np.median(sizes)), "items": n_items,
+            "cooccurrence_ms": cooc_ms, "max_rel_err": worst,
+            "queries": len(queries), "answered": nonempty, "p50_ms": p50}
+
+
+def _clf_events(seed: int):
+    """The classification example's shape: two plans, three attributes
+    around a per-plan base, here over 20,000 users."""
+    from predictionio_tpu_torch.data.event import Event
+
+    rng = np.random.default_rng(seed + 51)
+    noise = rng.random((CLF_ENTITIES, 3))
+    out = []
+    for i in range(CLF_ENTITIES):
+        base = (8.0, 1.0, 1.0) if i % 2 == 0 else (1.0, 1.0, 8.0)
+        out.append(Event(event="$set", entity_type="user", entity_id=f"u{i}",
+                         properties={"attr0": base[0] + noise[i, 0],
+                                     "attr1": base[1] + noise[i, 1],
+                                     "attr2": base[2] + noise[i, 2],
+                                     "plan": str(i % 2)}))
+    return out
+
+
+TOPICS = (
+    ("win free prize money claim offer click now today exclusive "
+     "limited instantly cash bonus"),
+    ("meeting agenda review report quarterly tuesday planning notes "
+     "attached schedule team budget"),
+    ("match goal score team season coach league win player final "
+     "stadium fans"),
+    ("recipe bake flour oven sugar butter dinner taste salt pan cook "
+     "bread"),
+)
+
+
+def _docs(n: int, seed: int) -> list[tuple[str, str]]:
+    """(label, text) pairs over four topics: 8-20 words, most from the
+    label's topic, the rest from any; some capitalized."""
+    rng = np.random.default_rng(seed)
+    vocab = [t.split() for t in TOPICS]
+    every = [w for t in vocab for w in t]
+    out = []
+    for i in range(n):
+        label = i % len(TOPICS)
+        words = [str(rng.choice(vocab[label])) if rng.random() < 0.7
+                 else str(rng.choice(every))
+                 for _ in range(int(rng.integers(8, 21)))]
+        out.append((f"topic{label}",
+                    " ".join(w.title() if rng.random() < 0.1 else w
+                             for w in words) + "."))
+    return out
+
+
+def _nb_checks(models_card, models_cpu, xq, what) -> float:
+    """log scores of the card's and the CPU's tables on ``xq``."""
+    from predictionio_tpu_torch.ops import naive_bayes as nb
+
+    worst = _close(models_card.pi, models_cpu.pi, f"{what} pi")
+    worst = max(worst, _close(models_card.theta, models_cpu.theta,
+                              f"{what} theta"))
+    card = nb.log_scores(models_card, xq.to(models_card.theta.device))
+    cpu = nb.log_scores(models_cpu, xq.cpu())
+    return max(worst, _close(card, cpu, f"{what} log scores"))
+
+
+def classifier_phase(device, tmpdir: str, seed: int, name: str) -> dict:
+    """classification (20,000 users' $set attributes) or
+    textclassification (10,000 documents, 4 labels, 4096 hashed
+    features): trained by ``run_train`` on the card and, from the same
+    prepared data, on the CPU; tables and log scores within tolerance,
+    256 HTTP answers equal to the CPU model's labels."""
+    from predictionio_tpu_torch.core.registry import resolve_engine_factory
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import set_storage
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    variant = _engine_json(name)
+    app_name = variant["datasource"]["params"]["app_name"]
+    storage, app_id = _template_storage("memory", tmpdir, app_name)
+    rng = np.random.default_rng(seed + 52)
+    if name == "classification":
+        events = _clf_events(seed)
+        queries = [{"features": (rng.random(3) * 9).tolist()}
+                   for _ in range(TEMPLATE_QUERIES)]
+    else:
+        docs = _docs(TEXT_DOCS, seed + 53)
+        events = [Event(event="$set", entity_type="document",
+                        entity_id=f"d{i}",
+                        properties={"text": text, "label": label})
+                  for i, (label, text) in enumerate(docs)]
+        queries = [{"text": text} for _l, text in _docs(TEMPLATE_QUERIES,
+                                                         seed + 54)]
+    insert_s = _insert(storage, app_id, events)
+    engine = resolve_engine_factory(name)()
+    params = engine.params_from_variant(variant)
+    ctx = ComputeContext.create(device=device)
+    cpu = ComputeContext.create(device="cpu")
+    (model,), times = _train_template(engine, params, f"chip-{name}", ctx,
+                                      storage)
+    set_storage(storage)
+    try:
+        td = engine.make_data_source(params).read_training(cpu)
+    finally:
+        set_storage(None)
+    prep = engine.make_preparator(params).prepare(cpu, td)
+    algo = engine.make_algorithms(params)[0]
+    cpu_model = algo.train(cpu, prep)
+    staged = algo.stage_model(ctx, model)
+    nb_card = getattr(staged, "nb", None) or staged.nb_model
+    nb_cpu = getattr(cpu_model, "nb", None) or cpu_model.nb_model
+    assert nb_card.theta.device.type == device.type
+    worst = _nb_checks(nb_card, nb_cpu, prep.x[:TEMPLATE_QUERIES], name)
+    with _Served(engine, params, f"chip-{name}", ctx, storage) as srv:
+        answers = [srv.query(q) for q in queries]
+        p50 = srv.p50_ms()
+    want = algo.batch_predict(cpu_model, queries)
+    assert [a["label"] for a in answers] == [w["label"] for w in want]
+    if name == "textclassification":
+        for a, w in zip(answers, want):
+            _close([a["scores"][k] for k in sorted(w["scores"])],
+                   [w["scores"][k] for k in sorted(w["scores"])],
+                   "text scores")
+    return {"events": len(events), "insert_s": insert_s, **times,
+            "rows": int(prep.x.shape[0]), "features": int(prep.x.shape[1]),
+            "classes": len(td.label_map) if hasattr(td, "label_map")
+            else len(set(td.labels)),
+            "max_rel_err": worst, "queries": len(queries),
+            "labels": sorted({a["label"] for a in answers}), "p50_ms": p50}
+
+
+def _reg_events(seed: int):
+    """The regression example's shape: label = x·w + 3 + noise, here
+    10,000 points of 10 features."""
+    from predictionio_tpu_torch.data.event import Event
+
+    n, d = REG_SHAPE
+    rng = np.random.default_rng(seed + 55)
+    true_w = rng.standard_normal(d)
+    x = rng.uniform(-1, 1, (n, d))
+    y = x @ true_w + 3.0 + rng.normal(0, 0.05, n)
+    return [Event(event="point", entity_type="point", entity_id=f"p{i}",
+                  properties={"label": float(y[i]),
+                              "features": x[i].tolist()})
+            for i in range(n)]
+
+
+def _lead_events(seed: int):
+    """The leadscoring example's shape over 10,000 leads: converted
+    leads engage more, with overlapping noise."""
+    from predictionio_tpu_torch.data.event import Event
+
+    rng = np.random.default_rng(seed + 56)
+    out = []
+    for i in range(LEADS):
+        converted = bool(rng.random() < 0.5)
+        base = 8.0 if converted else 2.0
+        out.append(Event(event="$set", entity_type="user", entity_id=f"u{i}",
+                         properties={
+                             "sessions": float(base + rng.normal(0, 3.0)),
+                             "pages": float(base * 3 + rng.normal(0, 9.0)),
+                             "minutes": float(base * 5 + rng.normal(0, 15.0)),
+                             "converted": converted}))
+    return out
+
+
+def _hello_events(seed: int):
+    from predictionio_tpu_torch.data.event import Event
+
+    rng = np.random.default_rng(seed + 57)
+    base = {"Mon": 75, "Tue": 80, "Wed": 70, "Thu": 65, "Fri": 68}
+    return [Event(event="report", entity_type="day", entity_id=day,
+                  properties={"temperature": float(t + rng.uniform(-3, 3))})
+            for _w in range(HELLO_WEEKS) for day, t in base.items()]
+
+
+def numeric_phase(device, tmpdir: str, seed: int, name: str) -> dict:
+    """regression (the example's three SGD step sizes, AverageServing),
+    leadscoring (500 Adam steps) or helloworld: trained by ``run_train``
+    on the card and on the CPU from the same read; weights, means and
+    answers within tolerance, leadscoring's final loss within 1e-5."""
+    from predictionio_tpu_torch.core.registry import resolve_engine_factory
+    from predictionio_tpu_torch.data.storage import set_storage
+    from predictionio_tpu_torch.models import leadscoring
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    variant = _engine_json(name)
+    app_name = variant["datasource"]["params"]["app_name"]
+    storage, app_id = _template_storage("memory", tmpdir, app_name)
+    events = {"regression": _reg_events, "leadscoring": _lead_events,
+              "helloworld": _hello_events}[name](seed)
+    insert_s = _insert(storage, app_id, events)
+    engine = resolve_engine_factory(name)()
+    params = engine.params_from_variant(variant)
+    ctx = ComputeContext.create(device=device)
+    cpu = ComputeContext.create(device="cpu")
+    models, times = _train_template(engine, params, f"chip-{name}", ctx,
+                                    storage)
+    set_storage(storage)
+    try:
+        td = engine.make_data_source(params).read_training(cpu)
+    finally:
+        set_storage(None)
+    prep = engine.make_preparator(params).prepare(cpu, td)
+    algos = engine.make_algorithms(params)
+    rng = np.random.default_rng(seed + 58)
+    out = {"events": len(events), "insert_s": insert_s, **times}
+    worst = 0.0
+    if name == "regression":
+        queries = [{"features": rng.uniform(-1, 1, REG_SHAPE[1]).tolist()}
+                   for _ in range(TEMPLATE_QUERIES)]
+        cpu_models = [a.train(cpu, prep) for a in algos]
+        for m, c in zip(models, cpu_models):
+            worst = max(worst, _close(np.append(m.weights, m.intercept),
+                                      np.append(c.weights, c.intercept),
+                                      "regression weights"))
+        want = [engine.make_serving(params).serve(
+            q, [a.predict(c, q) for a, c in zip(algos, cpu_models)])
+            for q in queries]
+    elif name == "leadscoring":
+        queries = [{"features": [float(rng.uniform(0, 12)),
+                                 float(rng.uniform(0, 36)),
+                                 float(rng.uniform(0, 60))]}
+                   for _ in range(TEMPLATE_QUERIES)]
+        (algo,) = algos
+        p = algo.params
+        card_x = prep.x.to(device)
+        w_card, b_card = leadscoring.fit_logistic(
+            card_x, prep.y.to(device), prep.mask.to(device),
+            p.learning_rate, p.steps, p.l2)
+        w_cpu, b_cpu = leadscoring.fit_logistic(
+            prep.x, prep.y, prep.mask, p.learning_rate, p.steps, p.l2)
+        (m,) = models
+        _close(m.w, w_card, "run_train's lead weights against a refit")
+        worst = _close(np.append(w_card.cpu(), float(b_card)),
+                       np.append(w_cpu, float(b_cpu)), "lead weights")
+        loss_card = float(leadscoring.lead_loss(
+            w_card, b_card, card_x, prep.y.to(device),
+            prep.mask.to(device), p.l2))
+        loss_cpu = float(leadscoring.lead_loss(
+            w_cpu, b_cpu, prep.x, prep.y, prep.mask, p.l2))
+        assert abs(loss_card - loss_cpu) <= 1e-5, (loss_card, loss_cpu)
+        out.update(loss_card=loss_card, loss_cpu=loss_cpu)
+        t0 = time.perf_counter()
+        leadscoring.fit_logistic(card_x, prep.y.to(device),
+                                 prep.mask.to(device), p.learning_rate,
+                                 p.steps, p.l2)
+        torch.cuda.synchronize()
+        out["adam_fit_s"] = time.perf_counter() - t0
+        cpu_model = algo.train(cpu, prep)
+        want = algo.batch_predict(cpu_model, queries)
+    else:
+        days = ("Mon", "Tue", "Wed", "Thu", "Fri", "Sun")  # Sun unknown
+        queries = [{"day": days[j % len(days)]}
+                   for j in range(TEMPLATE_QUERIES)]
+        (algo,) = algos
+        cpu_model = algo.train(cpu, prep)
+        worst = _close(models[0].means, cpu_model.means, "hello means")
+        want = [algo.predict(cpu_model, q) for q in queries]
+    with _Served(engine, params, f"chip-{name}", ctx, storage) as srv:
+        answers = [srv.query(q) for q in queries]
+        out["p50_ms"] = srv.p50_ms()
+    for a, w in zip(answers, want):
+        if name == "regression":
+            _close([a], [w], "regression answers")
+        elif name == "leadscoring":
+            assert a["converted"] == w["converted"], (a, w)
+            _close([a["score"]], [w["score"]], "lead scores")
+        else:
+            assert (a["temperature"] is None) == (w["temperature"] is None)
+            if w["temperature"] is not None:
+                _close([a["temperature"]], [w["temperature"]], "hello")
+    out.update(max_rel_err=worst, queries=len(queries))
+    return out
+
+
+def e2_phase(device, tmpdir: str, seed: int) -> dict:
+    """``train_markov_chain`` over 5,000 states on the card against the
+    CPU (indices equal, probabilities within tolerance), and one MANUAL
+    model with a CUDA tensor field saved and loaded back onto the card."""
+    from predictionio_tpu_torch.core.persistent_model import (
+        load_persistent_model,
+        save_persistent_model,
+    )
+    from predictionio_tpu_torch.ops import markov
+
+    n_states, n = MARKOV
+    rng = np.random.default_rng(seed + 59)
+    frm = rng.integers(0, n_states, n)
+    to = (rng.zipf(1.3, n) + frm) % n_states
+    t0 = time.perf_counter()
+    card = markov.train_markov_chain(frm, to, n_states, 10, device=device)
+    torch.cuda.synchronize()
+    markov_s = time.perf_counter() - t0
+    cpu = markov.train_markov_chain(frm, to, n_states, 10, device="cpu")
+    assert torch.equal(card.indices.cpu(), cpu.indices), "markov indices"
+    worst = _close(card.probs, cpu.probs, "markov probs")
+    ties = int((card.probs[:, 1:] == card.probs[:, :-1]).sum())
+    assert markov.predict_next(card, 7) == markov.predict_next(cpu, 7)
+
+    factors = torch.randn(4096, 32, device=device)
+    model = {"factors": factors, "bias": np.arange(4, dtype=np.float32),
+             "names": ("a", "b")}
+    d = os.path.join(tmpdir, "pmodel")
+    t0 = time.perf_counter()
+    save_persistent_model(d, model)
+    back = load_persistent_model(d, device=device)
+    persist_s = time.perf_counter() - t0
+    assert back["factors"].device == factors.device
+    assert torch.equal(back["factors"], factors), "MANUAL round trip"
+    assert np.array_equal(back["bias"], model["bias"])
+    assert back["names"] == ("a", "b")
+    return {"markov_states": n_states, "transitions": n,
+            "markov_s": markov_s, "markov_max_rel_err": worst,
+            "tied_neighbours": ties, "manual_round_trip_s": persist_s}
+
+
+def templates_phase(device, seed: int) -> dict:
+    """Phase 11: every other engine template the JAX package registers,
+    each from events through ``run_train`` to HTTP answers on the card,
+    then the e2 helpers and MANUAL persistence."""
+    out = {}
+    steps = [
+        ("ecommerce", lambda d: ecommerce_phase(device, d, seed)),
+        ("complementarypurchase", lambda d: cp_phase(device, d, seed)),
+        ("classification",
+         lambda d: classifier_phase(device, d, seed, "classification")),
+        ("textclassification",
+         lambda d: classifier_phase(device, d, seed, "textclassification")),
+        ("regression", lambda d: numeric_phase(device, d, seed,
+                                               "regression")),
+        ("leadscoring", lambda d: numeric_phase(device, d, seed,
+                                                "leadscoring")),
+        ("helloworld", lambda d: numeric_phase(device, d, seed,
+                                               "helloworld")),
+        ("e2", lambda d: e2_phase(device, d, seed)),
+    ]
+    for name, step in steps:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{name}-") as d:
+            out[name] = step(d)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"template {name} " + json.dumps(out[name]))
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1693,6 +2511,31 @@ def log_ingest(ingest: dict, dase: dict) -> None:
             f"{run['answers_checked']}, tied swaps {run['tied_mismatches']}, "
             f"max score error {run['max_abs_err']:.3g}, f32 launches "
             f"{run['launches']['f32']}")
+
+
+def log_templates(t: dict) -> None:
+    e = t["ecommerce"]
+    log(f"ecommerce: {e['events']} events in {e['insert_s']:.2f} s; read "
+        f"{e['read_s']:.3f} s, train {e['train_s']:.3f} s, persist "
+        f"{e['persist_s']:.3f} s; {e['requests']} requests, p50 "
+        f"{e['p50_ms']:.3f} ms, {e['answers_checked']} answers equal to the "
+        f"host recomputation ({e['changed_by_second_set']} changed by the "
+        f"second unavailableItems set, {e['tied_swaps_in_pools']} tied "
+        f"swaps in the pools); f32 launches {e['launches']['f32']}")
+    k = e["timing"]
+    log(f"time ecommerce f32 B={k['batch']} I={k['items']} k={k['k']} "
+        f"num={k['num']} kernel_ms={k['ms']:.4f} call_ms={k['call_ms']:.4f} "
+        f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
+        f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
+        f"bound_share={k['bound_ms'] / k['ms']:.3f}")
+    for name, run in t.items():
+        if name == "ecommerce":
+            continue
+        secs = ", ".join(f"{key} {run[key]:.3f} s" for key in (
+            "insert_s", "read_s", "train_s", "persist_s", "adam_fit_s",
+            "markov_s", "manual_round_trip_s") if key in run)
+        p50 = f", request p50 {run['p50_ms']:.3f} ms" if "p50_ms" in run else ""
+        log(f"{name}: {secs}{p50}; whole step {run['phase_s']:.2f} s")
 
 
 def nvidia_smi_line() -> str:
@@ -1825,11 +2668,16 @@ def main() -> int:
         f"{similar['cosine_call_ms']:.4f} ms")
     log(f"phase similar: ok ({time.perf_counter() - t_start:.1f} s)")
 
-    # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10
-    for run in (dase, *ingest.values(), evaluation, similar):
+    templates = templates_phase(device, args.seed)
+    log_templates(templates)
+    log(f"phase templates: ok ({time.perf_counter() - t_start:.1f} s)")
+
+    # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10, 11
+    for run in (dase, *ingest.values(), evaluation, similar,
+                templates["ecommerce"]):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-10: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-11: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

@@ -24,6 +24,7 @@ import logging
 import pickle
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from predictionio_tpu_torch.core.controller import Algorithm, PersistenceMode
@@ -106,6 +107,15 @@ def serialize_models(
 _MODEL_CLASSES = {
     "models.recommendation": ("ALSRecModel",),
     "models.similarproduct": ("SimilarModel",),
+    "models.ecommerce": ("ECommModel",),
+    "models.complementarypurchase": ("CPModel",),
+    "models.classification": ("NaiveBayesModel",),
+    "models.textclassification": ("TextNBModel",),
+    "models.helloworld": ("HelloModel",),
+    "models.regression": ("RegressionModel",),
+    "models.leadscoring": ("LeadModel",),
+    "ops.naive_bayes": ("MultinomialNBModel", "CategoricalNBModel"),
+    "ops.markov": ("MarkovChainModel",),
     "utils.bimap": ("BiMap",),
 }
 _NUMPY_GLOBALS = {
@@ -124,8 +134,35 @@ _BUILTINS = {
 }
 
 
+#: the JAX package pickles a ``jax.Array`` left inside a model (its
+#: ``to_host`` does not walk plain dataclasses) as a call of this
+#: function on the numpy array's own pickle state
+_JAX_ARRAY = ("jax._src.array", "_reconstruct_array")
+
+
+def _numpy_from_jax_array(fun, args, arr_state, aval_state):
+    """The numpy array a pickled ``jax.Array`` holds. ``fun`` was itself
+    resolved through the allowlist (numpy's ``_reconstruct``)."""
+    arr = fun(*args)
+    if not isinstance(arr, np.ndarray):
+        raise pickle.UnpicklingError("a pickled jax.Array holds no array")
+    arr.__setstate__(arr_state)
+    return arr
+
+
 class _ModelUnpickler(pickle.Unpickler):
+    """The allowlist above, plus ``extra``: ``{(module, name): class}``
+    a caller expects (a MANUAL model's own classes)."""
+
+    def __init__(self, file, extra: dict | None = None):
+        super().__init__(file)
+        self._extra = extra or {}
+
     def find_class(self, module: str, name: str):
+        if (module, name) in self._extra:
+            return self._extra[(module, name)]
+        if (module, name) == _JAX_ARRAY:
+            return _numpy_from_jax_array
         for package in ("predictionio_tpu", "predictionio_tpu_torch"):
             sub = module[len(package) + 1:]
             if (

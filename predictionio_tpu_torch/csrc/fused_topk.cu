@@ -55,8 +55,15 @@
 // Ranking is by one 64-bit key: the order-preserving bits of the float score
 // above the complement of the item index, so equal scores rank the lower
 // index first (lax.top_k's order) across splits too. NaN and masked scores
-// are never inserted (they rank as -inf); a slot that never fills stays key
-// 0 and decodes to score -inf, index 0, as the TPU kernel leaves it.
+// rank as -inf: such an item enters a list as the key of -inf above its
+// complemented index (0x007FFFFF in the high word), above the empty key 0
+// and below every finite score, so a list with fewer rankable items than
+// `num` fills its last slots with score -inf and the lowest unrankable
+// indices, ascending, as lax.top_k does. After the first tile a score is
+// tested as !(v < t) against its list's num-th score t, which is -inf
+// while the list has room: every item passes then, NaN and -inf included,
+// and the key compare decides; once a list holds `num` finite scores,
+// -inf fails the test and NaN alone passes it, to fail the key compare.
 // A list lives in shared memory, so a call ranks at most 1024 per round:
 // a larger `num` runs further rounds, each bounded above by the last key
 // the round before produced (`upper`).
@@ -673,12 +680,13 @@ __global__ void __launch_bounds__(kThreads, 2)
           const float sc = (scale != nullptr && gi < end) ? scale[gi] : 1.0f;
           const float v = scale != nullptr ? acc[j][i] * sc : acc[j][i];
           key[i] = 0ull;
-          // NaN fails the compare: it ranks as -inf
-          if (gi < end && l < nq && v > -INFINITY &&
-              !(mask_kind == 1 && mask[gi] != 0) &&
-              !(mask_kind == 2 &&
-                mask[static_cast<size_t>(b0 + l) * I + gi] != 0)) {
-            key[i] = make_key(v, gi);
+          if (gi < end && l < nq) {
+            // NaN fails the compare: it ranks as -inf, as masked items do
+            const bool dead =
+                !(v > -INFINITY) || (mask_kind == 1 && mask[gi] != 0) ||
+                (mask_kind == 2 &&
+                 mask[static_cast<size_t>(b0 + l) * I + gi] != 0);
+            key[i] = make_key(dead ? -INFINITY : v, gi);
             if (key[i] >= ub[l]) key[i] = 0ull;
           }
         }
@@ -712,11 +720,12 @@ __global__ void __launch_bounds__(kThreads, 2)
       PHASE(6)
       continue;
     }
-    // a score below its list's num-th score, NaN (corrupt factors) or -inf
-    // is never kept: one float compare each, no key built. Each score that
-    // passes sets a bit; a thread then appends its few candidates one by
-    // one (a shared atomic each), and a buffer that could not take another
-    // tile raises the flag.
+    // a score below its list's num-th score is never kept: one float
+    // compare each, no key built (with room in the list that score is
+    // -inf and every item passes; NaN always passes, for the key compare
+    // to refuse). Each score that passes sets a bit; a thread then appends
+    // its few candidates one by one (a shared atomic each), and a buffer
+    // that could not take another tile raises the flag.
     unsigned hits = 0u;
 #pragma unroll
     for (int i = 0; i < M::TI; ++i) {
@@ -726,7 +735,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < M::TQ; ++j) {
         if (scale != nullptr) acc[j][i] *= sc;
         const float v = acc[j][i];
-        if (gi < end && qg + j * M::NGQ < nq && v >= ts[j] && v > -INFINITY)
+        if (gi < end && qg + j * M::NGQ < nq && !(v < ts[j]))
           hits |= 1u << (j * M::TI + i);
       }
     }
@@ -742,11 +751,11 @@ __global__ void __launch_bounds__(kThreads, 2)
           if (b == j * M::TI + i) v = acc[j][i];
       const int l = qg + b / M::TI * M::NGQ;
       const int gi = base + ig + b % M::TI * M::NGI;
-      // masked items rank as -inf
-      if (mask_kind == 1 && mask[gi] != 0) continue;
-      if (mask_kind == 2 && mask[static_cast<size_t>(b0 + l) * I + gi] != 0)
-        continue;
-      const u64 key = make_key(v, gi);
+      // masked items and NaN rank as -inf
+      const bool dead =
+          !(v > -INFINITY) || (mask_kind == 1 && mask[gi] != 0) ||
+          (mask_kind == 2 && mask[static_cast<size_t>(b0 + l) * I + gi] != 0);
+      const u64 key = make_key(dead ? -INFINITY : v, gi);
       if (key <= thr[l] || (upper != nullptr && key >= ub[l])) continue;
       const int pos = atomicAdd(&cnt[l], 1);
       region[static_cast<size_t>(l) * R + num + pos] = key;

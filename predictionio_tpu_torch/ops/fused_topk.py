@@ -13,7 +13,8 @@ Contract (both versions, pallas_topk.py:37-39, 110-137, 248-251):
 * NaN scores and masked items rank as -inf;
 * ``num`` is clamped to the catalog size;
 * equal scores rank the lower item index first;
-* a slot with no rankable item left holds score -inf and index 0;
+* a slot with no rankable item left holds score -inf and the lowest
+  unrankable index not already listed, ascending (``lax.top_k``'s order);
 * ``items`` is float32, bfloat16 or int8; ``scale`` ([I] float32) multiplies
   each item's score after the dot; ``mask`` ([I] or [B, I], nonzero =
   exclude) is taken as it is, with no widening to [B, I].
@@ -94,9 +95,8 @@ def fused_top_k_dot_reference(
     if mask is not None:
         scores = scores.masked_fill(mask, _NEG)
     top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    # unrankable items (-inf) follow the rankable ones, ascending by index
     top_s, top_i = top_s[:, :num], top_i[:, :num]
-    # a slot no rankable item filled holds index 0, as the kernel leaves it
-    top_i = torch.where(torch.isneginf(top_s), 0, top_i)
     return top_s.contiguous(), top_i.to(torch.int32).contiguous()
 
 

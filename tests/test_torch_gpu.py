@@ -266,3 +266,158 @@ def test_zero_query_ranks_by_index_on_card(cuda_device, form):
     assert torch.equal(got[1], first.expand(3, 40))
     assert torch.equal(want[1], got[1])
     assert torch.equal(got[0], want[0]) and not torch.signbit(got[0]).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("num", [16, 64, fused_topk.NUM_CAP + 100])
+def test_unfilled_slots_name_the_plain_versions_items_on_card(
+        cuda_device, form, num):
+    """Rows with fewer rankable items than ``num``: an over-masked row, a
+    NaN query and a row whose mask leaves a handful. Their -inf slots
+    must name exactly the plain version's items (the lowest unrankable
+    indices, ascending, lax.top_k's order), across item splits and
+    rounds."""
+    n = 20_011
+    q, items, _mask, scale = _inputs(form, 4, n, 32, 7, cuda_device)
+    q[1] = float("nan")
+    mask = torch.zeros(4, n, dtype=torch.bool, device=cuda_device)
+    mask[0] = True
+    mask[0, [3, 700, 19_999]] = False
+    mask[2, 10:] = True
+    ks, ki = fused_topk.fused_top_k_dot(q, items, num, mask, scale)
+    ps, pi = fused_topk.fused_top_k_dot_reference(q, items, num, mask,
+                                                  scale)
+    neg = torch.isneginf(ps)
+    assert torch.equal(torch.isneginf(ks), neg)
+    assert neg[:3].any(dim=1).all() and not neg[3].any()
+    assert torch.equal(ki[neg], pi[neg])
+    assert torch.equal(ki[1], torch.arange(
+        num, dtype=torch.int32, device=cuda_device))
+    for row in ki.cpu():
+        assert len(set(row.tolist())) == num
+
+
+@pytest.mark.gpu
+def test_templates_train_alike_on_card(cuda_device):
+    """The templates' device work (co-occurrence, naive Bayes, the
+    Markov top-N, segment means, gradient descent, Adam) on the card
+    against the same calls on the CPU."""
+    from predictionio_tpu_torch.models import complementarypurchase as cp
+    from predictionio_tpu_torch.models import helloworld, leadscoring
+    from predictionio_tpu_torch.models import regression
+    from predictionio_tpu_torch.ops import markov, naive_bayes
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    baskets = [np.unique(rng.integers(0, 300, rng.integers(1, 7))).astype(
+        np.int32) for _ in range(2_000)]
+    c_card = cp.cooccurrence(baskets, 300, 256, cuda_device)
+    c_cpu = cp.cooccurrence(baskets, 300, 256, cpu)
+    assert torch.equal(c_card.cpu(), c_cpu)
+    for metric in ("lift", "confidence"):
+        sc, ic = cp.score_top_k(c_card, 2_000, metric, 2, 20)
+        sp, ip = cp.score_top_k(c_cpu, 2_000, metric, 2, 20)
+        assert torch.equal(ic.cpu(), ip)
+        np.testing.assert_allclose(sc.cpu(), sp, rtol=1e-6)
+
+    x = torch.from_numpy(rng.poisson(2.0, (500, 64)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 4, 500))
+    a = naive_bayes.fit_multinomial(x.to(cuda_device), y.to(cuda_device), 4)
+    b = naive_bayes.fit_multinomial(x, y, 4)
+    np.testing.assert_allclose(a.theta.cpu(), b.theta, rtol=1e-5, atol=1e-6)
+    assert torch.equal(naive_bayes.predict_classes(a, x.to(cuda_device)).cpu(),
+                       naive_bayes.predict_classes(b, x))
+
+    frm, to = rng.integers(0, 400, 6_000), rng.integers(0, 40, 6_000)
+    mc = markov.train_markov_chain(frm, to, 400, 10, device=cuda_device)
+    mp = markov.train_markov_chain(frm, to, 400, 10, device=cpu)
+    assert torch.equal(mc.indices.cpu(), mp.indices)
+    np.testing.assert_allclose(mc.probs.cpu(), mp.probs, rtol=1e-6)
+
+    codes = torch.from_numpy(rng.integers(0, 5, 100))
+    vals = torch.from_numpy(rng.random(100).astype(np.float32))
+    np.testing.assert_allclose(
+        helloworld.segment_mean(codes.to(cuda_device), vals.to(cuda_device),
+                                6).cpu(),
+        helloworld.segment_mean(codes, vals, 6), rtol=1e-6)
+
+    X = torch.from_numpy(rng.uniform(-1, 1, (800, 6)).astype(np.float32))
+    t = X @ torch.arange(6.0) + 1.0
+    for fit in (lambda X_, t_: regression.sgd_fit(X_, t_, 200, 0.1, 0.0),
+                lambda X_, t_: regression.normal_fit(X_, t_, 0.1)):
+        np.testing.assert_allclose(
+            fit(X.to(cuda_device), t.to(cuda_device)).cpu(), fit(X, t),
+            rtol=1e-5, atol=1e-6)
+    lbl = (t > t.median()).float()
+    mask = torch.ones(800)
+    wc, bc = leadscoring.fit_logistic(X.to(cuda_device), lbl.to(cuda_device),
+                                      mask.to(cuda_device), 0.1, 300, 1e-3)
+    wp, bp = leadscoring.fit_logistic(X, lbl, mask, 0.1, 300, 1e-3)
+    np.testing.assert_allclose(wc.cpu(), wp, rtol=1e-4, atol=1e-5)
+    lc = float(leadscoring.lead_loss(wc, bc, X.to(cuda_device),
+                                     lbl.to(cuda_device),
+                                     mask.to(cuda_device), 1e-3))
+    lp = float(leadscoring.lead_loss(wp, bp, X, lbl, mask, 1e-3))
+    assert abs(lc - lp) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_manual_model_round_trips_onto_card(cuda_device, tmp_path):
+    from predictionio_tpu_torch.core.persistent_model import (
+        load_persistent_model,
+        save_persistent_model,
+    )
+
+    factors = torch.randn(300, 16, device=cuda_device).to(torch.bfloat16)
+    save_persistent_model(str(tmp_path / "m"), {"factors": factors, "n": 3})
+    back = load_persistent_model(str(tmp_path / "m"), device=cuda_device)
+    assert back["factors"].device == factors.device
+    assert back["factors"].dtype == torch.bfloat16
+    assert torch.equal(back["factors"], factors) and back["n"] == 3
+
+
+@pytest.mark.gpu
+def test_ecommerce_predict_on_card_matches_cpu(cuda_device):
+    """Shared factors (a NaN user row among them) staged on each device;
+    with no store declared the rules are left out alike."""
+    from predictionio_tpu_torch.data.storage import Storage, set_storage
+    from predictionio_tpu_torch.models.ecommerce import (
+        ECommAlgorithm,
+        ECommModel,
+    )
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    rng = np.random.default_rng(5)
+    uf = rng.standard_normal((50, 16)).astype(np.float32)
+    uf[7] = np.nan
+    model = ECommModel(
+        user_factors=uf,
+        item_factors=rng.standard_normal((5_000, 16)).astype(np.float32),
+        user_map=BiMap([f"u{i}" for i in range(50)]),
+        item_map=BiMap([f"i{i}" for i in range(5_000)]),
+        item_categories={}, popularity=rng.random(5_000).astype(np.float32))
+    algo = ECommAlgorithm()
+    set_storage(Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"}))
+    try:
+        card = algo.stage_model(ComputeContext.create(device=cuda_device),
+                                model)
+        host = algo.stage_model(ComputeContext.create(device="cpu"), model)
+        before = fused_topk.LAUNCHES["f32"]
+        for u in ("u1", "u7", "u20", "nobody"):
+            got = algo.predict(card, {"user": u, "num": 16})
+            want = algo.predict(host, {"user": u, "num": 16})
+            assert [e["item"] for e in got["itemScores"]] == [
+                e["item"] for e in want["itemScores"]]
+            np.testing.assert_allclose(
+                [e["score"] for e in got["itemScores"]],
+                [e["score"] for e in want["itemScores"]],
+                rtol=1e-5, atol=1e-4)
+        assert fused_topk.LAUNCHES["f32"] == before + 3
+    finally:
+        set_storage(None)

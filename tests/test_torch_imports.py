@@ -66,7 +66,12 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     mods = _modules()
     for mod in ("serving.engine_server", "core.evaluation", "core.fasteval",
                 "core.crossvalidation", "data.aggregation", "data.view",
-                "utils.npzio", "models.similarproduct"):
+                "utils.npzio", "models.similarproduct", "models.ecommerce",
+                "models.complementarypurchase", "models.classification",
+                "models.textclassification", "models.helloworld",
+                "models.regression", "models.leadscoring",
+                "ops.naive_bayes", "ops.markov", "ops.vectorizer",
+                "core.persistent_model"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(

@@ -4,10 +4,9 @@
   float32, int8 and bf16 (both packages quantize to the same bits), with
   a ``-1``-padded basket, an ``[I]`` mask, ``num`` above the catalog and
   a basket of padding only: the finite scores agree within 1e-5 (XLA-CPU
-  and torch-CPU normalize and sum in other orders) and name the same
-  items; the slots no rankable item fills are -inf in both (the port's
-  kernel contract puts index 0 there, so indices are compared on finite
-  slots only).
+  and torch-CPU normalize and sum in other orders) and every slot names
+  the same item; the slots no rankable item fills are -inf in both and
+  name the lowest unrankable items, ascending, as ``lax.top_k`` does.
 * ``SimilarALSAlgorithm.predict`` and ``SimilarProductServing.serve`` on
   shared factors: the same items in the same order, filters included,
   and ``{"itemScores": []}`` for a basket of unknown items. Where two
@@ -140,7 +139,7 @@ def test_gather_mean_top_k_cosine_matches_jax(mode, case):
     fin = np.isfinite(want_s)
     np.testing.assert_array_equal(np.isneginf(got_s), ~fin)
     np.testing.assert_allclose(got_s[fin], want_s[fin], **TOL)
-    np.testing.assert_array_equal(got_i[fin], want_i[fin])
+    np.testing.assert_array_equal(got_i, want_i)
     if masked:
         assert not mask[got_i[fin]].any()
 

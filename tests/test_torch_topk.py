@@ -89,6 +89,16 @@ def _check(form, q, data, scale, num, mask=None, block=1024):
     return ps, pi
 
 
+def _check_unfilled(form, q, data, scale, num, mask=None, block=1024):
+    """Scores against the Pallas interpreter, every index (the -inf
+    slots' included) against the XLA path's ``lax.top_k``."""
+    ps, pi, js, _ = _both(form, q, data, scale, num, mask, block)
+    np.testing.assert_allclose(ps, js, **TOL)
+    _, xi = _xla_reference(form, q, data, scale, num, mask)
+    np.testing.assert_array_equal(pi, np.asarray(xi))
+    return ps, pi
+
+
 def _xla_reference(form, q, data, scale, num, mask=None):
     """The JAX package's XLA path for the same form."""
     if form == "f32":
@@ -153,13 +163,40 @@ class TestAgainstPallasInterpreter:
         assert np.isfinite(ps).all()
 
     def test_overmasked_row(self, form):
+        # scores against the Pallas interpreter; the -inf slots' indices
+        # against lax.top_k (the XLA path the JAX dispatcher takes at
+        # these shapes), which lists the masked items ascending: the
+        # Pallas kernel leaves index 0 there, an index JAX calls arbitrary
         q, d, s = _inputs(form, 2, 40, 4, seed=9)
         mask = np.ones((2, 40), dtype=bool)
         mask[:, :3] = False
-        ps, pi = _check(form, q, d, s, 5, mask=mask, block=128)
+        ps, pi = _check_unfilled(form, q, d, s, 5, mask=mask, block=128)
         assert np.isneginf(ps[:, 3:]).all()
-        assert (pi[:, 3:] == 0).all()
+        np.testing.assert_array_equal(pi[:, 3:], [[3, 4]] * 2)
         assert (pi[:, :3] < 3).all()
+
+    def test_nan_query_row(self, form):
+        # a NaN user row scores NaN everywhere: every slot -inf, items
+        # 0, 1, 2, ... as lax.top_k lists them
+        q, d, s = _inputs(form, 3, 300, 8, seed=11)
+        q[1] = np.nan
+        ps, pi = _check_unfilled(form, q, d, s, 6, block=128)
+        assert np.isneginf(ps[1]).all() and np.isfinite(ps[[0, 2]]).all()
+        np.testing.assert_array_equal(pi[1], np.arange(6))
+
+    def test_num_above_rankable(self, form):
+        # NaN rows and an item mask leave fewer rankable items than num;
+        # the unrankable ones fill the tail by index, skipping none twice
+        q, d, s = _inputs(form, 4, 50, 8, seed=12, nan_rows=(0, 7, 31))
+        mask = np.zeros(50, dtype=bool)
+        mask[10:48] = True
+        ps, pi = _check_unfilled(form, q, d, s, 20, mask=mask, block=128)
+        assert np.isfinite(ps[:, :10]).all()
+        assert np.isneginf(ps[:, 10:]).all()
+        np.testing.assert_array_equal(
+            pi[:, 10:], [[0, 7, 10, 11, 12, 13, 14, 15, 16, 17]] * 4)
+        for row in pi:
+            assert len(set(row.tolist())) == 20
 
     def test_planted_ties_lower_index_first(self, form):
         # equal rows in three different blocks rank by index, as
