@@ -104,8 +104,31 @@ and PyTorch built for CUDA. In order:
    and held within 1e-5 relative, 256 requests each; then the e2 Markov
    chain over 5,000 states, card against CPU, and a MANUAL model with a
    CUDA tensor field saved and loaded back onto the card;
-12. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-11) and, last, the device line.
+12. runs the continuous trainer on the deployment the JAX package's
+   trainer smoke rehearses (sqlite metadata, the native event log,
+   localfs models; phase 7's 200,000 events; ``recommendation_engine()``
+   with the default ``ALSParams``, a checkpoint every iteration): a child
+   process (``chip_smoke.py --trainer-child``) runs ``poll_once`` with
+   ``PIO_TRAIN_CHAOS`` stretching its epochs and is killed with SIGKILL
+   once its checkpoint holds iteration 2; a second child resumes
+   (``resumedFromIteration`` at least the iteration seen at the kill),
+   ends COMPLETED and deletes the checkpoint; the same training
+   uninterrupted in this process gives the largest relative difference
+   (reported only) and the training and profiler traces in
+   ``PIO_TRACE_DIR``; the resumed generation is served and 64 answers are
+   held against the plain top-k; 50 new users and 10 new items are
+   ingested over HTTP, ``poll_once`` folds them in (the child
+   generation's manifest names the parent and the watermark, every
+   folded row within a relative residual of 1e-4 of its normal equations
+   in float64), ``POST /reload`` swaps the server and every new user's
+   answer equals the plain top-k on the child's factors; prints the time
+   to the fresh model and its split; ``run_forever`` polls twice with the
+   device sampler; the event server's ``/metrics`` and
+   ``/debug/traces.json`` must hold the ingest count, the fold-in, the
+   checkpoints, the step histogram, the device memory gauge and the
+   ``store/insert_batch`` spans;
+13. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-12) and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -958,28 +981,7 @@ def train_and_serve(device, storage, app_name: str, engine_id: str,
     launches = dict(fused_topk.LAUNCHES)
     assert launches["f32"] > 0, "the trained model served without the kernel"
 
-    user_f = torch.as_tensor(model.user_factors).to(device)
-    item_f = torch.as_tensor(model.item_factors).to(device)
-    n_checked, n_ties, max_err = 0, 0, 0.0
-    for q, ans in answers:
-        uid = model.user_map.get(q["user"], -1)
-        if uid < 0:
-            assert ans == {"itemScores": []}, ans
-            continue
-        n = min(q["num"], n_trained)
-        assert len(ans["itemScores"]) == n, (q, len(ans["itemScores"]))
-        got_i = torch.tensor(
-            [[model.item_map(e["item"]) for e in ans["itemScores"]]],
-            dtype=torch.int32, device=device,
-        )
-        got_s = torch.tensor([[e["score"] for e in ans["itemScores"]]],
-                             device=device)
-        qv = user_f[uid:uid + 1]
-        want = fused_topk.fused_top_k_dot_reference(qv, item_f, n)
-        res = compare(qv, item_f, None, None, n, (got_s, got_i), want)
-        n_checked += 1
-        n_ties += res["tied_mismatches"]
-        max_err = max(max_err, res["max_abs_err"])
+    n_checked, n_ties, max_err = check_answers(answers, model, device)
     assert n_checked == 164, n_checked
     return {
         "run_train_s": run_train_s,
@@ -994,6 +996,38 @@ def train_and_serve(device, storage, app_name: str, engine_id: str,
         "max_abs_err": max_err,
         "launches": launches,
     }
+
+
+def check_answers(answers, model, device) -> tuple[int, int, float]:
+    """Hold each ``(query, answer)`` of a recommendation server against
+    the plain top-k on ``model``'s factors (an unknown user must get an
+    empty list); returns (answers checked, tied swaps, max score error)."""
+    from predictionio_tpu_torch.ops import fused_topk
+
+    n_items = len(model.item_map)
+    user_f = torch.as_tensor(model.user_factors).to(device)
+    item_f = torch.as_tensor(model.item_factors).to(device)
+    n_checked, n_ties, max_err = 0, 0, 0.0
+    for q, ans in answers:
+        uid = model.user_map.get(q["user"], -1)
+        if uid < 0:
+            assert ans == {"itemScores": []}, ans
+            continue
+        n = min(q["num"], n_items)
+        assert len(ans["itemScores"]) == n, (q, len(ans["itemScores"]))
+        got_i = torch.tensor(
+            [[model.item_map(e["item"]) for e in ans["itemScores"]]],
+            dtype=torch.int32, device=device,
+        )
+        got_s = torch.tensor([[e["score"] for e in ans["itemScores"]]],
+                             device=device)
+        qv = user_f[uid:uid + 1]
+        want = fused_topk.fused_top_k_dot_reference(qv, item_f, n)
+        res = compare(qv, item_f, None, None, n, (got_s, got_i), want)
+        n_checked += 1
+        n_ties += res["tied_mismatches"]
+        max_err = max(max_err, res["max_abs_err"])
+    return n_checked, n_ties, max_err
 
 
 def dase_phase(device, store_dir: str, seed: int) -> dict:
@@ -2489,6 +2523,547 @@ def templates_phase(device, seed: int) -> dict:
     return out
 
 
+# -- phase 12: the continuous trainer ---------------------------------------
+
+TRAINER_APP = "chip-smoke-trainer"
+TRAINER_ENGINE = "chip-smoke-trainer"
+#: host sleep before each epoch of the first trainer child, so the kill
+#: lands between checkpoints (PIO_TRAIN_CHAOS)
+TRAINER_CHAOS_S = 0.4
+KILL_AT_ITERATION = 2
+FRESH_USERS, FRESH_ITEMS = 50, 10
+FRESH_EVENTS = (5, 20)  # each new user's / item's events, inclusive
+TRAINER_REQUESTS = 64
+
+
+def trainer_env(workdir: str) -> dict:
+    """sqlite metadata, the native event log and localfs models under
+    ``workdir``: the deployment the JAX package's trainer smoke runs."""
+    return {
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(workdir, "pio.sqlite"),
+        "PIO_STORAGE_SOURCES_LOG_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(workdir, "eventlog"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(workdir, "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    }
+
+
+def trainer_parts(workdir: str):
+    """(storage, engine, params, TrainerConfig) of phase 12's deployment:
+    ``recommendation_engine()`` with the default ``ALSParams`` (rank 32,
+    10 iterations), a checkpoint every iteration, fold-in from one event."""
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.training import TrainerConfig
+
+    storage = Storage(env=trainer_env(workdir))
+    engine = recommendation_engine()
+    params = engine.params_from_variant({
+        "datasource": {"params": {"app_name": TRAINER_APP}},
+        "algorithms": [{"name": "als", "params": {}}],
+    })
+    config = TrainerConfig(
+        app_name=TRAINER_APP, checkpoint_dir=os.path.join(workdir, "ckpt"),
+        checkpoint_every=1, min_new_events=1, poll_interval_s=0.2,
+    )
+    return storage, engine, params, config
+
+
+def trainer_child(workdir: str, device=None) -> int:
+    """One ``poll_once`` of a fresh trainer process on ``workdir`` (run as
+    ``chip_smoke.py --trainer-child DIR``, on the card); prints one JSON
+    line: the action, the state file, the seconds and this process's
+    trainer metrics."""
+    from predictionio_tpu_torch.data.storage import set_storage
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.training import ContinuousTrainer
+
+    t0 = time.perf_counter()
+    device = device or torch.device("cuda", 0)
+    storage, engine, params, config = trainer_parts(workdir)
+    set_storage(storage)  # the data source reads the process default
+    trainer = ContinuousTrainer(
+        engine, params, TRAINER_ENGINE, config, storage=storage,
+        ctx=ComputeContext.create(device=device),
+    )
+    action = trainer.poll_once()
+    metrics = get_registry().to_dict()
+    keep = ("pio_trainer_runs_total", "pio_train_checkpoints_total",
+            "pio_train_step_seconds")
+    print(json.dumps({
+        "action": action,
+        "state": trainer.state,
+        "seconds": time.perf_counter() - t0,
+        "metrics": {k: metrics[k]["samples"] for k in keep if k in metrics},
+    }), flush=True)
+    return 0
+
+
+def _spawn_trainer(workdir: str, extra_env: dict, name: str):
+    """A trainer child process; its output goes to files in ``workdir``
+    (a pipe nobody reads could fill and stall it). Returns (process,
+    stdout path, stderr path)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **extra_env)
+    out_path = os.path.join(workdir, f"{name}.out")
+    err_path = os.path.join(workdir, f"{name}.err")
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--trainer-child",
+             workdir],
+            env=env, stdout=out, stderr=err, cwd=ROOT,
+        )
+    return proc, out_path, err_path
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _counter(text: str, name: str, **labels) -> float:
+    """Sum of a family's samples in Prometheus text whose labels include
+    ``labels`` (0 when none)."""
+    total = 0.0
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            head, value = line.rsplit(" ", 1)
+            if head.split("{")[0] == name and all(w in head for w in want):
+                total += float(value)
+    return total
+
+
+def _fresh_events(model, seed: int) -> tuple[list, dict, dict]:
+    """New users rating known items, new items rated by known users: the
+    event JSON bodies, each new user's and item's (other, rating) list."""
+    rng = np.random.default_rng(seed + 12)
+    known_items = model.item_map.keys()
+    known_users = model.user_map.keys()
+    lo, hi = FRESH_EVENTS
+    bodies, by_user, by_item = [], {}, {}
+    for u in range(FRESH_USERS):
+        uid = f"fresh-u{u}"
+        items = rng.choice(known_items, int(rng.integers(lo, hi + 1)))
+        for item in items.tolist():
+            r = float(rng.integers(1, 6))
+            by_user.setdefault(uid, []).append((item, r))
+            bodies.append((uid, item, r))
+    for i in range(FRESH_ITEMS):
+        iid = f"fresh-i{i}"
+        users = rng.choice(known_users, int(rng.integers(lo, hi + 1)))
+        for user in users.tolist():
+            r = float(rng.integers(1, 6))
+            by_item.setdefault(iid, []).append((user, r))
+            bodies.append((user, iid, r))
+    order = rng.permutation(len(bodies))
+    events = [
+        {"event": "rate", "entityType": "user", "entityId": bodies[j][0],
+         "targetEntityType": "item", "targetEntityId": bodies[j][1],
+         "properties": {"rating": bodies[j][2]}}
+        for j in order.tolist()
+    ]
+    return events, by_user, by_item
+
+
+def _fold_in_residual(folded, pairs_by_key, keys, opposite, opposite_map):
+    """Largest relative residual of folded rows against their implicit
+    normal equations rebuilt in float64 (phase 6's :func:`max_residual`),
+    each row's interactions as ingested (duplicates add)."""
+    rows, other, vals = [], [], []
+    for r, key in enumerate(keys):
+        for o, v in pairs_by_key[key]:
+            rows.append(r)
+            other.append(opposite_map(o))
+            vals.append(v)
+    rows = np.asarray(rows, np.int64)
+    worst, _median = max_residual(
+        folded, np.arange(len(keys)), opposite,
+        np.asarray(other, np.int64), np.asarray(vals, np.float32),
+        _rows_by(rows, len(keys)), None)
+    return worst
+
+
+def trainer_phase(device, workdir: str, seed: int) -> dict:
+    """The continuous trainer on the card (the contract's phase 12): kill
+    -9 resume of a checkpointed retrain in child processes, the resumed
+    generation served, fold-in of new users and items ingested over
+    HTTP, ``POST /reload`` and their answers, the telemetry surface."""
+    import http.client
+    import signal
+    import threading
+
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+        load_manifest,
+    )
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data import store as store_mod
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import (
+        AccessKey,
+        AccessKeysBackend,
+        App,
+        set_storage,
+    )
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.ops import als as als_ops
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+    from predictionio_tpu_torch.serving.event_server import (
+        create_event_server,
+    )
+    from predictionio_tpu_torch.training import ContinuousTrainer
+    from predictionio_tpu_torch.training import trainer as trainer_mod
+
+    out = {}
+    storage, engine, params, config = trainer_parts(workdir)
+    ctx = ComputeContext.create(device=device)
+    app_id = storage.get_meta_data_apps().insert(App(0, TRAINER_APP))
+    key = storage.get_meta_data_access_keys().insert(
+        AccessKey(AccessKeysBackend.generate_key(), app_id))
+    events = storage.get_events()
+    events.init(app_id)
+    n_users, n_items, n_events = DASE
+    rows, cols, vals = make_interactions(n_users, n_items, n_events, seed=42)
+    t0 = time.perf_counter()
+    step = 20_000
+    for lo in range(0, n_events, step):
+        events.insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  properties={"rating": float(r)})
+            for u, i, r in zip(rows[lo:lo + step].tolist(),
+                               cols[lo:lo + step].tolist(),
+                               vals[lo:lo + step].tolist())
+        ], app_id)
+    out["insert_s"] = time.perf_counter() - t0
+
+    # 1. kill -9 resume: a stretched retrain is killed once its
+    # checkpoint holds iteration >= 2, then a second process resumes it
+    ckpt_dir = config.checkpoint_dir
+    t0 = time.perf_counter()
+    child, _out, err_path = _spawn_trainer(
+        workdir, {"PIO_TRAIN_CHAOS": f"epoch_sleep:{TRAINER_CHAOS_S}"},
+        "killed")
+    seen = 0
+    try:
+        while True:
+            seen = als_ops.peek_checkpoint_iteration(ckpt_dir)
+            if seen >= KILL_AT_ITERATION:
+                break
+            if child.poll() is not None:
+                raise AssertionError(
+                    f"trainer child ended (rc {child.returncode}) before "
+                    f"its checkpoint reached iteration {KILL_AT_ITERATION}:"
+                    f" {_tail(err_path)}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("trainer child never checkpointed")
+            time.sleep(0.01)
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    assert child.returncode == -signal.SIGKILL, child.returncode
+    out["killed_child_s"] = time.perf_counter() - t0
+    out["killed_at_iteration"] = seen
+    state = json.loads(open(config.resolved_state_path()).read())
+    assert state["phase"] == "training", state
+
+    trace_dir = os.path.join(workdir, "traces")
+    t0 = time.perf_counter()
+    child, out_path, err_path = _spawn_trainer(
+        workdir, {"PIO_TRACE_DIR": trace_dir}, "resumed")
+    try:
+        child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    out["resumed_child_s"] = time.perf_counter() - t0
+    assert child.returncode == 0, _tail(err_path)
+    with open(out_path) as f:
+        resumed = json.loads(f.read().strip().splitlines()[-1])
+    assert resumed["action"] == "full", resumed
+    r_state = resumed["state"]
+    out["resumed_from_iteration"] = r_state["resumedFromIteration"]
+    assert r_state["resumedFromIteration"] >= seen, (r_state, seen)
+    assert r_state["phase"] == "idle" and r_state["fullTrains"] == 1
+    assert not os.path.exists(als_ops.checkpoint_path(ckpt_dir)), (
+        "the completed retrain left its checkpoint")
+    parent_id = r_state["lastInstanceId"]
+    instance = storage.get_meta_data_engine_instances().get(parent_id)
+    assert instance.status == "COMPLETED", instance.status
+    child_metrics = resumed["metrics"]
+    full_done = sum(
+        s["value"] for s in child_metrics["pio_trainer_runs_total"]
+        if s["labels"] == {"kind": "full", "outcome": "completed"})
+    assert full_done >= 1, child_metrics
+    child_ckpts = child_metrics["pio_train_checkpoints_total"][0]["value"]
+    assert child_ckpts >= 1, child_metrics
+    out["resumed_child_checkpoints"] = child_ckpts
+    child_trace = os.path.join(trace_dir, f"pio_train_{parent_id}.trace.json")
+    names = {e["name"] for e in json.load(open(child_trace))["traceEvents"]}
+    assert {"pio_train", "train/persist_model", "als/checkpoint"} <= names
+    backend = storage.get_model_data_models()
+    (model,) = [m for _t, m in deserialize_models(
+        load_generation(backend, parent_id))]
+    assert model.item_factors.shape == (len(model.item_map), RANK)
+
+    # the same training uninterrupted, in this process, for comparison
+    # (reported only: index_add_ on the card is not bit-deterministic)
+    # and for the training trace and the profiler trace of this process
+    os.environ["PIO_TRACE_DIR"] = trace_dir
+    set_storage(storage)
+    metrics_before = get_registry().render_prometheus()
+    try:
+        ref_id = run_train(
+            engine, params, TRAINER_ENGINE + "-uninterrupted", ctx=ctx,
+            storage=storage, checkpoint_dir=os.path.join(workdir, "ref"),
+            checkpoint_every=1)
+    finally:
+        os.environ.pop("PIO_TRACE_DIR", None)
+        set_storage(None)
+    (ref,) = [m for _t, m in deserialize_models(
+        load_generation(backend, ref_id))]
+    assert list(ref.user_map.keys()) == list(model.user_map.keys())
+    assert list(ref.item_map.keys()) == list(model.item_map.keys())
+    out["resume_vs_uninterrupted_rel"] = max(
+        float(np.abs(a - b).max() / np.abs(b).max())
+        for a, b in ((model.user_factors, ref.user_factors),
+                     (model.item_factors, ref.item_factors)))
+    ref_trace = os.path.join(trace_dir, f"pio_train_{ref_id}.trace.json")
+    names = {e["name"] for e in json.load(open(ref_trace))["traceEvents"]}
+    assert {"pio_train", "train/persist_model", "als/checkpoint"} <= names, (
+        names)
+    profiles = [f for f in os.listdir(trace_dir) if f.startswith("torch_")]
+    assert profiles, os.listdir(trace_dir)
+    prof = json.load(open(os.path.join(trace_dir, profiles[0])))
+    assert prof["traceEvents"], "the profiler trace is empty"
+    out["profiler_trace_events"] = len(prof["traceEvents"])
+
+    # 2. the resumed generation served; from here the kernel's launches
+    # count for this phase
+    fused_topk.reset_launch_counts()
+    es, http_srv = create_engine_server(
+        engine, params, TRAINER_ENGINE, host="127.0.0.1", port=0,
+        storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
+    )
+    http_srv.start()
+    server = create_event_server(host="127.0.0.1", port=0, storage=storage)
+    server.start()
+    sampler_stop = threading.Event()
+    try:
+        base = f"http://127.0.0.1:{http_srv.port}"
+        rng = np.random.default_rng(seed + 13)
+        users = rng.choice(model.user_map.keys(), TRAINER_REQUESTS).tolist()
+        queries = [{"user": u, "num": [1, 10, 20, 50][i % 4]}
+                   for i, u in enumerate(users)]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(_post, base, "/queries.json", q)
+                    for q in queries]
+            answers = [(q, f.result()[0]) for q, f in zip(queries, futs)]
+        n_checked, ties, err = check_answers(answers, model, device)
+        assert n_checked == TRAINER_REQUESTS, n_checked
+        out["resumed_answers_checked"] = n_checked
+        out["resumed_tied_swaps"] = ties
+
+        # 3. fold-in freshness over HTTP
+        fresh, by_user, by_item = _fresh_events(model, seed)
+        t_fresh = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        try:
+            for lo in range(0, len(fresh), INGEST_BATCH):
+                status, res = _http_call(
+                    conn, "POST", f"/batch/events.json?accessKey={key}",
+                    fresh[lo:lo + INGEST_BATCH])
+                assert status == 200, (status, res)
+                assert all(r["status"] == 201 for r in res), res[:3]
+        finally:
+            conn.close()
+        split = {"ingest_s": time.perf_counter() - t_fresh}
+        out["fresh_events"] = len(fresh)
+
+        # time each step inside poll_once by wrapping what it calls
+        wrapped = {}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[name] = split.get(name, 0.0) + (
+                        time.perf_counter() - t)
+            return run
+
+        patches = [
+            (trainer_mod, "read_watermark", "read_watermark_s"),
+            (store_mod.EventStore, "interactions", "interactions_s"),
+            (als_ops, "fold_in_users", "fold_in_users_s"),
+            (trainer_mod, "publish_generation", "publish_s"),
+        ]
+        for owner, attr, name in patches:
+            wrapped[(owner, attr)] = getattr(owner, attr)
+            setattr(owner, attr, timed(name, getattr(owner, attr)))
+        trainer = ContinuousTrainer(engine, params, TRAINER_ENGINE, config,
+                                    storage=storage, ctx=ctx)
+        try:
+            t0 = time.perf_counter()
+            action = trainer.poll_once()
+            split["poll_once_s"] = time.perf_counter() - t0
+        finally:
+            for (owner, attr), fn in wrapped.items():
+                setattr(owner, attr, fn)
+        assert action == "fold_in", action
+        child_id = trainer.state["lastInstanceId"]
+        manifest = load_manifest(backend, child_id)
+        assert manifest["parent"] == parent_id, manifest
+        wm = trainer.state["trainedWatermark"]
+        assert manifest["watermark"] == wm, (manifest, wm)
+        assert wm["count"] == n_events + len(fresh), wm
+        (folded,) = [m for _t, m in deserialize_models(
+            load_generation(backend, child_id))]
+        n_parent_items = len(model.item_map)
+        assert len(folded.user_map) == len(model.user_map) + FRESH_USERS
+        assert len(folded.item_map) == n_parent_items + FRESH_ITEMS
+        new_users = [f"fresh-u{u}" for u in range(FRESH_USERS)]
+        new_items = [f"fresh-i{i}" for i in range(FRESH_ITEMS)]
+        u_rows = [folded.user_map(u) for u in new_users]
+        i_rows = [folded.item_map(i) for i in new_items]
+        out["fold_in_user_residual"] = _fold_in_residual(
+            folded.user_factors[u_rows], by_user, new_users,
+            model.item_factors, model.item_map)
+        out["fold_in_item_residual"] = _fold_in_residual(
+            folded.item_factors[i_rows], by_item, new_items,
+            folded.user_factors, folded.user_map)
+        assert out["fold_in_user_residual"] <= RESIDUAL_TOL, out
+        assert out["fold_in_item_residual"] <= RESIDUAL_TOL, out
+
+        t0 = time.perf_counter()
+        reload, _ = _post(base, "/reload", {})
+        split["reload_s"] = time.perf_counter() - t0
+        assert reload == {"message": "reloaded",
+                          "engineInstanceId": child_id}, reload
+        with urllib.request.urlopen(base + "/", timeout=30) as resp:
+            assert json.loads(resp.read())["engineInstanceId"] == child_id
+        fresh_answers, t_first = [], None
+        for u in new_users:
+            q = {"user": u, "num": 10}
+            ans, s = _post(base, "/queries.json", q)
+            if t_first is None:
+                t_first = time.perf_counter()
+                split["query_s"] = s
+            assert ans["itemScores"], (u, ans)
+            fresh_answers.append((q, ans))
+        out["time_to_fresh_s"] = t_first - t_fresh
+        n_checked, ties, err = check_answers(fresh_answers, folded, device)
+        assert n_checked == FRESH_USERS, n_checked
+        out["fresh_answers_checked"] = n_checked
+        out["fresh_tied_swaps"] = ties
+        out["fresh_max_abs_err"] = err
+        out["fresh_split"] = split
+
+        # 4. the telemetry surface: a few polls of the daemon loop (its
+        # device sampler), then the event server's scrape
+        polls = []
+        loop = ContinuousTrainer(engine, params, TRAINER_ENGINE, config,
+                                 storage=storage, ctx=ctx)
+        real_poll = loop.poll_once
+
+        def counted_poll():
+            polls.append(real_poll())
+            if len(polls) >= 2:
+                sampler_stop.set()
+            return polls[-1]
+
+        loop.poll_once = counted_poll
+        runner = threading.Thread(target=loop.run_forever,
+                                  args=(sampler_stop,))
+        runner.start()
+        runner.join(timeout=120)
+        assert not runner.is_alive(), "run_forever did not stop"
+        assert polls == ["idle", "idle"], polls
+        ebase = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(ebase + "/metrics", timeout=30) as resp:
+            text = resp.read().decode()
+        with urllib.request.urlopen(ebase + "/debug/traces.json",
+                                    timeout=30) as resp:
+            traces = json.loads(resp.read())
+    finally:
+        sampler_stop.set()
+        es.close()
+        server.shutdown()
+    launches = dict(fused_topk.LAUNCHES)
+    assert launches["f32"] >= 1, "phase 12 served without the kernel"
+    out["launches"] = launches
+
+    def delta(name, **labels):
+        return (_counter(text, name, **labels)
+                - _counter(metrics_before, name, **labels))
+
+    telemetry = {
+        "events_ingested": delta("pio_events_ingested_total",
+                                 app_id=app_id, status="201"),
+        "fold_in_runs": delta("pio_trainer_runs_total", kind="fold_in",
+                              outcome="completed"),
+        "checkpoints": delta("pio_train_checkpoints_total"),
+        "train_steps": delta("pio_train_step_seconds_count",
+                             step="train/total"),
+        "hbm_used_bytes": _counter(text, "pio_device_hbm_used_bytes"),
+        "child_full_runs": full_done,
+    }
+    assert telemetry["events_ingested"] == len(fresh), telemetry
+    assert telemetry["fold_in_runs"] == 1, telemetry
+    assert telemetry["checkpoints"] >= 1, telemetry
+    assert telemetry["train_steps"] >= 1, telemetry
+    assert telemetry["hbm_used_bytes"] > 0, telemetry
+    spans = [s["name"] for tr in traces["traces"] for s in tr["spans"]]
+    telemetry["insert_batch_spans"] = spans.count("store/insert_batch")
+    assert telemetry["insert_batch_spans"] >= 1, sorted(set(spans))
+    out["telemetry"] = telemetry
+    return out
+
+
+def log_trainer(t: dict) -> None:
+    s = t["fresh_split"]
+    log(f"trainer: {DASE[2]} events inserted in {t['insert_s']:.2f} s; "
+        f"child killed at checkpoint iteration {t['killed_at_iteration']} "
+        f"after {t['killed_child_s']:.2f} s; resumed child "
+        f"{t['resumed_child_s']:.2f} s from iteration "
+        f"{t['resumed_from_iteration']} ({t['resumed_child_checkpoints']:.0f}"
+        f" checkpoints); largest relative difference to an uninterrupted "
+        f"run {t['resume_vs_uninterrupted_rel']:.3g}; "
+        f"{t['resumed_answers_checked']} answers of the resumed generation "
+        f"equal to the plain top-k (tied swaps {t['resumed_tied_swaps']})")
+    log(f"trainer fold-in: {t['fresh_events']} events for {FRESH_USERS} new "
+        f"users and {FRESH_ITEMS} new items; time to fresh model "
+        f"{t['time_to_fresh_s']:.3f} s = ingest {s['ingest_s']:.3f} s + "
+        f"poll_once {s['poll_once_s']:.3f} s (read_watermark "
+        f"{s['read_watermark_s']:.3f} s, interactions "
+        f"{s['interactions_s']:.3f} s, fold_in_users "
+        f"{s['fold_in_users_s']:.3f} s, publish {s['publish_s']:.3f} s) + "
+        f"reload {s['reload_s']:.3f} s + query {s['query_s']:.3f} s; "
+        f"residual users {t['fold_in_user_residual']:.3g} items "
+        f"{t['fold_in_item_residual']:.3g}; {t['fresh_answers_checked']} "
+        f"fresh answers equal to the plain top-k (tied swaps "
+        f"{t['fresh_tied_swaps']}); f32 launches {t['launches']['f32']}")
+    log(f"trainer telemetry: {json.dumps(t['telemetry'])}")
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2552,6 +3127,9 @@ def nvidia_smi_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trainer-child", metavar="DIR",
+                    help="run one trainer poll on phase 12's deployment "
+                    "in DIR (phase 12 starts these itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2563,6 +3141,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
         return 1
+    if args.trainer_child:
+        return trainer_child(args.trainer_child)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2672,12 +3252,22 @@ def main() -> int:
     log_templates(templates)
     log(f"phase templates: ok ({time.perf_counter() - t_start:.1f} s)")
 
-    # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10, 11
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trainer-") as d:
+        trainer = trainer_phase(device, d, args.seed)
+    trainer["phase_s"] = time.perf_counter() - t_phase
+    log("trainer " + json.dumps(trainer))
+    log_trainer(trainer)
+    log(f"phase trainer: ok ({trainer['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
+    # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
+    # 11, 12
     for run in (dase, *ingest.values(), evaluation, similar,
-                templates["ecommerce"]):
+                templates["ecommerce"], trainer):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-11: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-12: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

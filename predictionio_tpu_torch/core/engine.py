@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import time
 from typing import Any, Callable, Mapping, Sequence
 
 from predictionio_tpu_torch.core.controller import (
@@ -59,6 +60,18 @@ class EngineParams:
     preparator: tuple[str, Params] = ("", EmptyParams())
     algorithms: Sequence[tuple[str, Params]] = (("", EmptyParams()),)
     serving: tuple[str, Params] = ("", EmptyParams())
+
+
+@contextlib.contextmanager
+def _timed(timer, name: str):
+    """Record the block's wall clock into ``timer`` without opening a
+    span, so a training run's trace holds the JAX package's span tree
+    (``pio_train`` → ``train/total`` → the algorithm's own steps)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        timer.record(name, time.perf_counter() - t0)
 
 
 def _sanity(obj: Any, stage: str, skip: bool) -> None:
@@ -136,7 +149,7 @@ class Engine:
         workflow = workflow or WorkflowParams()
 
         def step(name):
-            return timer.step(name) if timer else contextlib.nullcontext()
+            return _timed(timer, name) if timer else contextlib.nullcontext()
 
         # resolve every component up front (fail fast on bad names/params)
         data_source = self.make_data_source(params)

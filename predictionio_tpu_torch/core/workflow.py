@@ -3,17 +3,24 @@ recovery.
 
 Counterpart of ``apply_checkpoint_params``, ``latest_completed_id``,
 ``run_train``, ``run_evaluation`` and ``load_deployment`` in
-``predictionio_tpu/core/workflow.py``. The training span timeline, its
-trace file and the metric-registry publish belong to the observability
-work (ROADMAP.md, queue 1, item 8).
+``predictionio_tpu/core/workflow.py``. A training run is one trace of
+the process tracer (``pio_train``, trace id = the instance id) whose
+spans are the ``StepTimer`` steps, the checkpoints and
+``train/persist_model``; with ``PIO_TRACE_DIR`` set it is written there
+as ``pio_train_<id>.trace.json`` (a failed run's too), beside the
+``torch.profiler`` trace of the training step. The step times join the
+process registry as ``pio_train_step_seconds``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
+import json
 import logging
+import os
 import pickle
+import time
 from typing import Any, Sequence
 
 import torch
@@ -45,14 +52,51 @@ from predictionio_tpu_torch.data.storage import (
     Storage,
     get_storage,
 )
+from predictionio_tpu_torch.obs import get_registry, tracing
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
-from predictionio_tpu_torch.utils.profiling import StepTimer
+from predictionio_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = logging.getLogger(__name__)
 
 
 def _now() -> _dt.datetime:
     return _dt.datetime.now(_dt.timezone.utc)
+
+
+def _write_train_trace(
+    tracer, trace_id: str | None, instance_id: str
+) -> None:
+    """Persist the run's span timeline as Chrome trace-event JSON in
+    ``PIO_TRACE_DIR`` (the directory :func:`~predictionio_tpu_torch.
+    utils.profiling.trace` writes the profiler's trace to), as
+    ``pio_train_<instance id>.trace.json``. Best-effort: a full disk
+    must not fail a COMPLETED run."""
+    trace_dir = os.environ.get("PIO_TRACE_DIR")
+    if not trace_dir or trace_id is None:
+        return
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(
+            trace_dir, f"pio_train_{instance_id}.trace.json"
+        )
+        timeline = tracer.chrome_trace(trace_id=trace_id)
+        with open(path, "w") as f:
+            # default=str: span attributes are caller-supplied (numpy
+            # scalars, shapes, ...) and must not fail a COMPLETED run
+            json.dump(timeline, f, default=str)
+        if timeline["traceEvents"]:
+            logger.info("wrote training span timeline to %s", path)
+        else:
+            # the recorder can abandon a very long run's open trace at
+            # its cap — an empty timeline must not pass for a full one
+            logger.warning(
+                "training trace %s has no spans (recorder abandoned "
+                "it?); wrote empty timeline to %s", trace_id, path,
+            )
+    except (OSError, TypeError, ValueError) as e:
+        # best-effort: a serialization surprise in the finally must
+        # neither fail a COMPLETED run nor mask a training error
+        logger.warning("could not write training trace: %s", e)
 
 
 def apply_checkpoint_params(
@@ -156,48 +200,74 @@ def run_train(
         batch=workflow.batch,
     ))
     instance = instances.get(instance_id)
+    tracer = tracing.get_tracer()
+    # the whole run is one trace (trace id = instance id): the StepTimer
+    # steps inside engine.train are its child spans, and its timeline is
+    # written to PIO_TRACE_DIR in the finally, because the timeline of a
+    # FAILED run is the one most worth keeping
+    root_trace_id = None
     try:
-        instance = dataclasses.replace(instance, mesh_conf=_device_conf(ctx))
-        instances.update(instance)
-        # the SAME algorithm objects train and (MANUAL persistence) save
-        algorithms = engine.make_algorithms(params)
-        apply_checkpoint_params(
-            algorithms,
-            checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every,
-            resume=resume,
-        )
-        parent_generation = latest_completed_id(
-            storage, engine_id, engine_version, engine_variant
-        )
-        timer = StepTimer()
-        for algo in algorithms:
-            algo.timer = timer
-        with timer.step("train/total"):
-            models = engine.train(
-                ctx, params, workflow, algorithms=algorithms, timer=timer
+        with tracer.trace(
+            "pio_train",
+            trace_id=instance_id,
+            attributes={
+                "engineId": engine_id,
+                "engineVersion": engine_version,
+                "engineVariant": engine_variant,
+            },
+        ) as root_span:
+            if root_span is not None:
+                root_trace_id = root_span.trace_id
+            instance = dataclasses.replace(
+                instance, mesh_conf=_device_conf(ctx)
             )
-        if workflow.save_model:
-            with timer.step("train/persist"):
-                blob = serialize_models(instance_id, algorithms, models)
-                publish_generation(
-                    storage.get_model_data_models(),
-                    instance_id,
-                    blob,
-                    watermark=watermark,
-                    parent=parent_generation,
+            instances.update(instance)
+            # the SAME algorithm objects train and (MANUAL persistence)
+            # save
+            algorithms = engine.make_algorithms(params)
+            apply_checkpoint_params(
+                algorithms,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every,
+                resume=resume,
+            )
+            parent_generation = latest_completed_id(
+                storage, engine_id, engine_version, engine_variant
+            )
+            timer = StepTimer()
+            for algo in algorithms:
+                algo.timer = timer
+            with timer.step("train/total"), trace():
+                models = engine.train(
+                    ctx, params, workflow, algorithms=algorithms,
+                    timer=timer,
                 )
-            logger.info(
-                "persisted %d model(s) for instance %s (%d bytes)",
-                len(models), instance_id, len(blob),
+            if workflow.save_model:
+                with tracing.span("train/persist_model"):
+                    t0 = time.perf_counter()
+                    blob = serialize_models(instance_id, algorithms, models)
+                    publish_generation(
+                        storage.get_model_data_models(),
+                        instance_id,
+                        blob,
+                        watermark=watermark,
+                        parent=parent_generation,
+                    )
+                    timer.record("train/persist", time.perf_counter() - t0)
+                logger.info(
+                    "persisted %d model(s) for instance %s (%d bytes)",
+                    len(models), instance_id, len(blob),
+                )
+            timer.log_summary(prefix=f"[{engine_id}] ")
+            # train-time telemetry joins the process registry: a trainer
+            # that also serves /metrics scrapes both as one
+            timer.publish(get_registry())
+            instance = dataclasses.replace(
+                instance, env={"timing": timer.to_json()}
             )
-        timer.log_summary(prefix=f"[{engine_id}] ")
-        instance = dataclasses.replace(
-            instance, env={"timing": timer.to_json()}
-        )
-        instances.update(
-            dataclasses.replace(instance, status="COMPLETED", end_time=_now())
-        )
+            instances.update(dataclasses.replace(
+                instance, status="COMPLETED", end_time=_now()
+            ))
         return instance_id
     except (StopAfterReadInterruption, StopAfterPrepareInterruption):
         instances.update(
@@ -209,6 +279,10 @@ def run_train(
             dataclasses.replace(instance, status="FAILED", end_time=_now())
         )
         raise
+    finally:
+        # the root span finalized when the with-block unwound, so the
+        # trace is in the ring even when train raised
+        _write_train_trace(tracer, root_trace_id, instance_id)
 
 
 def run_evaluation(

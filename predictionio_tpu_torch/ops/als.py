@@ -30,11 +30,13 @@ import dataclasses
 import logging
 import math
 import os
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.obs import get_registry, tracing
 from predictionio_tpu_torch.parallel.mesh import (
     ComputeContext,
     assert_phantom_rows_zero,
@@ -614,6 +616,23 @@ class ALSFactors:
     n_items: int = 0
 
 
+def _train_chaos_sleep_s() -> float:
+    """Training-side chaos knob: ``PIO_TRAIN_CHAOS=epoch_sleep:<seconds>``
+    sleeps on the host before each epoch dispatch (each chunk of
+    ``checkpoint_every`` epochs, or each timed epoch), so a kill in the
+    middle of a training run has a deterministic window to land in. Parsed
+    as the JAX package parses it; unset or garbage → 0."""
+    raw = os.environ.get("PIO_TRAIN_CHAOS", "").strip()
+    for part in raw.split(";"):
+        key, _, value = part.partition(":")
+        if key.strip() == "epoch_sleep":
+            try:
+                return max(0.0, float(value))
+            except ValueError:
+                return 0.0
+    return 0.0
+
+
 def _cold_init(n_items: int, rank: int, seed: int, dtype) -> np.ndarray:
     """Item factors before the first epoch: normal draws from a
     ``torch.Generator`` seeded with ``seed``, on the CPU (so the same on
@@ -748,9 +767,13 @@ def train_als(
     step = make_train_step(solve_u, solve_i)
 
     ran_any = False
+    # between epochs on the host, never inside a timed device window
+    chaos_sleep = _train_chaos_sleep_s()
     if timer is not None:
         # profiling mode: each half-iteration timed apart
         for it in range(start_iteration, iterations):
+            if chaos_sleep:
+                time.sleep(chaos_sleep)
             with timer.step("als/user_solve"):
                 user_factors = solve_u(item_factors, lam)
                 sync(user_factors)
@@ -773,6 +796,8 @@ def train_als(
                         iterations - it)
             else:
                 n = iterations - it
+            if chaos_sleep:
+                time.sleep(chaos_sleep)
             user_factors, item_factors = step(user_factors, item_factors,
                                               lam, n)
             it += n
@@ -826,12 +851,22 @@ def _maybe_checkpoint(
         and iteration % checkpoint_every == 0
         and iteration < total
     ):
-        _write_checkpoint(
-            ckpt_path,
-            iteration=iteration,
-            item_factors=item_factors[:n_items].cpu().numpy(),
-            user_factors=user_factors[:n_users].cpu().numpy(),
-        )
+        # the checkpoint is a span of the training trace and a count in
+        # the registry (the restore points a trainer has banked)
+        with tracing.span(
+            "als/checkpoint", iteration=iteration, total=total
+        ):
+            _write_checkpoint(
+                ckpt_path,
+                iteration=iteration,
+                item_factors=item_factors[:n_items].cpu().numpy(),
+                user_factors=user_factors[:n_users].cpu().numpy(),
+            )
+        get_registry().counter(
+            "pio_train_checkpoints_total",
+            "Mid-training factor checkpoints written (atomic npz; "
+            "resume picks up the latest after a crash)",
+        ).inc()
 
 
 def _write_checkpoint(path: str, **arrays) -> None:

@@ -9,14 +9,22 @@ Counterpart of ``EngineServer`` and ``create_engine_server`` in
 * ``POST /batch/queries.json`` → up to 100 queries in one round trip,
   each with its own status; all are submitted before any is collected,
   so they coalesce into full kernel launches
+* ``POST /reload``             → stage the newest loadable COMPLETED
+  generation and swap it in (``{"message": "reloaded",
+  "engineInstanceId": ...}``); a corrupt newest generation is
+  quarantined and the last good one keeps serving. Queries racing the
+  swap retry once against the new batchers, which is how a continuous
+  trainer's fresh generation reaches a running server
 
 The deployed generation is staged on the card once
 (``load_deployment`` → ``Algorithm.stage_model``), optionally quantized
 to int8 or bf16, and every power-of-two batch bucket up to ``max_batch``
 is run once before traffic (warmup builds and loads the kernel library).
-Admission control, the query cache, canary promotion, the tenant pool,
-feedback events, reload and the remote error log come with later slices;
-the constructor does not accept their options.
+Admission control, the query cache, canary promotion (``/reload`` with
+``{"canary": true}``), the tenant pool (the per-tenant ``/reload``),
+feedback events, the metrics routes and the remote error log come with
+later slices (ROADMAP.md, queue 1, item 5a); the constructor does not
+accept their options, and ``/reload`` answers 400 to theirs.
 """
 
 from __future__ import annotations
@@ -114,7 +122,8 @@ class EngineServer:
         self._start_time = _dt.datetime.now(_dt.timezone.utc)
         self._generation = 0
         self._batchers: list[MicroBatcher] = []
-        self._activate(self._stage())
+        self._reload_mutex = threading.Lock()
+        self._load()
 
         self.router = Router()
         self.router.route("GET", "/", self._status)
@@ -122,10 +131,19 @@ class EngineServer:
         self.router.route(
             "POST", "/batch/queries.json", self._batch_queries
         )
+        self.router.route("POST", "/reload", self._reload)
         self._http: HTTPServer | None = None
 
     # -- model loading ----------------------------------------------------
+    def _load(self) -> None:
+        """Load the latest generation and swap it in immediately (the
+        initial load, and ``/reload``)."""
+        self._activate(self._stage())
+
     def _activate(self, staged: _StagedGeneration) -> None:
+        """Swap ``staged`` in, then close the old batchers: queries
+        already submitted to them still complete, and a query whose
+        submit loses the race retries against the new ones."""
         with self._lock:
             old = self._batchers
             self._instance = staged.instance
@@ -288,34 +306,73 @@ class EngineServer:
         with self._lock:
             return self._serving, self._batchers
 
+    def _reload(self, request: Request) -> Response:
+        """The immediate ``/reload``: restage the newest loadable
+        COMPLETED generation and swap it in. Canary promotion and the
+        per-tenant form are not ported yet."""
+        body: Any = {}
+        if request.body:
+            try:
+                body = request.json()
+            except Exception:  # noqa: BLE001 - bad body is a 400
+                raise HTTPError(400, "reload body must be JSON") from None
+        if not isinstance(body, dict):
+            raise HTTPError(400, "reload body must be a JSON object")
+        if body.get("canary"):
+            raise HTTPError(
+                400,
+                "canary reload is not ported yet (ROADMAP.md, queue 1, "
+                "item 5a); reload without it swaps immediately",
+            )
+        if body.get("tenant"):
+            raise HTTPError(
+                400,
+                "per-tenant reload needs the multi-tenant model pool, "
+                "which is not ported yet (ROADMAP.md, queue 1, item 5a)",
+            )
+        with self._reload_mutex:
+            self._load()
+            with self._lock:
+                instance_id = self._instance.id
+        return Response(
+            200, {"message": "reloaded", "engineInstanceId": instance_id}
+        )
+
     def _queries(self, request: Request) -> Response:
         t0 = time.perf_counter()
         query = request.json()
         if not isinstance(query, dict):
             raise HTTPError(400, "query must be a JSON object")
-        serving, batchers = self._snapshot()
-        supplemented = serving.supplement(query)
-        futures = []
-        try:
-            for b in batchers:
-                futures.append(b.submit(supplemented))
-        except BatcherOverloaded:
-            # earlier algorithms' accepted submits must not run for
-            # nothing
-            self._abandon(futures)
-            raise HTTPError(
-                503, "server overloaded; retry later",
-                headers={"Retry-After": "1"},
-            )
-        prediction = self._serve_one(serving, supplemented, futures)
-        elapsed = time.perf_counter() - t0
-        with self._lock:
-            self._request_count += 1
-            self._last_serving_sec = elapsed
-            self._avg_serving_sec += (
-                elapsed - self._avg_serving_sec
-            ) / self._request_count
-        return Response(200, prediction)
+        for _attempt in range(2):
+            serving, batchers = self._snapshot()
+            supplemented = serving.supplement(query)
+            futures = []
+            try:
+                for b in batchers:
+                    futures.append(b.submit(supplemented))
+            except BatcherOverloaded:
+                # earlier algorithms' accepted submits must not run for
+                # nothing
+                self._abandon(futures)
+                raise HTTPError(
+                    503, "server overloaded; retry later",
+                    headers={"Retry-After": "1"},
+                )
+            except RuntimeError:
+                # /reload swapped and closed the batchers between the
+                # snapshot and the submit: retry against the new ones
+                self._abandon(futures)
+                continue
+            prediction = self._serve_one(serving, supplemented, futures)
+            elapsed = time.perf_counter() - t0
+            with self._lock:
+                self._request_count += 1
+                self._last_serving_sec = elapsed
+                self._avg_serving_sec += (
+                    elapsed - self._avg_serving_sec
+                ) / self._request_count
+            return Response(200, prediction)
+        raise HTTPError(503, "server is reloading; retry")
 
     def _serve_one(self, serving, supplemented, futures, deadline=None):
         """Collect one query's per-algorithm futures (the total wait is
@@ -349,9 +406,19 @@ class EngineServer:
             )
         if not payload:
             return Response(200, [])
-        serving, batchers = self._snapshot()
-        entries = self._submit_batch(serving, batchers, payload)
-        results = self._collect_batch(serving, entries)
+        for _attempt in range(2):
+            serving, batchers = self._snapshot()
+            entries, any_submitted = self._submit_batch(
+                serving, batchers, payload
+            )
+            if _attempt == 0 and not any_submitted and any(
+                e[0] == "reloading" for e in entries
+            ):
+                # a /reload raced us before any submit was accepted:
+                # nothing was dispatched, so a retry is safe
+                continue
+            results = self._collect_batch(serving, entries)
+            break
         elapsed = time.perf_counter() - t0
         n = len(payload)
         with self._lock:
@@ -363,12 +430,21 @@ class EngineServer:
             ) * n / self._request_count
         return Response(200, results)
 
-    def _submit_batch(self, serving, batchers, payload) -> list[tuple]:
-        """Submit every query. Entries: ``("ok", supplemented,
-        futures)`` | ``("bad"|"shed", None, None)`` | ``("error", exc,
-        None)``."""
+    def _submit_batch(self, serving, batchers, payload) -> tuple:
+        """Submit every query; returns ``(entries, any_submitted)``.
+        Entries: ``("ok", supplemented, futures)`` |
+        ``("bad"|"shed"|"reloading", None, None)`` | ``("error", exc,
+        None)``. ``any_submitted`` is True once any submit was accepted,
+        which is when a whole-batch retry would dispatch twice."""
         entries: list[tuple[str, Any, list | None]] = []
+        reloading = False
+        any_submitted = False
         for q in payload:
+            if reloading:
+                # /reload closed the snapshot's batchers mid-submit; the
+                # accepted slots still run (the close is graceful)
+                entries.append(("reloading", None, None))
+                continue
             if not isinstance(q, dict):
                 entries.append(("bad", None, None))
                 continue
@@ -381,12 +457,18 @@ class EngineServer:
             try:
                 for b in batchers:
                     futures.append(b.submit(supplemented))
+                    any_submitted = True
             except BatcherOverloaded:
                 self._abandon(futures)
                 entries.append(("shed", None, None))
                 continue
+            except RuntimeError:
+                self._abandon(futures)
+                reloading = True
+                entries.append(("reloading", None, None))
+                continue
             entries.append(("ok", supplemented, futures))
-        return entries
+        return entries, any_submitted
 
     def _collect_batch(self, serving, entries) -> list[dict]:
         # one deadline for the whole batch: a hung launch must not hold
@@ -401,6 +483,10 @@ class EngineServer:
             elif state == "shed":
                 results.append(
                     {"status": 503, "message": "server overloaded; retry later"}
+                )
+            elif state == "reloading":
+                results.append(
+                    {"status": 503, "message": "server is reloading; retry"}
                 )
             elif state == "error":
                 results.append({"status": 500, "message": str(data)})

@@ -16,12 +16,19 @@ same routes, status codes and bodies:
 * ``POST /webhooks/<name>.json`` / ``.form`` → connector-mapped events
 * ``GET  /webhooks/<name>.json`` / ``.form`` → connector probe, 200 / 404
 * ``GET  /plugins.json``, ``/plugins/inputsniffer/<name>/<path>``
+* ``GET  /metrics``, ``/metrics.json``, ``/debug/traces``,
+  ``/debug/traces.json``, ``/debug/timeline.json`` (the process-global
+  timeline)
 
-Not ported yet (ROADMAP.md, queue 1): admission control, TLS and the
-``/debug`` routes of ``server_config``, ``reuse_port`` workers (item 5);
-the metric registry with its ``pio_events_ingested_total`` counter, the
-tracer and its spans, the metrics routes and the ``/healthz`` extras
-(item 8). The constructor takes none of their options.
+Every event-API answer is counted into the ``registry`` (default: the
+process registry) as ``pio_events_ingested_total{app_id,status}``, and
+each store call is a ``store/*`` span of the request's trace.
+
+Not ported yet (ROADMAP.md, queue 1): admission control, TLS and the key
+auth of the ``/debug`` routes (``server_config``), ``reuse_port``
+workers (item 5); the ``/healthz`` extra, which is the replicated
+store's quorum view (item 3b). The constructor takes none of their
+options.
 """
 
 from __future__ import annotations
@@ -35,12 +42,16 @@ from typing import Callable
 from predictionio_tpu_torch.data.event import Event, EventValidationError
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.data.storage.base import PartialBatchError
+from predictionio_tpu_torch.obs import MetricRegistry, get_registry
+from predictionio_tpu_torch.obs import timeline as timeline_mod
+from predictionio_tpu_torch.obs import tracing
 from predictionio_tpu_torch.serving.http import (
     HTTPError,
     HTTPServer,
     Request,
     Response,
     Router,
+    install_metrics_routes,
 )
 from predictionio_tpu_torch.serving.plugins import (
     INPUT_SNIFFER,
@@ -70,13 +81,28 @@ class EventServer:
         stats: bool = False,
         input_blockers: list[InputBlocker] | None = None,
         plugins: PluginContext | None = None,
+        registry: MetricRegistry | None = None,
+        tracer: tracing.Tracer | None = None,
     ):
         self._storage = storage or get_storage()
+        self.registry = registry if registry is not None else get_registry()
+        self.tracer = tracer if tracer is not None else tracing.get_tracer()
+        # the hourly /stats.json view stays opt-in; the registry is fed
+        # in _count (not inside Stats) so nothing double-counts
         self._stats = Stats() if stats else None
+        self._ingested = self.registry.counter(
+            "pio_events_ingested_total",
+            "Event-API requests by app and response status",
+            ("app_id", "status"),
+        )
         self._input_blockers = list(input_blockers or [])
         self._plugins = plugins or PluginContext()
         self.router = Router()
         r = self.router
+        install_metrics_routes(
+            r, self.registry, self.tracer,
+            timeline=timeline_mod.get_timeline(),
+        )
         r.route("GET", "/", self._status)
         r.route("POST", "/events.json", self._create_event)
         r.route("GET", "/events.json", self._find_events)
@@ -103,7 +129,8 @@ class EventServer:
                     key = None
         if not key:
             raise HTTPError(401, "Missing accessKey.")
-        access_key = self._storage.get_meta_data_access_keys().get(key)
+        with tracing.span("store/get_access_key"):
+            access_key = self._storage.get_meta_data_access_keys().get(key)
         if access_key is None:
             raise HTTPError(401, "Invalid accessKey.")
         channel_id = None
@@ -123,8 +150,10 @@ class EventServer:
     def _count(
         self, app_id: int, status: int, event: Event | None = None
     ) -> None:
-        """One ingest observation into the hourly ``/stats.json`` view,
-        when ``stats`` is on."""
+        """One ingest observation: always into the registry
+        (``pio_events_ingested_total``), and into the hourly
+        ``/stats.json`` view when ``stats`` is on."""
+        self._ingested.labels(str(app_id), str(status)).inc()
         if self._stats:
             self._stats.update(app_id, status, event)
 
@@ -161,9 +190,10 @@ class EventServer:
 
     def _store(self, event: Event, app_id: int, channel_id, whitelist):
         event_json = self._validate(event, app_id, channel_id, whitelist)
-        event_id = self._storage.get_events().insert(
-            event, app_id, channel_id
-        )
+        with tracing.span("store/insert_event", appId=app_id):
+            event_id = self._storage.get_events().insert(
+                event, app_id, channel_id
+            )
         if event_json is not None:
             self._plugins.sniff_input(event_json, app_id, channel_id)
         return event_id
@@ -203,35 +233,38 @@ class EventServer:
             limit = int(q.get("limit", 20))
         except ValueError as e:
             raise HTTPError(400, f"bad limit: {e}") from e
-        events = self._storage.get_events().find(
-            app_id,
-            channel_id,
-            start_time=self._parse_time(q.get("startTime")),
-            until_time=self._parse_time(q.get("untilTime")),
-            entity_type=q.get("entityType"),
-            entity_id=q.get("entityId"),
-            event_names=[q["event"]] if "event" in q else None,
-            target_entity_type=tet,
-            target_entity_id=tei,
-            limit=limit,
-            reversed=q.get("reversed", "false").lower() == "true",
-        )
+        with tracing.span("store/find_events", appId=app_id):
+            events = self._storage.get_events().find(
+                app_id,
+                channel_id,
+                start_time=self._parse_time(q.get("startTime")),
+                until_time=self._parse_time(q.get("untilTime")),
+                entity_type=q.get("entityType"),
+                entity_id=q.get("entityId"),
+                event_names=[q["event"]] if "event" in q else None,
+                target_entity_type=tet,
+                target_entity_id=tei,
+                limit=limit,
+                reversed=q.get("reversed", "false").lower() == "true",
+            )
         return Response(200, [e.to_json_dict() for e in events])
 
     def _get_event(self, request: Request) -> Response:
         app_id, channel_id, _ = self._auth(request)
-        event = self._storage.get_events().get(
-            request.path_params["event_id"], app_id, channel_id
-        )
+        with tracing.span("store/get_event", appId=app_id):
+            event = self._storage.get_events().get(
+                request.path_params["event_id"], app_id, channel_id
+            )
         if event is None:
             raise HTTPError(404, "event not found")
         return Response(200, event.to_json_dict())
 
     def _delete_event(self, request: Request) -> Response:
         app_id, channel_id, _ = self._auth(request)
-        found = self._storage.get_events().delete(
-            request.path_params["event_id"], app_id, channel_id
-        )
+        with tracing.span("store/delete_event", appId=app_id):
+            found = self._storage.get_events().delete(
+                request.path_params["event_id"], app_id, channel_id
+            )
         if not found:
             raise HTTPError(404, "event not found")
         return Response(200, {"message": "deleted"})
@@ -267,9 +300,13 @@ class EventServer:
                 self._count(app_id, status)
         if accepted:
             try:
-                ids = self._storage.get_events().insert_batch(
-                    [e for _, e, _ in accepted], app_id, channel_id
-                )
+                with tracing.span(
+                    "store/insert_batch",
+                    appId=app_id, events=len(accepted),
+                ):
+                    ids = self._storage.get_events().insert_batch(
+                        [e for _, e, _ in accepted], app_id, channel_id
+                    )
             except Exception as exc:  # noqa: BLE001 - per-item contract
                 # storage failed mid-batch: keep the per-event status
                 # list (rejections already computed) instead of blowing
@@ -377,12 +414,16 @@ def create_event_server(
     storage: Storage | None = None,
     stats: bool = False,
     plugins: PluginContext | None = None,
+    registry: MetricRegistry | None = None,
+    tracer: tracing.Tracer | None = None,
 ) -> HTTPServer:
     """An HTTP server on an :class:`EventServer` (default port 7070);
     ``start()`` it, and ``shutdown()`` also releases the plugin
-    dispatcher."""
-    server = EventServer(storage=storage, stats=stats, plugins=plugins)
+    dispatcher. ``registry`` and ``tracer`` default to the process's."""
+    server = EventServer(storage=storage, stats=stats, plugins=plugins,
+                         registry=registry, tracer=tracer)
     http = HTTPServer(server.router, host=host, port=port,
-                      service="eventserver")
+                      service="eventserver", registry=server.registry,
+                      tracer=server.tracer)
     http.add_shutdown_hook(server.close)
     return http

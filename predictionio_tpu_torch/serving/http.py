@@ -1,12 +1,22 @@
-"""Minimal threaded HTTP routing layer.
+"""Minimal threaded HTTP routing layer, with the telemetry surface.
 
-Counterpart of ``Request``, ``Response``, ``HTTPError``, ``Router`` and
-``HTTPServer`` in ``predictionio_tpu/serving/http.py``, on the standard
-library's ``ThreadingHTTPServer``: thread per connection, JSON bodies,
-``X-Request-ID`` forwarded or minted, the base ``GET /healthz`` probe
-answered before routing, access keys blanked out of the access log.
-TLS, SLO scoring, admission control, draining, the probe's extras and
-the metrics routes come with later slices.
+Counterpart of ``Request``, ``Response``, ``HTTPError``, ``Router``,
+``install_metrics_routes`` and ``HTTPServer`` in
+``predictionio_tpu/serving/http.py``, on the standard library's
+``ThreadingHTTPServer``: thread per connection, JSON bodies,
+``X-Request-ID`` forwarded (when well-formed) or minted, the base
+``GET /healthz`` probe answered before routing, access keys blanked out
+of the access log. With a ``registry`` every request is counted and
+timed (``pio_http_requests_total``, ``pio_http_request_seconds``,
+``pio_http_inflight_requests``); every request outside the telemetry
+routes is one root span of the tracer (trace id = request id, parent
+from ``X-Parent-Span``).
+
+Not ported yet (ROADMAP.md, queue 1, item 5a): TLS and key auth of the
+``/debug`` routes (``server_config``), admission control and
+``pio_http_rejected_total``, deadlines, ``ChaosMiddleware`` /
+``PIO_CHAOS``, draining and ``pio_server_draining``, SLO scoring and
+the probe's extras.
 """
 
 from __future__ import annotations
@@ -16,22 +26,22 @@ import logging
 import os
 import re
 import threading
-import uuid
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable
 from urllib.parse import parse_qs, urlparse
 
+from predictionio_tpu_torch.obs import MetricRegistry, set_request_id
+from predictionio_tpu_torch.obs import tracing
+from predictionio_tpu_torch.obs.context import log_json, redact_keys
+
 logger = logging.getLogger(__name__)
 
+#: structured access log: one JSON line per request (DEBUG on success,
+#: INFO on 4xx, WARNING on 5xx) carrying the request ID
+access_logger = logging.getLogger("predictionio_tpu_torch.access")
+
 Handler = Callable[["Request"], "Response"]
-
-#: keys travel in query strings; they must never land in logs
-_ACCESS_KEY = re.compile(r"(accessKey=)[^&\s\"]+")
-
-
-def redact_keys(text: str) -> str:
-    """Blank accessKey values out of a URL or log line."""
-    return _ACCESS_KEY.sub(r"\1[redacted]", text)
 
 
 class Request:
@@ -142,9 +152,74 @@ class Router:
         raise HTTPError(404, "not found")
 
 
+def install_metrics_routes(
+    router: Router,
+    registry: MetricRegistry,
+    tracer: tracing.Tracer | None = None,
+    timeline=None,
+) -> None:
+    """The common telemetry surface: Prometheus text at ``GET
+    /metrics``, the same registry as JSON at ``GET /metrics.json``
+    (histograms with derived p50/p95/p99), and the tracing flight
+    recorder at ``GET /debug/traces`` (Chrome trace-event JSON, loads in
+    Perfetto; ``?traceId=`` picks one trace) and ``GET
+    /debug/traces.json`` (raw span trees). ``timeline`` (an object with
+    ``to_dict()``, a :class:`~predictionio_tpu_torch.obs.Timeline`)
+    mounts its ring at ``GET /debug/timeline.json``.
+
+    The JAX package's ``server_config`` (key auth of the ``/debug``
+    routes) and ``federation`` (the fleet view) are not ported yet
+    (ROADMAP.md, queue 1, items 5a and 5b)."""
+    tracer = tracer if tracer is not None else tracing.get_tracer()
+
+    def _metrics(request: Request) -> Response:
+        return Response(
+            200,
+            registry.render_prometheus(),
+            content_type="text/plain; version=0.0.4; charset=utf-8",
+        )
+
+    def _metrics_json(request: Request) -> Response:
+        return Response(200, registry.to_dict())
+
+    def _traces(request: Request) -> Response:
+        # serialized here with default=str: span attributes are caller-
+        # supplied, and Response.payload() runs outside the handler's
+        # error boundary
+        return Response(
+            200,
+            json.dumps(
+                tracer.chrome_trace(request.query.get("traceId")),
+                default=str,
+            ),
+        )
+
+    def _traces_json(request: Request) -> Response:
+        return Response(200, json.dumps(tracer.to_dict(), default=str))
+
+    def _timeline_json(request: Request) -> Response:
+        return Response(200, json.dumps(timeline.to_dict(), default=str))
+
+    router.route("GET", "/metrics", _metrics)
+    router.route("GET", "/metrics.json", _metrics_json)
+    router.route("GET", "/debug/traces", _traces)
+    router.route("GET", "/debug/traces.json", _traces_json)
+    if timeline is not None:
+        router.route("GET", "/debug/timeline.json", _timeline_json)
+
+
 class HTTPServer:
     """Threaded server wrapping a Router; ``start()`` serves on a daemon
-    thread, ``shutdown()`` stops it and closes the socket."""
+    thread, ``shutdown()`` stops it and closes the socket.
+
+    ``registry`` turns on the request metrics:
+    ``pio_http_requests_total{service,method,status}``,
+    ``pio_http_request_seconds{service,route}`` (the route pattern, not
+    the raw path) and ``pio_http_inflight_requests{service}``.
+    ``tracer`` (default: the process tracer) opens one root span per
+    request — trace id = request id, remote parent from
+    ``X-Parent-Span`` — so handlers and storage calls hang child spans
+    off it; the telemetry routes themselves are not traced."""
 
     def __init__(
         self,
@@ -152,8 +227,33 @@ class HTTPServer:
         host: str = "0.0.0.0",
         port: int = 0,
         service: str = "http",
+        registry: MetricRegistry | None = None,
+        tracer: tracing.Tracer | None = None,
     ):
         router_ref = router
+        tracer_ref = tracer if tracer is not None else tracing.get_tracer()
+        inflight = [0]
+        inflight_lock = threading.Lock()
+        if registry is not None:
+            requests_total = registry.counter(
+                "pio_http_requests_total",
+                "HTTP requests by service, method, and status",
+                ("service", "method", "status"),
+            )
+            request_seconds = registry.histogram(
+                "pio_http_request_seconds",
+                "HTTP request latency by service and route pattern",
+                ("service", "route"),
+            )
+            # a scrape-time function: in a process that rebuilds
+            # servers, the latest server's count wins the label
+            registry.gauge(
+                "pio_http_inflight_requests",
+                "Requests currently being handled",
+                ("service",),
+            ).labels(service).set_function(lambda: float(inflight[0]))
+        else:
+            requests_total = request_seconds = None
 
         class _Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -166,6 +266,37 @@ class HTTPServer:
                 logger.debug("%s %s", self.address_string(), line)
 
             def _handle(self):
+                # in flight until the response bytes are written
+                with inflight_lock:
+                    inflight[0] += 1
+                try:
+                    self._handle_inner()
+                finally:
+                    with inflight_lock:
+                        inflight[0] -= 1
+
+            def _dispatch(self, request: Request, path: str) -> Response:
+                if path == "/healthz" and self.command == "GET":
+                    # the liveness probe answers before routing
+                    request.route = "/healthz"
+                    return Response(200, {
+                        "status": "ok", "service": service,
+                        "pid": os.getpid(),
+                    })
+                try:
+                    return router_ref.dispatch(request)
+                except HTTPError as e:
+                    return Response(
+                        e.status, {"message": e.message},
+                        headers=dict(e.headers),
+                    )
+                except json.JSONDecodeError as e:
+                    return Response(400, {"message": f"bad JSON: {e}"})
+                except Exception as e:  # noqa: BLE001 - server boundary
+                    logger.exception("handler error (%s)", service)
+                    return Response(500, {"message": str(e)})
+
+            def _handle_inner(self):
                 parsed = urlparse(self.path)
                 query = {
                     k: v[0] for k, v in parse_qs(parsed.query).items()
@@ -180,28 +311,42 @@ class HTTPServer:
                     body=body,
                     path_params={},
                 )
-                request.request_id = (
-                    self.headers.get("X-Request-ID") or uuid.uuid4().hex
+                # forwarded (when well-formed) or minted; installed in
+                # the thread's context for log lines downstream
+                request.request_id = set_request_id(
+                    self.headers.get("X-Request-ID")
                 )
-                try:
-                    if parsed.path == "/healthz" and self.command == "GET":
-                        # the liveness probe answers before routing
-                        response = Response(200, {
-                            "status": "ok", "service": service,
-                            "pid": os.getpid(),
-                        })
-                    else:
-                        response = router_ref.dispatch(request)
-                except HTTPError as e:
-                    response = Response(
-                        e.status, {"message": e.message},
-                        headers=dict(e.headers),
+                telemetry_path = parsed.path == "/healthz" or (
+                    parsed.path.startswith(("/metrics", "/debug/"))
+                )
+                t0 = time.perf_counter()
+                # root span: trace id = request id; a forwarded
+                # X-Parent-Span makes this request a child in a
+                # distributed trace. Scrapes of the telemetry surface
+                # would drown real traffic in the recorder.
+                span_cm = (
+                    tracing.NOOP
+                    if not tracer_ref.enabled or telemetry_path
+                    else tracer_ref.trace(
+                        f"{service} {self.command}",
+                        trace_id=request.request_id,
+                        parent_id=tracing.sanitize_id(
+                            self.headers.get(tracing.PARENT_SPAN_HEADER)
+                        ),
+                        attributes={
+                            "service": service,
+                            "method": self.command,
+                        },
                     )
-                except json.JSONDecodeError as e:
-                    response = Response(400, {"message": f"bad JSON: {e}"})
-                except Exception as e:  # noqa: BLE001 - server boundary
-                    logger.exception("handler error (%s)", service)
-                    response = Response(500, {"message": str(e)})
+                )
+                with span_cm as root_span:
+                    response = self._dispatch(request, parsed.path)
+                    if root_span is not None:
+                        root_span.set(
+                            "route", request.route or "(unmatched)"
+                        )
+                        root_span.set("status", response.status)
+                elapsed = time.perf_counter() - t0
                 if response.status >= 400 and isinstance(
                     response.body, dict
                 ):
@@ -211,6 +356,27 @@ class HTTPServer:
                         **response.body, "requestId": request.request_id
                     }
                 payload = response.payload()
+                route = request.route or "(unmatched)"
+                if requests_total is not None:
+                    requests_total.labels(
+                        service, self.command, str(response.status)
+                    ).inc()
+                    request_seconds.labels(service, route).observe(
+                        elapsed
+                    )
+                log_json(
+                    access_logger,
+                    logging.WARNING if response.status >= 500
+                    else logging.INFO if response.status >= 400
+                    else logging.DEBUG,
+                    "http_request",
+                    service=service,
+                    method=self.command,
+                    path=parsed.path,
+                    route=route,
+                    status=response.status,
+                    ms=round(elapsed * 1000, 3),
+                )
                 self.send_response(response.status)
                 self.send_header("Content-Type", response.content_type)
                 self.send_header("Content-Length", str(len(payload)))

@@ -1,5 +1,7 @@
-"""The fused top-k CUDA kernel against its plain version, and ALS on the
-card against ALS on the CPU.
+"""The fused top-k CUDA kernel against its plain version, ALS on the
+card against ALS on the CPU, the device-memory sampler on the card, and
+``POST /reload`` swapping a server on the card to a new generation
+served through the kernel.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -421,3 +423,119 @@ def test_ecommerce_predict_on_card_matches_cpu(cuda_device):
         assert fused_topk.LAUNCHES["f32"] == before + 3
     finally:
         set_storage(None)
+
+
+@pytest.mark.gpu
+def test_device_sampler_reads_the_card(cuda_device):
+    """The sampler publishes the card's used and total memory and the
+    bytes this process's live tensors hold."""
+    from predictionio_tpu_torch.obs import MetricRegistry
+    from predictionio_tpu_torch.obs.device import DeviceSampler, sample_devices
+
+    held = torch.empty(1 << 22, device=cuda_device)  # 16 MiB
+    sample = sample_devices()
+    label = f"cuda:{cuda_device.index}"
+    stats = sample["devices"][label]
+    assert 0 < stats["used"] <= stats["limit"]
+    assert sample["liveArrayBytes"] >= held.numel() * 4
+    reg = MetricRegistry()
+    DeviceSampler(reg, interval_s=0.05).start().stop()
+    out = reg.to_dict()
+    used = {s["labels"]["device"]: s["value"]
+            for s in out["pio_device_hbm_used_bytes"]["samples"]}
+    assert used[label] > 0
+    assert out["pio_device_live_array_bytes"]["samples"][0]["value"] > 0
+
+
+@pytest.mark.gpu
+def test_reload_serves_the_new_generation_through_the_kernel(
+    cuda_device, tmp_path
+):
+    """``POST /reload`` swaps a running server on the card to a new
+    generation; its answers come from the f32 kernel and equal the plain
+    top-k over the new factors."""
+    import dataclasses
+    import datetime as dt
+    import json
+    import urllib.request
+
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+
+    def publish(seed, n_items):
+        rng = np.random.default_rng(seed)
+        model = als_model_from_numpy(
+            rng.standard_normal((64, 32)), rng.standard_normal((n_items, 32)),
+            np.char.add("u", np.arange(64).astype(str)),
+            np.char.add("i", np.arange(n_items).astype(str)))
+        now = dt.datetime.now(dt.timezone.utc)
+        instances = storage.get_meta_data_engine_instances()
+        iid = instances.insert(EngineInstance(
+            id="", status="INIT", start_time=now, end_time=now,
+            engine_id="rec", engine_version="1", engine_variant="default",
+            engine_factory="recommendation"))
+        publish_generation(storage.get_model_data_models(), iid,
+                           serialize_models(iid, [ALSAlgorithm()], [model]))
+        instances.update(dataclasses.replace(instances.get(iid),
+                                             status="COMPLETED"))
+        return iid, model
+
+    def post(base, path, body):
+        req = urllib.request.Request(
+            base + path, data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    publish(1, 3_000)
+    engine = recommendation_engine()
+    es, http = create_engine_server(
+        engine, engine.params_from_variant({}), "rec", host="127.0.0.1",
+        port=0, storage=storage,
+        ctx=ComputeContext.create(device=cuda_device), max_batch=8)
+    http.start()
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        iid2, model = publish(2, 5_000)
+        assert post(base, "/reload", {}) == {
+            "message": "reloaded", "engineInstanceId": iid2}
+        before = fused_topk.LAUNCHES["f32"]
+        users = torch.as_tensor(model.user_factors, device=cuda_device)
+        items = torch.as_tensor(model.item_factors, device=cuda_device)
+        for u in (0, 5, 63):
+            ans = post(base, "/queries.json", {"user": f"u{u}", "num": 10})
+            got = [model.item_map(e["item"]) for e in ans["itemScores"]]
+            want_s, want_i = fused_topk.fused_top_k_dot_reference(
+                users[u:u + 1], items, 10)
+            # the same items, up to a swap of two the plain version
+            # scores within the tolerance
+            np.testing.assert_allclose(
+                (items[got] @ users[u]).cpu().numpy(),
+                want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+            assert len(got) == 10
+            np.testing.assert_allclose(
+                [e["score"] for e in ans["itemScores"]],
+                want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+        assert fused_topk.LAUNCHES["f32"] >= before + 3
+    finally:
+        es.close()

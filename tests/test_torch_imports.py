@@ -5,7 +5,8 @@
   ``predictionio_tpu_torch``, which shares its prefix) cannot be
   imported, and no port source (nor ``chip_smoke.py``) imports either.
 * ``ComputeContext.create()`` raises without CUDA instead of dropping to
-  the CPU; ``device="cpu"`` is the explicit opt-in.
+  the CPU; ``device="cpu"`` is the explicit opt-in. The continuous
+  trainer takes the same context and raises the same way.
 * A CPU tensor takes the plain version and never builds or launches the
   kernel; a tensor on any other non-CUDA device is refused.
 """
@@ -71,7 +72,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "models.textclassification", "models.helloworld",
                 "models.regression", "models.leadscoring",
                 "ops.naive_bayes", "ops.markov", "ops.vectorizer",
-                "core.persistent_model"):
+                "core.persistent_model", "obs", "obs.context",
+                "obs.registry", "obs.tracing", "obs.timeline",
+                "obs.device", "training", "training.trainer", "version"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -245,3 +248,31 @@ def test_training_refuses_to_fall_back(monkeypatch):
     assert storage.get_meta_data_engine_instances().get_all() == []
     model = ALSAlgorithm().train(ComputeContext.create(device="cpu"), pd)
     assert model.item_factors.shape == (1, 32)
+
+
+def test_trainer_refuses_to_fall_back(monkeypatch, tmp_path):
+    """Without a context the continuous trainer takes the CUDA device and
+    raises without one, before it reads its state."""
+    from predictionio_tpu_torch.data.storage import App, Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.training import (
+        ContinuousTrainer,
+        TrainerConfig,
+        Watermark,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    storage = Storage(env={"PIO_STORAGE_SOURCES_MEM_TYPE": "memory"})
+    storage.get_meta_data_apps().insert(App(0, "a"))
+    engine = recommendation_engine()
+    config = TrainerConfig(app_name="a", checkpoint_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousTrainer(engine, engine.params_from_variant({}), "rec",
+                          config, storage=storage)
+    assert not os.path.exists(config.resolved_state_path())
+    trainer = ContinuousTrainer(
+        engine, engine.params_from_variant({}), "rec", config,
+        storage=storage, ctx=ComputeContext.create(device="cpu"))
+    assert trainer.decide(Watermark()) == "full"  # cold: never trained
