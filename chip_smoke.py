@@ -127,8 +127,24 @@ and PyTorch built for CUDA. In order:
    ``/debug/traces.json`` must hold the ingest count, the fold-in, the
    checkpoints, the step histogram, the device memory gauge and the
    ``store/insert_batch`` spans;
-13. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-12) and, last, the device line.
+13. drives the ``pio`` console as a user does, every step a process
+   (``python -m predictionio_tpu_torch.cli.main``; the device verbs
+   under ``chip_smoke.py --cli-child``, which counts the kernel's
+   launches and the context's device) on phase 12's deployment under a
+   fresh ``PIO_FS_BASEDIR``, each step's seconds on a line of its own:
+   ``status`` (its compute line names the card), ``app new``,
+   ``import`` of phase 7's 200,000 events from a file the port wrote and
+   ``export`` back (every column equal), ``build`` and ``train`` of the
+   unchanged ``examples/recommendation/engine.json``, ``deploy`` (64
+   queries and a batch of 64, each held against the plain top-k), a
+   second ``deploy`` on the port that ends the first, ``undeploy``,
+   ``eval chip_smoke:cli_evaluation`` (phase 9's grid), ``start-all``
+   and ``daemons``, ``trainer --once`` (a full retrain), 753 events for
+   50 new users and 10 new items over the daemon event server,
+   ``trainer --once`` again (a fold-in), the dashboard listing the
+   evaluation, and ``stop-all``;
+14. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-13) and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -1318,31 +1334,12 @@ def time_eval_shape(device, model, queries) -> dict:
             "plan": dataclasses.asdict(plan)}
 
 
-def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
-    """``run_evaluation`` over the example's grid on the app's events,
-    through a ``FastEvalEngine`` whose caches then give every fold's
-    staged model and batch answers to check."""
-    from predictionio_tpu_torch.core.engine import EngineParams
-    from predictionio_tpu_torch.core.evaluation import (
-        AverageMetric,
-        Evaluation,
-    )
-    from predictionio_tpu_torch.core.fasteval import FastEvalEngine
-    from predictionio_tpu_torch.core.workflow import run_evaluation
-    from predictionio_tpu_torch.data.storage import set_storage
-    from predictionio_tpu_torch.models.recommendation import (
-        ALSParams,
-        RecDataSourceParams,
-        RecPreparatorParams,
-        recommendation_engine,
-    )
-    from predictionio_tpu_torch.ops import fused_topk
-    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+def precision_at_k(k: int = 10):
+    """The recommendation example's metric: the share of the top k
+    recommendations that are held-out items."""
+    from predictionio_tpu_torch.core.evaluation import AverageMetric
 
     class PrecisionAtK(AverageMetric):
-        """The example's metric: the share of the top k recommendations
-        that are held-out items."""
-
         def __init__(self, k: int = 10):
             self.k = k
 
@@ -1352,7 +1349,20 @@ def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
                 return 0.0
             return len(set(top) & set(actual)) / float(self.k)
 
-    grid = [
+    return PrecisionAtK(k)
+
+
+def eval_grid(app_name: str) -> list:
+    """The recommendation example's grid (``examples/recommendation/
+    evaluation.py``) on ``app_name``."""
+    from predictionio_tpu_torch.core.engine import EngineParams
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSParams,
+        RecDataSourceParams,
+        RecPreparatorParams,
+    )
+
+    return [
         EngineParams(
             data_source=("", RecDataSourceParams(app_name=app_name,
                                                  eval_k=EVAL_K)),
@@ -1362,9 +1372,39 @@ def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
         )
         for rank in EVAL_RANKS
     ]
+
+
+def cli_evaluation():
+    """Phase 13's ``eval chip_smoke:cli_evaluation``: the example's grid
+    and metric on the console's app."""
+    from predictionio_tpu_torch.core.evaluation import Evaluation
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+
+    return Evaluation(engine=recommendation_engine(),
+                      metric=precision_at_k(10),
+                      engine_params_list=eval_grid(CLI_APP))
+
+
+def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
+    """``run_evaluation`` over the example's grid on the app's events,
+    through a ``FastEvalEngine`` whose caches then give every fold's
+    staged model and batch answers to check."""
+    from predictionio_tpu_torch.core.evaluation import Evaluation
+    from predictionio_tpu_torch.core.fasteval import FastEvalEngine
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+    from predictionio_tpu_torch.data.storage import set_storage
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    grid = eval_grid(app_name)
     engine = FastEvalEngine.from_engine(recommendation_engine())
     best_path = os.path.join(out_dir, "best.json")
-    evaluation = Evaluation(engine=engine, metric=PrecisionAtK(10),
+    evaluation = Evaluation(engine=engine, metric=precision_at_k(10),
                             engine_params_list=grid, output_path=best_path)
     events = storage.get_events()
     scans = []
@@ -3038,6 +3078,397 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
     return out
 
 
+# -- phase 13: the console ------------------------------------------------------
+
+CLI_APP = "MyRecApp"
+#: the unchanged example variant: rank 32, 10 iterations, implicit
+CLI_VARIANT = os.path.join(ROOT, "examples", "recommendation", "engine.json")
+CLI_QUERIES = 64
+#: every console child's time limit, seconds
+CLI_TIMEOUT_S = 600
+#: power-of-two warm-up buckets of a deploy at --max-batch 64
+CLI_WARMUP_BUCKETS = 7
+#: how the device verbs run: under this script's --cli-child wrapper,
+#: which counts the kernel's launches and the context's device
+CLI_CHILD = [sys.executable, os.path.abspath(__file__), "--cli-child"]
+CONSOLE = [sys.executable, "-m", "predictionio_tpu_torch.cli.main"]
+
+
+def cli_child(out_path: str, argv: list) -> int:
+    """``predictionio_tpu_torch.cli.main.main(argv)`` in this process (run
+    as ``chip_smoke.py --cli-child OUT <console argv>``): the fused
+    kernel's launches by form and the devices of the compute contexts
+    made are written to ``OUT`` with the exit code when ``main`` returns."""
+    from predictionio_tpu_torch.cli.main import main as console
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel import mesh
+
+    devices = []
+    real_create = mesh.ComputeContext.create
+
+    def create(*args, **kwargs):
+        ctx = real_create(*args, **kwargs)
+        devices.append(str(ctx.device))
+        return ctx
+
+    mesh.ComputeContext.create = staticmethod(create)
+    fused_topk.reset_launch_counts()
+    rc = console(argv)
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "launches": dict(fused_topk.LAUNCHES),
+                   "devices": devices}, f)
+    return rc
+
+
+class _Console:
+    """Console children started from the repository root with phase 13's
+    environment, each writing its output to files in ``workdir`` (a pipe
+    nobody reads could stall it); every one is remembered, so none
+    outlives the phase."""
+
+    def __init__(self, workdir: str, env: dict):
+        self.workdir = workdir
+        self.env = env
+        self.procs = []
+        self.steps = {}
+
+    def path(self, name: str, ext: str) -> str:
+        return os.path.join(self.workdir, f"{name}.{ext}")
+
+    def start(self, name: str, argv: list, counted: bool = False):
+        cmd = (CLI_CHILD + [self.path(name, "json")] if counted
+               else CONSOLE) + list(argv)
+        with open(self.path(name, "out"), "w") as out, \
+                open(self.path(name, "err"), "w") as err:
+            proc = subprocess.Popen(cmd, env=self.env, stdout=out,
+                                    stderr=err, cwd=ROOT)
+        self.procs.append(proc)
+        return proc
+
+    def wait(self, name: str, proc, rc: int = 0,
+             timeout: float = CLI_TIMEOUT_S) -> str:
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(
+                f"console step {name} ran past {timeout} s: "
+                f"{_tail(self.path(name, 'err'))}") from None
+        assert proc.returncode == rc, (
+            name, proc.returncode, _tail(self.path(name, "err")))
+        with open(self.path(name, "out")) as f:
+            return f.read()
+
+    def run(self, name: str, argv: list, counted: bool = False,
+            rc: int = 0, timeout: float = CLI_TIMEOUT_S) -> str:
+        """Run one console step to its end; its wall seconds go on a line
+        of their own."""
+        t0 = time.perf_counter()
+        text = self.wait(name, self.start(name, argv, counted), rc, timeout)
+        self.steps[name] = time.perf_counter() - t0
+        log(f"console {name}: {self.steps[name]:.2f} s")
+        return text
+
+    def counts(self, name: str) -> dict:
+        with open(self.path(name, "json")) as f:
+            return json.load(f)
+
+    def listening(self, name: str, proc, port: int) -> None:
+        line = f"Engine server is listening on 127.0.0.1:{port}"
+        deadline = time.perf_counter() + CLI_TIMEOUT_S
+        while line not in open(self.path(name, "out")).read():
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"{name} ended (rc {proc.returncode}) before it "
+                    f"listened: {_tail(self.path(name, 'err'))}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{name} never listened")
+            time.sleep(0.05)
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _npz_columns(path: str) -> dict:
+    """An event file's columns, rows ordered by event id."""
+    with np.load(path) as z:
+        cols = {k: z[k] for k in z.files}
+    order = np.argsort(cols["event_id"], kind="stable")
+    return {k: (v if k == "format_version" else v[order])
+            for k, v in cols.items()}
+
+
+def cli_phase(device, workdir: str, seed: int) -> dict:
+    """The ``pio`` console as a user runs it (the contract's phase 13):
+    every step a ``python -m predictionio_tpu_torch.cli.main`` process
+    (the device verbs under ``--cli-child``) on the deployment phase 12
+    rehearses, under a fresh ``PIO_FS_BASEDIR``, with phase 7's 200,000
+    events and the unchanged ``examples/recommendation/engine.json``."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+        load_manifest,
+    )
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.eventfile import write_events_npz
+    from predictionio_tpu_torch.data.storage import Storage
+
+    base = os.path.join(workdir, "base")
+    os.makedirs(base)
+    env = dict(os.environ, PYTHONPATH=ROOT, PIO_FS_BASEDIR=base,
+               **trainer_env(base))
+    # the card is the console's default; elsewhere the device is asked for
+    dev = [] if device.type == "cuda" else ["--device", device.type]
+    want_device = str(torch.device(device.type, 0) if device.type == "cuda"
+                      else device)
+    storage = Storage(env=trainer_env(base))
+    console = _Console(workdir, env)
+    out = {}
+    launches = {form: 0 for form in FORMS}
+
+    def counted(name):
+        c = console.counts(name)
+        assert c["rc"] == 0, c
+        assert c["devices"] and set(c["devices"]) == {want_device}, c
+        for form in FORMS:
+            launches[form] += c["launches"].get(form, 0)
+        return c
+
+    daemons_up = False
+    try:
+        # what every device verb pays before its own work
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import torch"], env=env,
+                       cwd=ROOT, check=True, timeout=CLI_TIMEOUT_S)
+        out["torch_import_s"] = time.perf_counter() - t0
+        log(f"console process start with torch imported: "
+            f"{out['torch_import_s']:.2f} s")
+
+        # 1. status: the compute line names the card
+        text = console.run("status", ["status", *dev], counted=True)
+        compute = [ln for ln in text.splitlines()
+                   if ln.startswith("Compute:")]
+        name = (torch.cuda.get_device_name(0) if device.type == "cuda"
+                else "cpu")
+        assert len(compute) == 1 and name in compute[0], text
+        assert "Your system is all ready to go." in text, text
+        counted("status")
+        out["compute_line"] = compute[0]
+
+        # 2. app new: its access key
+        text = console.run("app_new", ["app", "new", CLI_APP])
+        keys = [ln.split(": ", 1)[1] for ln in text.splitlines()
+                if ln.startswith("Access Key: ")]
+        assert len(keys) == 1, text
+        key = keys[0]
+
+        # 3. import the events from a file written by the port, export
+        # them back: every column equal to the input
+        n_users, n_items, n_events = DASE
+        rows, cols, vals = make_interactions(n_users, n_items, n_events,
+                                             seed=42)
+        t0 = time.perf_counter()
+        events_path = os.path.join(workdir, "events.npz")
+        assert write_events_npz((
+            Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  properties={"rating": float(r)}, event_id=f"{n:032x}")
+            for n, (u, i, r) in enumerate(zip(rows.tolist(), cols.tolist(),
+                                              vals.tolist()))
+        ), events_path) == n_events
+        out["write_npz_s"] = time.perf_counter() - t0
+        text = console.run("import", ["import", "--appname", CLI_APP,
+                                      "--input", events_path])
+        assert text == f"Imported {n_events} events.\n", text
+        back_path = os.path.join(workdir, "back.npz")
+        text = console.run("export", ["export", "--appname", CLI_APP,
+                                      "--output", back_path])
+        assert text == f"Exported {n_events} events to {back_path}.\n", text
+        want_cols, got_cols = (_npz_columns(p)
+                               for p in (events_path, back_path))
+        assert sorted(got_cols) == sorted(want_cols)
+        for col, want in want_cols.items():
+            assert np.array_equal(got_cols[col], want), col
+
+        # 4. build, train: a COMPLETED instance
+        text = console.run("build", ["build", "--variant", CLI_VARIANT])
+        assert "Registered engine recommendation-quickstart" in text, text
+        text = console.run("train", ["train", "--variant", CLI_VARIANT,
+                                     *dev], counted=True)
+        counted("train")
+        trained = [ln.rsplit(" ", 1)[1] for ln in text.splitlines()
+                   if ln.startswith("Training completed. Engine instance:")]
+        assert len(trained) == 1, text
+        train_id = trained[0]
+        instance = storage.get_meta_data_engine_instances().get(train_id)
+        assert instance.status == "COMPLETED", instance.status
+        models = storage.get_model_data_models()
+        (model,) = [m for _t, m in deserialize_models(
+            load_generation(models, train_id))]
+        assert model.item_factors.shape == (len(model.item_map), RANK)
+
+        # 5. deploy; 64 queries and one batch of 64 held against the plain
+        # top-k; a second deploy on the port ends the first; undeploy
+        port = _free_port()
+        deploy_argv = ["deploy", "--variant", CLI_VARIANT, "--ip",
+                       "127.0.0.1", "--port", str(port), *dev]
+        t0 = time.perf_counter()
+        first = console.start("deploy", deploy_argv, counted=True)
+        console.listening("deploy", first, port)
+        console.steps["deploy_listening"] = time.perf_counter() - t0
+        log(f"console deploy (to listening): "
+            f"{console.steps['deploy_listening']:.2f} s")
+        base_url = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(seed + 14)
+        users = rng.choice(model.user_map.keys(), 2 * CLI_QUERIES).tolist()
+        queries = [{"user": u, "num": [1, 10, 20, 50][i % 4]}
+                   for i, u in enumerate(users)]
+        t0 = time.perf_counter()
+        answers = [(q, _post(base_url, "/queries.json", q)[0])
+                   for q in queries[:CLI_QUERIES]]
+        batch, _s = _post(base_url, "/batch/queries.json",
+                          queries[CLI_QUERIES:])
+        console.steps["queries"] = time.perf_counter() - t0
+        log(f"console queries ({CLI_QUERIES} + a batch of "
+            f"{CLI_QUERIES}): {console.steps['queries']:.2f} s")
+        assert len(batch) == CLI_QUERIES
+        assert all(r["status"] == 200 for r in batch), batch[:3]
+        answers += [(q, r["prediction"])
+                    for q, r in zip(queries[CLI_QUERIES:], batch)]
+        n_checked, ties, err = check_answers(answers, model, device)
+        assert n_checked == 2 * CLI_QUERIES, n_checked
+        out.update(answers_checked=n_checked, tied_swaps=ties,
+                   max_abs_err=err)
+
+        t0 = time.perf_counter()
+        second = console.start("redeploy", deploy_argv, counted=True)
+        console.wait("deploy", first)
+        console.listening("redeploy", second, port)
+        console.steps["redeploy_handshake"] = time.perf_counter() - t0
+        log(f"console redeploy (first deploy ended, second listening): "
+            f"{console.steps['redeploy_handshake']:.2f} s")
+        q = queries[0]
+        n_checked, _t, _e = check_answers(
+            [(q, _post(base_url, "/queries.json", q)[0])], model, device)
+        assert n_checked == 1
+        text = console.run("undeploy", ["undeploy", "--port", str(port)])
+        assert text == f"Undeployed engine server at 127.0.0.1:{port}\n"
+        t0 = time.perf_counter()
+        console.wait("redeploy", second, timeout=120)
+        console.steps["redeploy_exit_after_undeploy"] = (
+            time.perf_counter() - t0)
+        for name, served in (("deploy", CLI_QUERIES + 1), ("redeploy", 1)):
+            c = counted(name)
+            if device.type == "cuda":
+                assert c["launches"]["f32"] >= CLI_WARMUP_BUCKETS + served, c
+            out[f"{name}_f32_launches"] = c["launches"]["f32"]
+
+        # 6. eval chip_smoke:cli_evaluation: EVALCOMPLETED, the one-liner
+        text = console.run("eval", ["eval", "chip_smoke:cli_evaluation",
+                                    *dev], counted=True)
+        c = counted("eval")
+        if device.type == "cuda":
+            assert c["launches"]["f32"] == EVAL_K * len(EVAL_RANKS), c
+        lines = text.strip().splitlines()
+        assert lines[-2].startswith("[PrecisionAtK] best: "), text
+        eval_id = lines[-1].rsplit(" ", 1)[1]
+        assert lines[-1] == f"Evaluation instance: {eval_id}", text
+        instance = storage.get_meta_data_evaluation_instances().get(eval_id)
+        assert instance.status == "EVALCOMPLETED", instance.status
+        result = json.loads(instance.evaluator_results_json)
+        out["eval_one_liner"] = lines[-2]
+        out["eval_precision"] = dict(zip(map(str, EVAL_RANKS),
+                                         result["scores"]))
+        out["eval_best_rank"] = EVAL_RANKS[result["bestIdx"]]
+
+        # 7. the daemons, the trainer, fold-in of events over the daemon
+        ports = {name: _free_port() for name in
+                 ("eventserver", "dashboard", "adminserver")}
+        daemons_up = True
+        text = console.run("start_all", [
+            "start-all", "--ip", "127.0.0.1",
+            "--eventserver-port", str(ports["eventserver"]),
+            "--dashboard-port", str(ports["dashboard"]),
+            "--adminserver-port", str(ports["adminserver"])])
+        text = console.run("daemons", ["daemons"])
+        for name in ports:
+            assert f"{name}: running (pid" in text, text
+        trainer_argv = ["trainer", "--app", CLI_APP, "--variant",
+                        CLI_VARIANT, "--once", "--no-supervise", *dev]
+        text = console.run("trainer_full", trainer_argv, counted=True)
+        counted("trainer_full")
+        assert text.strip().splitlines()[-1] == "trainer action: full", text
+        state_path = os.path.join(base, "trainer", "default",
+                                  "trainer_state.json")
+        with open(state_path) as f:
+            parent_id = json.load(f)["lastInstanceId"]
+
+        fresh, _by_user, _by_item = _fresh_events(model, seed)
+        t0 = time.perf_counter()
+        for lo in range(0, len(fresh), INGEST_BATCH):
+            res, _s = _post(f"http://127.0.0.1:{ports['eventserver']}",
+                            f"/batch/events.json?accessKey={key}",
+                            fresh[lo:lo + INGEST_BATCH])
+            assert all(r["status"] == 201 for r in res), res[:3]
+        console.steps["ingest_fresh"] = time.perf_counter() - t0
+        log(f"console ingest of {len(fresh)} events over the daemon: "
+            f"{console.steps['ingest_fresh']:.2f} s")
+        out["fresh_events"] = len(fresh)
+        text = console.run("trainer_fold_in", trainer_argv, counted=True)
+        counted("trainer_fold_in")
+        assert text.strip().splitlines()[-1] == "trainer action: fold_in", (
+            text)
+        with open(state_path) as f:
+            state = json.load(f)
+        child_id = state["lastInstanceId"]
+        assert child_id != parent_id
+        assert state["trainedWatermark"]["count"] == n_events + len(fresh)
+        assert storage.get_meta_data_engine_instances().get(
+            child_id).status == "COMPLETED"
+        assert load_manifest(models, child_id)["parent"] == parent_id
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ports['dashboard']}/", timeout=30) as r:
+            page = r.read().decode()
+        assert f"/engine_instances/{eval_id}" in page, page[:2000]
+        text = console.run("stop_all", ["stop-all"])
+        daemons_up = False
+        for name in ports:
+            assert f"{name}: stopped (pid" in text, text
+        assert not os.listdir(os.path.join(base, "run"))
+    finally:
+        if daemons_up:
+            subprocess.run(CONSOLE + ["stop-all"], env=env, cwd=ROOT,
+                           capture_output=True, timeout=120)
+        console.close()
+    out["steps_s"] = console.steps
+    out["launches"] = launches
+    return out
+
+
+def log_cli(c: dict) -> None:
+    s = c["steps_s"]
+    log(f"console: {c['compute_line']}; import {s['import']:.2f} s, "
+        f"export {s['export']:.2f} s, train {s['train']:.2f} s, deploy to "
+        f"listening {s['deploy_listening']:.2f} s, {c['answers_checked']} "
+        f"answers equal to the plain top-k (tied swaps {c['tied_swaps']}), "
+        f"redeploy handshake {s['redeploy_handshake']:.2f} s, eval "
+        f"{s['eval']:.2f} s, trainer full {s['trainer_full']:.2f} s, "
+        f"fold-in {s['trainer_fold_in']:.2f} s; f32 launches "
+        f"{c['launches']['f32']}")
+
+
 def log_trainer(t: dict) -> None:
     s = t["fresh_split"]
     log(f"trainer: {DASE[2]} events inserted in {t['insert_s']:.2f} s; "
@@ -3125,12 +3556,21 @@ def nvidia_smi_line() -> str:
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    cli_argv = None
+    if argv[:1] == ["--cli-child"] and len(argv) >= 2:
+        # the console's own argv follows, whatever its flags
+        cli_out, cli_argv, argv = argv[1], argv[2:], []
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trainer-child", metavar="DIR",
                     help="run one trainer poll on phase 12's deployment "
                     "in DIR (phase 12 starts these itself)")
-    args = ap.parse_args()
+    ap.add_argument("--cli-child", metavar="OUT",
+                    help="run the console on the argv that follows, "
+                    "writing its kernel launches to OUT (phase 13 starts "
+                    "these itself)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3143,6 +3583,8 @@ def main() -> int:
         return 1
     if args.trainer_child:
         return trainer_child(args.trainer_child)
+    if cli_argv is not None:
+        return cli_child(cli_out, cli_argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -3261,13 +3703,25 @@ def main() -> int:
     log(f"phase trainer: ok ({trainer['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as d:
+        cli = cli_phase(device, d, args.seed)
+    cli["phase_s"] = time.perf_counter() - t_phase
+    log("cli " + json.dumps(cli))
+    log_cli(cli)
+    log(f"console eval precision@10 by rank: "
+        f"{json.dumps(cli['eval_precision'])} (phase 9: "
+        f"{json.dumps(evaluation['precision'])})")
+    log(f"phase cli: ok ({cli['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
-    # 11, 12
+    # 11, 12 and the console's children in 13
     for run in (dase, *ingest.values(), evaluation, similar,
-                templates["ecommerce"], trainer):
+                templates["ecommerce"], trainer, cli):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-12: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-13: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

@@ -1,0 +1,1995 @@
+"""``pio``-style console of the port (reference tools/.../console/
+Console.scala:186-677).
+
+Counterpart of ``predictionio_tpu/cli/main.py``: the same verbs, with
+the same arguments, defaults, exit codes and stdout lines, over the
+port's storage, engines, servers and kernel. Run it as
+``python -m predictionio_tpu_torch.cli.main <verb>`` or as the
+``pio-tpu-torch`` console script.
+
+Verbs: version, help, status, trace, timeline, profile, app
+(new/list/show/delete/data-delete/channel-new/channel-delete), accesskey
+(new/list/delete), build, unregister, upgrade, shell, train, eval,
+deploy, undeploy, trainer, eventserver, dashboard, adminserver, export,
+import, template (list/get), run, start-all, stop-all, daemons, daemon.
+
+Every verb that builds a ``ComputeContext`` (status, shell, run, train,
+eval, deploy, trainer) takes ``--device {cuda,cpu}``, default ``cuda``;
+without a card it exits 1 with the context's "no CUDA device" error and
+never drops to the CPU unasked. ``trace``, ``timeline``, ``profile`` and
+``status --metrics-url`` are pure HTTP and never import torch.
+
+A verb or option that needs a part of the system not ported yet exits 1
+naming its ROADMAP.md item before doing anything: the serving features
+of one server (item 5a), the fleet (5b), the networked stores (3b) and
+more than one card (9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+from predictionio_tpu_torch.obs.context import redact_keys
+from predictionio_tpu_torch.version import __version__
+
+_ITEM = {
+    "3b": "ROADMAP.md, queue 1, item 3b",
+    "5a": "ROADMAP.md, queue 1, item 5a",
+    "5b": "ROADMAP.md, queue 1, item 5b",
+    "9": "ROADMAP.md, queue 1, item 9",
+}
+
+
+def _refuse(what: str, item: str) -> int:
+    """Print why ``what`` cannot run in the port and return exit code 1."""
+    print(f"error: {what} is not ported yet ({_ITEM[item]})",
+          file=sys.stderr)
+    return 1
+
+
+def _load_variant(path: str | None) -> dict:
+    if not path:
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _resolve(args) -> tuple:
+    """(engine, engine_params, engine_id, variant_name, variant_dict)
+    from CLI args."""
+    from predictionio_tpu_torch.core.registry import resolve_engine_factory
+
+    variant = _load_variant(getattr(args, "variant", None))
+    factory_name = args.engine or variant.get("engineFactory")
+    if not factory_name:
+        raise SystemExit(
+            "error: --engine (or an engine.json with engineFactory) "
+            "is required"
+        )
+    engine = resolve_engine_factory(factory_name)()
+    params = engine.params_from_variant(variant)
+    engine_id = getattr(args, "engine_id", None) or variant.get(
+        "id", factory_name
+    )
+    return engine, params, engine_id, variant.get("variant", "default"), variant
+
+
+def _store_urls_refused(args) -> int:
+    """1 (after printing why) when ``--store-url`` was given, else 0."""
+    if getattr(args, "store_urls", None):
+        return _refuse("--store-url (the replicated store tier)", "3b")
+    return 0
+
+
+def _server_config_refused(server: str) -> int:
+    """1 (after printing why) when the environment asks ``server`` for
+    key auth or TLS, which the port does not serve yet; else 0."""
+    from predictionio_tpu_torch.serving.config import ServerConfig
+
+    reason = ServerConfig.from_env().refusal(server)
+    if reason:
+        print(f"error: {reason}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _batched_insert(events_iter, backend, app_id, channel_id) -> int:
+    """Insert an event stream in 500-event batches; returns the count."""
+    batch, n = [], 0
+    for event in events_iter:
+        batch.append(event)
+        if len(batch) >= 500:
+            backend.insert_batch(batch, app_id, channel_id)
+            n += len(batch)
+            batch = []
+    if batch:
+        backend.insert_batch(batch, app_id, channel_id)
+        n += len(batch)
+    return n
+
+
+def _variant_batch(args, variant: dict | None) -> str:
+    """Run batch label: the --batch flag wins, else the variant's
+    ``meshConf.batch``."""
+    return (
+        getattr(args, "batch", "")
+        or ((variant or {}).get("meshConf") or {}).get("batch", "")
+        or ""
+    )
+
+
+def _mesh_ctx(args, variant: dict | None = None):
+    """Compute context from CLI flags, falling back to the variant's
+    embedded ``meshConf`` (``{"meshConf": {"shape": "4,2" | [4, 2],
+    "batch": "nightly"}}``), as the JAX console reads it. The port runs
+    on one card: a shape spanning more than one device refuses, naming
+    item 9. ``--device`` picks the card (default) or the CPU."""
+    from predictionio_tpu_torch.cli.commands import CommandError
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    mesh_conf = (variant or {}).get("meshConf") or {}
+    raw_shape = getattr(args, "mesh_shape", None) or mesh_conf.get("shape")
+    if raw_shape:
+        try:
+            if isinstance(raw_shape, str):
+                mesh_shape = tuple(int(x) for x in raw_shape.split(","))
+            else:
+                mesh_shape = tuple(int(x) for x in raw_shape)
+        except (TypeError, ValueError):
+            raise SystemExit(
+                f"error: mesh shape {raw_shape!r} (--mesh-shape / "
+                "meshConf.shape) must be device counts like \"4,2\""
+            ) from None
+        if math.prod(mesh_shape) != 1:
+            raise CommandError(
+                f"mesh shape {raw_shape!r} (--mesh-shape / meshConf.shape) "
+                f"spans {math.prod(mesh_shape)} devices; more than one "
+                f"card is not ported yet ({_ITEM['9']})"
+            )
+    return ComputeContext.create(
+        batch=_variant_batch(args, variant), device=args.device
+    )
+
+
+# -- command implementations ----------------------------------------------
+
+
+def _serve_foreground(http) -> int:
+    """Block on a bound HTTPServer until ``POST /stop`` (engine
+    servers), SIGTERM or Ctrl-C stops its listener; its shutdown hooks
+    (an engine server's: close the batchers) then run, and the process
+    exits. The JAX console's graceful drain (503 + Retry-After while
+    in-flight requests finish) is ROADMAP.md, queue 1, item 5a."""
+    import signal
+    import threading
+
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        # shutdown() waits for serve_forever to return, so it must not
+        # run in the handler, which interrupts serve_forever's thread
+        previous = signal.signal(
+            signal.SIGTERM,
+            lambda signum, frame: threading.Thread(
+                target=http.shutdown, daemon=True
+            ).start(),
+        )
+    try:
+        http.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+        http.shutdown()
+    return 0
+
+
+def cmd_version(args) -> int:
+    print(__version__)
+    return 0
+
+
+def _fetch_json(target: str, access_key: str = ""):
+    """GET + parse one telemetry endpoint; on any transport/parse
+    failure prints a clean ``[ERROR]`` (key redacted) and returns None.
+    ``access_key`` travels as ``X-PIO-Server-Key``. ValueError covers
+    JSONDecodeError: a proxy error page or a non-pio service answering
+    200 must not traceback."""
+    import urllib.request
+
+    req = urllib.request.Request(target)
+    if access_key:
+        req.add_header("X-PIO-Server-Key", access_key)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return json.load(resp)
+    except (OSError, ValueError) as e:
+        print(
+            f"[ERROR] cannot fetch {redact_keys(target)}: {e}",
+            file=sys.stderr,
+        )
+        return None
+
+
+_CANARY_STATE_NAMES = {
+    0: "idle", 1: "shadowing", 2: "watching", 3: "stable",
+    4: "rejected", 5: "rolled_back",
+}
+
+
+def _labeled_sum(data: dict, name: str) -> float:
+    family = data.get(name)
+    if not isinstance(family, dict):
+        return 0.0
+    return sum(
+        s.get("value", s.get("count", 0)) or 0
+        for s in family.get("samples") or []
+    )
+
+
+def _first_value(data: dict, name: str):
+    family = data.get(name)
+    if not isinstance(family, dict):
+        return None
+    samples = family.get("samples") or []
+    if not samples or "value" not in samples[0]:
+        return None
+    return samples[0]["value"]
+
+
+def _model_summary_line(data: dict) -> str | None:
+    """One-line model-lifecycle summary from the generation/age/
+    last-train gauges, shown ahead of the raw metric dump when the
+    scraped server exposes them (engine servers and trainers)."""
+    generation = _first_value(data, "pio_model_generation")
+    if generation is None:
+        return None
+    parts = [f"model: generation={int(generation)}"]
+    age = _first_value(data, "pio_model_age_seconds")
+    if age is not None:
+        parts.append(f"age={age:.0f}s")
+    last_train = _first_value(data, "pio_train_last_timestamp_seconds")
+    if last_train:
+        import datetime as _dt
+
+        parts.append(
+            "lastTrain="
+            + _dt.datetime.fromtimestamp(
+                last_train, _dt.timezone.utc
+            ).isoformat(timespec="seconds")
+        )
+    canary = _first_value(data, "pio_canary_state")
+    if canary is not None:
+        parts.append(
+            f"canary={_CANARY_STATE_NAMES.get(int(canary), canary)}"
+        )
+    quarantined = _first_value(data, "pio_model_quarantined_total")
+    if quarantined:
+        parts.append(f"quarantined={int(quarantined)}")
+    return " ".join(parts)
+
+
+def _pool_summary_line(data: dict) -> str | None:
+    """One-line model-pool summary (multi-tenant serving), rendered only
+    when the scraped server runs a pool (pio_pool_* series present)."""
+    budget = _first_value(data, "pio_pool_budget_bytes")
+    if budget is None:
+        return None
+    resident = _first_value(data, "pio_pool_tenants_resident") or 0
+    hits = _labeled_sum(data, "pio_pool_hits_total")
+    misses = _labeled_sum(data, "pio_pool_misses_total")
+    parts = [
+        f"pool: tenantsResident={int(resident)}",
+        f"bytes={int(_labeled_sum(data, 'pio_pool_resident_bytes'))}/"
+        f"{int(budget)}",
+    ]
+    lookups = hits + misses
+    if lookups:
+        parts.append(f"hitRate={hits / lookups:.2f}")
+    parts.append(
+        f"evictions={int(_labeled_sum(data, 'pio_pool_evictions_total'))}"
+    )
+    return " ".join(parts)
+
+
+def _cache_summary_line(data: dict) -> str | None:
+    """One-line serving-cache summary, rendered only when the scraped
+    server runs the query cache (``pio_cache_*`` series present)."""
+    budget = data.get("pio_cache_budget_bytes")
+    if not isinstance(budget, dict) or not budget.get("samples"):
+        return None
+    hits = _labeled_sum(data, "pio_cache_hits_total")
+    misses = _labeled_sum(data, "pio_cache_misses_total")
+    parts = [
+        "cache: bytes="
+        f"{int(_labeled_sum(data, 'pio_cache_resident_bytes'))}/"
+        f"{int(_labeled_sum(data, 'pio_cache_budget_bytes'))}"
+    ]
+    lookups = hits + misses
+    if lookups:
+        parts.append(f"hitRate={hits / lookups:.2f}")
+    parts.append(
+        f"coalesced={int(_labeled_sum(data, 'pio_cache_coalesced_total'))}"
+    )
+    inflight = _labeled_sum(data, "pio_cache_inflight")
+    if inflight:
+        parts.append(f"inflight={int(inflight)}")
+    parts.append(
+        f"evictions={int(_labeled_sum(data, 'pio_cache_evictions_total'))}"
+    )
+    return " ".join(parts)
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit, div in (("GiB", 2**30), ("MiB", 2**20), ("KiB", 2**10)):
+        if n >= div:
+            return f"{n / div:.2f}{unit}"
+    return f"{n:.0f}B"
+
+
+def _tenant_cost_line(data: dict, top_n: int = 3) -> str | None:
+    """One-line per-tenant cost rollup: the top-N tenants by attributed
+    device-seconds, rendered only when ``pio_tenant_*`` series exist."""
+
+    def by_tenant(name):
+        family = data.get(name)
+        out: dict[str, float] = {}
+        if not isinstance(family, dict):
+            return out
+        for s in family.get("samples") or []:
+            tenant = (s.get("labels") or {}).get("tenant")
+            if tenant is None:
+                continue
+            try:
+                out[tenant] = out.get(tenant, 0.0) + float(
+                    s.get("value", 0) or 0
+                )
+            except (TypeError, ValueError):
+                continue
+        return out
+
+    device = by_tenant("pio_tenant_device_seconds_total")
+    if not device:
+        return None
+    total = sum(device.values())
+    resident = by_tenant("pio_tenant_resident_byte_seconds_total")
+    noisy = by_tenant("pio_tenant_noisy")
+    parts = [f"tenants: deviceSeconds={total:.3f}"]
+    ranked = sorted(device.items(), key=lambda kv: -kv[1])[:top_n]
+    for tenant, dev_s in ranked:
+        share = dev_s / total if total > 0 else 0.0
+        bits = [f"dev={dev_s:.3f}s({share:.0%})"]
+        if resident.get(tenant):
+            bits.append(f"res={_fmt_bytes(resident[tenant])}·s")
+        if noisy.get(tenant):
+            bits.append("noisy")
+        parts.append(f"{tenant or '(none)'}[{' '.join(bits)}]")
+    if len(device) > top_n:
+        parts.append(f"(+{len(device) - top_n} more)")
+    return " ".join(parts)
+
+
+def _print_families(data: dict) -> None:
+    for name in sorted(data):
+        family = data[name]
+        for sample in family["samples"]:
+            label = ",".join(
+                f"{k}={v}" for k, v in sample["labels"].items()
+            )
+            label = f"{{{label}}}" if label else ""
+            if family["type"] == "histogram":
+                print(
+                    f"{name}{label} count={sample['count']} "
+                    f"p50={sample['p50']} p95={sample['p95']} "
+                    f"p99={sample['p99']}"
+                )
+            else:
+                print(f"{name}{label} {sample['value']}")
+
+
+def _print_metrics(url: str, access_key: str = "") -> int:
+    """Scrape a live server's ``/metrics.json`` and print a per-metric
+    one-liner (histograms with derived p50/p95/p99), led by the model,
+    pool, cache and tenant summaries where the server exposes those
+    series. A router's federated shape is printed with its federation
+    header line, as the JAX console prints it."""
+    target = url.rstrip("/") + "/metrics.json"
+    data = _fetch_json(target, access_key=access_key)
+    if data is None:
+        return 1
+    try:
+        if (
+            isinstance(data, dict)
+            and isinstance(data.get("federation"), dict)
+            and "fleet" in data
+        ):
+            fed = data["federation"]
+            replicas = ",".join(fed.get("replicas") or []) or "none"
+            line = f"federation: replicas={replicas}"
+            stale = fed.get("stale") or []
+            if stale:
+                line += " stale=" + ",".join(stale)
+            print(line)
+            for summary in (_cache_summary_line, _tenant_cost_line):
+                text = summary(data.get("fleet") or {})
+                if text:
+                    print(text)
+            _print_families(data.get("fleet") or {})
+            _print_families(data.get("local") or {})
+            return 0
+        for summary in (_model_summary_line, _pool_summary_line,
+                        _cache_summary_line, _tenant_cost_line):
+            text = summary(data)
+            if text:
+                print(text)
+        _print_families(data)
+    except (AttributeError, KeyError, TypeError) as e:
+        print(
+            f"[ERROR] {redact_keys(target)} is not a pio metrics.json "
+            f"payload: {e!r}",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def cmd_status(args) -> int:
+    """Reference Console.status:1035-1107: verify storage + compute.
+    With ``--metrics-url`` it instead scrapes a running server's
+    telemetry registry (pure HTTP: it returns before torch is
+    imported)."""
+    if getattr(args, "store_urls", None):
+        return _refuse("status --store-url (the replicated store tier)",
+                       "3b")
+    if getattr(args, "router_url", ""):
+        return _refuse("status --router-url (the serving router)", "5b")
+    if getattr(args, "metrics_url", ""):
+        return _print_metrics(
+            args.metrics_url, getattr(args, "access_key", "")
+        )
+
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.parallel.mesh import (
+        ComputeContext,
+        NoDeviceError,
+    )
+
+    print(f"PredictionIO-TPU {__version__}")
+    try:
+        ctx = ComputeContext.create(device=args.device)
+    except NoDeviceError as e:
+        print(f"[ERROR] Compute: {e}")
+        print("Compute status: FAILED")
+        return 1
+    if ctx.device.type == "cuda":
+        import torch
+
+        names = [
+            torch.cuda.get_device_name(i)
+            for i in range(torch.cuda.device_count())
+        ]
+    else:
+        names = [str(ctx.device)]
+    print(
+        f"Compute: {len(names)} {ctx.device.type} device(s): {names[:8]}"
+    )
+    problems = get_storage().verify_all_data_objects()
+    if problems:
+        for p in problems:
+            print(f"[ERROR] {p}")
+        print("Storage status: FAILED")
+        return 1
+    print("Storage status: OK")
+    print("Your system is all ready to go.")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Pull the tracing flight recorder from any live server and write
+    a Perfetto-loadable trace file. Pure HTTP."""
+    target = args.url.rstrip("/") + (
+        "/debug/traces.json" if args.raw else "/debug/traces"
+    )
+    data = _fetch_json(target, access_key=args.access_key)
+    if data is None:
+        return 1
+    if not isinstance(data, dict):
+        # a non-pio service answering 200 with a JSON array/scalar must
+        # not traceback
+        data = {}
+    if args.raw:
+        if not isinstance(data.get("traces"), list):
+            print(
+                f"[ERROR] {redact_keys(target)} is not a pio "
+                "raw-trace payload",
+                file=sys.stderr,
+            )
+            return 1
+        summary = f"{len(data['traces'])} trace(s)"
+    else:
+        events = data.get("traceEvents")
+        if not isinstance(events, list):
+            print(
+                f"[ERROR] {redact_keys(target)} is not a Chrome "
+                "trace-event payload",
+                file=sys.stderr,
+            )
+            return 1
+        summary = f"{len(events)} trace event(s)"
+    try:
+        with open(args.out, "w") as f:
+            json.dump(data, f)
+    except OSError as e:
+        print(f"[ERROR] cannot write {args.out}: {e}", file=sys.stderr)
+        return 1
+    print(f"Wrote {summary} to {args.out}")
+    if not args.raw:
+        print("Open it at https://ui.perfetto.dev (or chrome://tracing).")
+    return 0
+
+
+#: event keys rendered in dedicated columns; everything else in an
+#: event dict is an emitter-specific field, appended as key=value
+_TIMELINE_CORE_KEYS = frozenset(
+    ("kind", "message", "severity", "mono", "wall", "seq", "replica")
+)
+
+
+def _render_timeline_event(event: dict) -> str:
+    import datetime as _dt
+
+    wall = float(event.get("wall", 0.0) or 0.0)
+    stamp = _dt.datetime.fromtimestamp(
+        wall, _dt.timezone.utc
+    ).isoformat(timespec="milliseconds")
+    severity = str(event.get("severity", "info")).upper()
+    parts = [stamp, f"{severity:<5}"]
+    replica = event.get("replica")
+    if replica:
+        parts.append(f"[{replica}]")
+    parts.append(
+        f"{event.get('kind', '?')}: {event.get('message', '')}"
+    )
+    extras = [
+        f"{k}={event[k]}"
+        for k in sorted(event)
+        if k not in _TIMELINE_CORE_KEYS and event[k] not in ("", None)
+    ]
+    if extras:
+        parts.append("(" + " ".join(extras) + ")")
+    return " ".join(parts)
+
+
+def cmd_timeline(args) -> int:
+    """Pull the incident timeline from a live server and render one line
+    per lifecycle event, oldest first. Pure HTTP."""
+    target = args.url.rstrip("/") + "/debug/timeline.json"
+    data = _fetch_json(target, access_key=args.access_key)
+    if data is None:
+        return 1
+    if not isinstance(data, dict) or not isinstance(
+        data.get("events"), list
+    ):
+        print(
+            f"[ERROR] {redact_keys(target)} is not a pio timeline "
+            "payload",
+            file=sys.stderr,
+        )
+        return 1
+    events = [e for e in data["events"] if isinstance(e, dict)]
+    if args.tenant:
+        events = [e for e in events if e.get("tenant") == args.tenant]
+    if args.since and events:
+        # the cutoff is relative to the newest event's own wall stamp,
+        # not this machine's clock
+        newest = max(float(e.get("wall", 0.0) or 0.0) for e in events)
+        cutoff = newest - args.since
+        events = [
+            e for e in events if float(e.get("wall", 0.0) or 0.0) >= cutoff
+        ]
+    header = [f"timeline: events={len(events)}"]
+    replicas = data.get("replicas")
+    if isinstance(replicas, list) and replicas:
+        header.append("replicas=" + ",".join(str(r) for r in replicas))
+    stale = data.get("stale")
+    if isinstance(stale, list) and stale:
+        header.append("stale=" + ",".join(str(r) for r in stale))
+    dropped = data.get("dropped")
+    if dropped:
+        header.append(f"dropped={dropped}")
+    if args.tenant:
+        header.append(f"tenant={args.tenant}")
+    if args.since:
+        header.append(f"since={args.since:g}s")
+    print(" ".join(header))
+    for event in events:
+        print(_render_timeline_event(event))
+    return 0
+
+
+def _safe_extract(tar, dest: str) -> None:
+    """Extract refusing path-traversing members (absolute paths,
+    ``..``) — the server is trusted, the archive format is not."""
+    try:
+        tar.extractall(dest, filter="data")
+        return
+    except TypeError:
+        pass  # Python without the tarfile filter API
+    base = os.path.realpath(dest)
+    for member in tar.getmembers():
+        target = os.path.realpath(os.path.join(dest, member.name))
+        if target != base and not target.startswith(base + os.sep):
+            raise ValueError(f"unsafe tar member: {member.name}")
+    tar.extractall(dest)
+
+
+def cmd_profile(args) -> int:
+    """Trigger an on-demand profile capture on a live engine server
+    (``POST /debug/profile``) and extract the returned tar.gz bundle
+    under ``--out``. Pure HTTP."""
+    import base64
+    import io
+    import tarfile
+    import urllib.request
+
+    target = args.url.rstrip("/") + "/debug/profile"
+    req = urllib.request.Request(
+        target,
+        data=json.dumps({"durationMs": args.duration_ms}).encode(),
+        method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    if args.access_key:
+        req.add_header("X-PIO-Server-Key", args.access_key)
+    try:
+        timeout = max(30.0, args.duration_ms / 1000.0 + 30.0)
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            data = json.load(resp)
+    except (OSError, ValueError) as e:
+        print(
+            f"[ERROR] cannot fetch {redact_keys(target)}: {e}",
+            file=sys.stderr,
+        )
+        return 1
+    if (
+        not isinstance(data, dict)
+        or not data.get("bundle")
+        or not isinstance(data.get("profile"), dict)
+    ):
+        print(
+            f"[ERROR] {redact_keys(target)} did not answer a profile "
+            "bundle",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        raw = base64.b64decode(data["bundle"])
+    except (TypeError, ValueError):
+        print(
+            "[ERROR] profile bundle is not valid base64",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        os.makedirs(args.out, exist_ok=True)
+        with tarfile.open(fileobj=io.BytesIO(raw), mode="r:gz") as tar:
+            _safe_extract(tar, args.out)
+    except (OSError, ValueError, tarfile.TarError) as e:
+        print(
+            f"[ERROR] cannot extract profile bundle: {e}",
+            file=sys.stderr,
+        )
+        return 1
+    manifest = data["profile"]
+    dest = os.path.join(args.out, f"profile-{manifest.get('id')}")
+    print(
+        f"Wrote profile artifact {manifest.get('id')} "
+        f"({manifest.get('durationS')}s window) to {dest}"
+    )
+    print(
+        "spans.json opens at https://ui.perfetto.dev; "
+        "jax_trace/ loads in TensorBoard."
+    )
+    return 0
+
+
+def cmd_lint(args) -> int:
+    print(
+        "error: not ported: the source linter is JAX developer tooling "
+        "(ROADMAP.md, not queued)",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def cmd_app(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    storage = get_storage()
+    if args.app_command == "new":
+        info = commands.create_app(
+            args.name,
+            description=args.description,
+            access_key=args.access_key or "",
+            storage=storage,
+        )
+        print(f"Created a new app: {args.name} (id {info['app_id']})")
+        print(f"Access Key: {info['access_key']}")
+    elif args.app_command == "list":
+        for app in storage.get_meta_data_apps().get_all():
+            print(f"{app.id}\t{app.name}\t{app.description or ''}")
+    elif args.app_command == "show":
+        print(json.dumps(commands.show_app(args.name, storage), indent=2))
+    elif args.app_command == "delete":
+        commands.delete_app(args.name, storage)
+        print(f"Deleted app {args.name}.")
+    elif args.app_command == "data-delete":
+        commands.delete_app_data(args.name, args.channel, storage)
+        print(f"Deleted data of app {args.name}.")
+    elif args.app_command == "channel-new":
+        cid = commands.create_channel(args.name, args.channel, storage)
+        print(f"Created channel {args.channel} (id {cid}).")
+    elif args.app_command == "channel-delete":
+        commands.delete_channel(args.name, args.channel, storage)
+        print(f"Deleted channel {args.channel}.")
+    return 0
+
+
+def cmd_accesskey(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    storage = get_storage()
+    if args.ak_command == "new":
+        events = tuple(args.events.split(",")) if args.events else ()
+        key = commands.new_access_key(args.app_name, events, storage)
+        print(f"Access Key: {key}")
+    elif args.ak_command == "list":
+        keys = storage.get_meta_data_access_keys()
+        apps = storage.get_meta_data_apps()
+        if args.app_name:
+            app = apps.get_by_name(args.app_name)
+            rows = keys.get_by_app_id(app.id) if app else []
+        else:
+            rows = keys.get_all()
+        for k in rows:
+            print(f"{k.key}\t{k.appid}\t{','.join(k.events)}")
+    elif args.ak_command == "delete":
+        ok = storage.get_meta_data_access_keys().delete(args.key)
+        print("Deleted." if ok else "Key not found.")
+        return 0 if ok else 1
+    return 0
+
+
+def cmd_build(args) -> int:
+    """Python needs no compile; validate the engine + variant, then
+    register an EngineManifest (reference Console.build:812-833 →
+    RegisterEngine.scala:33-58)."""
+    from predictionio_tpu_torch.data.storage import (
+        EngineManifest,
+        get_storage,
+    )
+
+    engine, params, engine_id, _, variant = _resolve(args)
+    print(
+        f"Engine {engine_id} OK: "
+        f"{len(engine.algorithm_classes)} algorithm class(es), "
+        f"{len(params.algorithms)} configured"
+    )
+    manifest = EngineManifest(
+        id=engine_id,
+        version=variant.get("engineVersion", __version__),
+        name=engine_id,
+        description=variant.get("description"),
+        files=(os.path.abspath(args.variant),) if args.variant else (),
+        engine_factory=args.engine or variant.get("engineFactory", ""),
+    )
+    get_storage().get_meta_data_engine_manifests().update(
+        manifest, upsert=True
+    )
+    print(f"Registered engine {manifest.id} {manifest.version}.")
+    return 0
+
+
+def cmd_unregister(args) -> int:
+    """Delete a registered EngineManifest (reference Console.unregister →
+    RegisterEngine.unregisterEngine, RegisterEngine.scala:60-84)."""
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    manifests = get_storage().get_meta_data_engine_manifests()
+    version = args.engine_version or __version__
+    if manifests.delete(args.engine_id, version):
+        print(f"Unregistered engine {args.engine_id} {version}.")
+        return 0
+    print(
+        f"Engine {args.engine_id} {version} is not registered.",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def cmd_upgrade(args) -> int:
+    """Migrate an app's events between two declared storage sources
+    (the analogue of the reference's 0.8.x→0.9 HBase migration)."""
+    import pickle
+    import tempfile
+
+    from predictionio_tpu_torch.data.storage import get_storage
+
+    if args.from_source == args.to_source:
+        print(
+            "error: --from and --to must be different storage sources",
+            file=sys.stderr,
+        )
+        return 1
+    storage = get_storage()
+    src = storage.backend_for_source(args.from_source)
+    dst = storage.backend_for_source(args.to_source)
+    app = storage.get_meta_data_apps().get_by_name(args.app_name)
+    if app is None:
+        print(f"error: app {args.app_name!r} not found", file=sys.stderr)
+        return 1
+    channel_ids = [None] + [
+        c.id
+        for c in storage.get_meta_data_channels().get_by_app_id(app.id)
+    ]
+    total = 0
+    for cid in channel_ids:
+        dst.init(app.id, cid)
+        # snapshot the source scan before inserting: both sources may
+        # share an underlying store, and inserting mid-scan over a live
+        # cursor can revisit rows. Spool to disk, not RAM.
+        with tempfile.TemporaryFile() as spool:
+            n = 0
+            for ev in src.find(app.id, cid):
+                pickle.dump(ev, spool, protocol=pickle.HIGHEST_PROTOCOL)
+                n += 1
+            spool.seek(0)
+
+            def _replay(f=spool, count=n):
+                for _ in range(count):
+                    yield pickle.load(f)
+
+            total += _batched_insert(_replay(), dst, app.id, cid)
+    print(
+        f"Migrated {total} events of app {args.app_name} from "
+        f"{args.from_source} to {args.to_source}."
+    )
+    return 0
+
+
+def cmd_shell(args) -> int:
+    """Interactive REPL with the environment preloaded — the
+    ``bin/pio-shell`` analogue: storage wired, ComputeContext built,
+    stores importable."""
+    import code
+
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.data.store import EventStore
+
+    ctx = _mesh_ctx(args)
+    ns = {
+        "storage": get_storage(),
+        "ctx": ctx,
+        "event_store": EventStore(),
+    }
+    banner = (
+        f"PredictionIO-TPU {__version__} shell\n"
+        f"preloaded: storage, ctx (device {ctx.device}), "
+        "event_store (find / find_by_entity / aggregate_properties)"
+    )
+    code.interact(banner=banner, local=ns)
+    return 0
+
+
+def cmd_train(args) -> int:
+    from predictionio_tpu_torch.core.engine import WorkflowParams
+    from predictionio_tpu_torch.core.workflow import run_train
+
+    if _store_urls_refused(args):
+        return 1
+    engine, params, engine_id, variant, variant_dict = _resolve(args)
+    workflow = WorkflowParams(
+        batch=_variant_batch(args, variant_dict),
+        save_model=not args.no_save_model,
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+    )
+    instance_id = run_train(
+        engine,
+        params,
+        engine_id=engine_id,
+        engine_variant=variant,
+        engine_factory=args.engine or "",
+        workflow=workflow,
+        ctx=_mesh_ctx(args, variant_dict),
+        checkpoint_dir=args.checkpoint_dir or None,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+    )
+    print(f"Training completed. Engine instance: {instance_id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from predictionio_tpu_torch.core.registry import resolve_engine_factory
+    from predictionio_tpu_torch.core.workflow import run_evaluation
+
+    factory = resolve_engine_factory(args.evaluation)
+    evaluation = factory() if callable(factory) else factory
+    instance_id, result = run_evaluation(
+        evaluation, batch=args.batch or "", ctx=_mesh_ctx(args)
+    )
+    print(result.to_one_liner())
+    print(f"Evaluation instance: {instance_id}")
+    return 0
+
+
+#: deploy options of the JAX console that need one server's serving
+#: features (item 5a): flag → the parsed value that means "not asked"
+_DEPLOY_5A = {
+    "--feedback": ("feedback", False),
+    "--event-server-app": ("event_server_app", None),
+    "--log-url": ("log_url", ""),
+    "--log-prefix": ("log_prefix", ""),
+    "--canary": ("canary", False),
+    "--tenant": ("tenant", []),
+    "--pool-budget-bytes": ("pool_budget_bytes", 0),
+    "--no-adaptive-wait": ("no_adaptive_wait", False),
+    "--no-admission": ("no_admission", False),
+}
+
+
+def _fleet_flags_refused(args, verb: str) -> int:
+    """1 (after printing why) for ``--workers > 1`` / ``--reuse-port``,
+    the SO_REUSEPORT worker fleet (item 5b); else 0."""
+    if args.workers > 1 or args.reuse_port:
+        return _refuse(
+            f"{verb} --workers/--reuse-port (SO_REUSEPORT workers)", "5b"
+        )
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    from predictionio_tpu_torch.serving.engine_server import EngineServer
+
+    if _store_urls_refused(args):
+        return 1
+    if args.max_batch < 1:
+        # 0 would also zero the derived queue bound
+        print(
+            f"error: --max-batch must be >= 1, got {args.max_batch}",
+            file=sys.stderr,
+        )
+        return 1
+    if args.max_wait_ms < 0:
+        # negative puts every deadline in the past: 1-query batches
+        print(
+            f"error: --max-wait-ms must be >= 0, got {args.max_wait_ms}",
+            file=sys.stderr,
+        )
+        return 1
+    if args.pipeline_depth < 0:
+        print(
+            f"error: --pipeline-depth must be >= 0, "
+            f"got {args.pipeline_depth}",
+            file=sys.stderr,
+        )
+        return 1
+    asked = [
+        flag for flag, (dest, unset) in _DEPLOY_5A.items()
+        if getattr(args, dest) != unset
+    ]
+    if asked:
+        return _refuse(f"deploy {', '.join(asked)}", "5a")
+    if _fleet_flags_refused(args, "deploy"):
+        return 1
+    if _server_config_refused("deploy"):
+        return 1
+
+    engine, params, engine_id, variant, variant_dict = _resolve(args)
+    server = EngineServer(
+        engine,
+        params,
+        engine_id=engine_id,
+        engine_variant=variant,
+        ctx=_mesh_ctx(args, variant_dict),
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        pipeline_depth=args.pipeline_depth,
+        quantize=args.quantize,
+    )
+    http = server.serve(host=args.ip, port=args.port)
+    print(f"Engine server is listening on {args.ip}:{http.port}",
+          flush=True)
+    return _serve_foreground(http)
+
+
+def cmd_trainer(args) -> int:
+    """Supervised continuous trainer: watches event watermarks, folds in
+    new users/items, runs checkpointed full retrains, publishes
+    transactional model generations. The default mode supervises the
+    training child (``python -m predictionio_tpu_torch.cli.main trainer
+    ... --no-supervise``, ``--device`` passed through with the rest of
+    the argv) with the backoff respawn loop — kill -9 mid-epoch respawns
+    the child, which resumes from the latest checkpoint."""
+    import signal as _signal
+    import threading
+
+    if _store_urls_refused(args):
+        return 1
+    if args.metrics_port and _server_config_refused("trainer --metrics-port"):
+        return 1
+    base_dir = args.checkpoint_dir or os.path.join(
+        os.environ.get(
+            "PIO_FS_BASEDIR",
+            os.path.join(os.path.expanduser("~"), ".piotpu"),
+        ),
+        "trainer",
+        args.engine_id or args.engine or "default",
+    )
+    if not args.no_supervise and not args.once:
+        from predictionio_tpu_torch.serving import workers as _workers
+
+        child_argv = list(args.raw_argv) + [
+            "--no-supervise", "--checkpoint-dir", base_dir,
+        ]
+
+        def spawn():
+            return subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.cli.main"]
+                + child_argv
+            )
+
+        stopping = threading.Event()
+        slots = [_workers.WorkerSlot(spawn)]
+
+        def _stop(signum, frame):
+            stopping.set()
+
+        _signal.signal(_signal.SIGTERM, _stop)
+        _signal.signal(_signal.SIGINT, _stop)
+        print(f"trainer supervisor: training child pid {slots[0].pid}")
+        try:
+            _workers.supervise_children(slots, stopping)
+        finally:
+            # the child finishes its current run on SIGTERM; escalate
+            # only after a generous drain
+            _workers.terminate_children(slots, 30.0)
+        return 0
+
+    # ---- training child ----
+    from predictionio_tpu_torch.training import (
+        ContinuousTrainer,
+        TrainerConfig,
+    )
+
+    engine, params, engine_id, variant, variant_dict = _resolve(args)
+    config = TrainerConfig(
+        app_name=args.app_name,
+        channel_name=args.channel or None,
+        poll_interval_s=args.poll_interval,
+        min_new_events=args.min_new_events,
+        full_every_events=args.full_every_events,
+        full_every_s=args.full_every_s,
+        checkpoint_dir=base_dir,
+        checkpoint_every=args.checkpoint_every,
+        router_url=args.router_url,
+        router_key=args.router_key,
+        promote_timeout_s=args.promote_timeout,
+    )
+    os.makedirs(base_dir, exist_ok=True)
+    # pid marker: what a chaos driver (or operator) kills; the
+    # supervising parent respawns and training resumes
+    with open(os.path.join(base_dir, "trainer.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    trainer = ContinuousTrainer(
+        engine,
+        params,
+        engine_id=engine_id,
+        engine_version="1",
+        engine_variant=variant,
+        config=config,
+        ctx=_mesh_ctx(args, variant_dict),
+    )
+    http = None
+    if args.metrics_port:
+        from predictionio_tpu_torch.obs import get_registry, tracing
+        from predictionio_tpu_torch.serving.http import (
+            HTTPServer,
+            Router,
+            install_metrics_routes,
+        )
+
+        router = Router()
+        install_metrics_routes(router, get_registry(), tracing.get_tracer())
+        http = HTTPServer(
+            router,
+            host="127.0.0.1",
+            port=args.metrics_port,
+            service="trainer",
+        )
+        http.start()
+        print(f"trainer metrics on 127.0.0.1:{http.port}/metrics.json")
+    stopping = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        _signal.signal(_signal.SIGTERM, lambda s, f: stopping.set())
+    try:
+        if args.once:
+            print(f"trainer action: {trainer.poll_once()}")
+        else:
+            trainer.run_forever(stopping)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if http is not None:
+            http.shutdown()
+    return 0
+
+
+def cmd_undeploy(args) -> int:
+    from predictionio_tpu_torch.serving.engine_server import (
+        undeploy_existing,
+    )
+
+    if _server_config_refused("undeploy"):
+        return 1
+    if undeploy_existing(args.ip, args.port):
+        print(f"Undeployed engine server at {args.ip}:{args.port}")
+        return 0
+    print(
+        f"Undeploy failed: no engine server stopped at "
+        f"{args.ip}:{args.port}",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def cmd_eventserver(args) -> int:
+    from predictionio_tpu_torch.serving.event_server import (
+        create_event_server,
+    )
+
+    if _store_urls_refused(args):
+        return 1
+    if args.no_admission:
+        return _refuse("eventserver --no-admission (admission control)",
+                       "5a")
+    if _fleet_flags_refused(args, "eventserver"):
+        return 1
+    if _server_config_refused("eventserver"):
+        return 1
+    http = create_event_server(host=args.ip, port=args.port,
+                               stats=args.stats)
+    print(f"Event server is listening on {args.ip}:{http.port}",
+          flush=True)
+    return _serve_foreground(http)
+
+
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.serving.dashboard import create_dashboard
+
+    if _server_config_refused("dashboard"):
+        return 1
+    http = create_dashboard(host=args.ip, port=args.port)
+    print(f"Dashboard is listening on {args.ip}:{http.port}", flush=True)
+    return _serve_foreground(http)
+
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.serving.admin import create_admin_server
+
+    if _server_config_refused("adminserver"):
+        return 1
+    http = create_admin_server(host=args.ip, port=args.port)
+    print(f"Admin server is listening on {args.ip}:{http.port}",
+          flush=True)
+    return _serve_foreground(http)
+
+
+def _file_format(explicit: str, path: str) -> str:
+    """Export/import format: the flag wins, else the file extension
+    (reference Console.scala:604-618 takes --format json|parquet)."""
+    if explicit:
+        return explicit
+    return "npz" if path.endswith(".npz") else "json"
+
+
+def cmd_export(args) -> int:
+    """Events → JSON lines or columnar npz (reference
+    export/EventsToFile.scala:40-104, formats json|parquet)."""
+    from predictionio_tpu_torch.data.store import EventStore
+
+    store = EventStore()
+    found = store.find(args.app_name, channel_name=args.channel)
+    if _file_format(args.format, args.output) == "npz":
+        from predictionio_tpu_torch.data.eventfile import write_events_npz
+
+        n = write_events_npz(found, args.output)
+    else:
+        n = 0
+        with open(args.output, "w") as f:
+            for event in found:
+                f.write(json.dumps(event.to_json_dict()) + "\n")
+                n += 1
+    print(f"Exported {n} events to {args.output}.")
+    return 0
+
+
+def cmd_import(args) -> int:
+    """JSON lines or columnar npz → events (reference
+    imprt/FileToEvents.scala:41-103)."""
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.data.store import EventStore
+
+    store = EventStore()
+    app_id, channel_id = store._resolve(args.app_name, args.channel)
+    events_backend = get_storage().get_events()
+    events_backend.init(app_id, channel_id)
+
+    if _file_format(args.format, args.input) == "npz":
+        from predictionio_tpu_torch.data.eventfile import read_events_npz
+
+        n = _batched_insert(
+            read_events_npz(args.input), events_backend, app_id, channel_id
+        )
+    else:
+        def parse(f):
+            for line in f:
+                line = line.strip()
+                if line:
+                    yield Event.from_json_dict(json.loads(line))
+
+        with open(args.input) as f:
+            n = _batched_insert(
+                parse(f), events_backend, app_id, channel_id
+            )
+    print(f"Imported {n} events.")
+    return 0
+
+
+def _is_git_source(src: str) -> bool:
+    """A template source that names a git repository rather than a
+    bundled template or local directory."""
+    return (
+        "://" in src  # https://, git://, file://, ssh://
+        or src.startswith("git@")
+        or src.endswith(".git")
+    )
+
+
+def _templates_dir() -> str:
+    """Bundled template gallery: the repository's ``examples/``, the
+    same one the JAX console lists (``PIO_TEMPLATES_DIR`` overrides)."""
+    env = os.environ.get("PIO_TEMPLATES_DIR")
+    if env:
+        return env
+    import predictionio_tpu_torch
+
+    return os.path.join(
+        os.path.dirname(os.path.dirname(predictionio_tpu_torch.__file__)),
+        "examples",
+    )
+
+
+def _fetch_template(args) -> tuple[str | None, object]:
+    """(source directory, clone to clean up) for ``template get``; the
+    directory is None after an error has been printed."""
+    import tempfile
+
+    if not _is_git_source(args.template):
+        if args.ref or args.subdir:
+            print(
+                "error: --ref/--subdir apply only to git sources "
+                f"({args.template!r} is a bundled name or local "
+                "directory)",
+                file=sys.stderr,
+            )
+            return None, None
+        src = args.template
+        if not os.path.isdir(src):
+            src = os.path.join(_templates_dir(), args.template)
+        if not os.path.isdir(src):
+            print(
+                f"error: template {args.template!r} not found "
+                f"(looked in {_templates_dir()}); `pio-tpu-torch template "
+                f"list` shows bundled engines, and a git URL / "
+                f"file:// repo fetches remotely",
+                file=sys.stderr,
+            )
+            return None, None
+        return src, None
+    # a remote gallery: shallow git clone (also covers file:// repos)
+    clone_tmp = tempfile.TemporaryDirectory(prefix="pio-tpl-")
+    src = os.path.join(clone_tmp.name, "repo")
+    cmd = ["git", "clone", "--depth", "1"]
+    if args.ref:
+        cmd += ["--branch", args.ref]
+    cmd += [args.template, src]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError:
+        print(
+            "error: cannot fetch template: git is not installed "
+            "(template get from a URL shells out to git clone)",
+            file=sys.stderr,
+        )
+        clone_tmp.cleanup()
+        return None, None
+    if proc.returncode != 0:
+        print(
+            f"error: cannot fetch template from "
+            f"{args.template!r}: {proc.stderr.strip()}",
+            file=sys.stderr,
+        )
+        clone_tmp.cleanup()
+        return None, None
+    if args.subdir:
+        root = os.path.realpath(src)
+        src = os.path.realpath(os.path.join(src, args.subdir))
+        # confine --subdir to the clone: an absolute path or ../
+        # traversal must not scaffold from the host tree
+        if not src.startswith(root + os.sep) or not os.path.isdir(src):
+            print(
+                f"error: --subdir {args.subdir!r} does not "
+                "name a directory inside the fetched repository",
+                file=sys.stderr,
+            )
+            clone_tmp.cleanup()
+            return None, None
+    return src, clone_tmp
+
+
+def cmd_template(args) -> int:
+    import predictionio_tpu_torch.models  # noqa: F401  (registers built-ins)
+    from predictionio_tpu_torch.core.registry import engine_registry
+
+    if args.template_command == "get":
+        import shutil
+
+        dst = args.directory
+        if os.path.exists(dst) and (
+            not os.path.isdir(dst) or os.listdir(dst)
+        ):
+            print(
+                f"error: destination {dst!r} exists and is not an "
+                f"empty directory",
+                file=sys.stderr,
+            )
+            return 1
+        src, clone_tmp = _fetch_template(args)
+        if src is None:
+            return 1
+        try:
+            # symlinks=True: preserve links as links — dereferencing
+            # would let a hostile template repo copy arbitrary host
+            # files into the scaffold
+            shutil.copytree(
+                src, dst, dirs_exist_ok=True, symlinks=True,
+                ignore=shutil.ignore_patterns("__pycache__", ".git"),
+            )
+        finally:
+            if clone_tmp is not None:
+                clone_tmp.cleanup()
+        # personalize engine.json (the reference's scaffolding prompts,
+        # Template.scala:226-369, taken from flags instead)
+        variant_path = os.path.join(dst, "engine.json")
+        if args.engine_id and os.path.lexists(variant_path):
+            if os.path.islink(variant_path):
+                # writing through a fetched symlink would overwrite the
+                # host file it names
+                print(
+                    "error: fetched engine.json is a symlink — refusing "
+                    "to personalize it; inspect the template",
+                    file=sys.stderr,
+                )
+                return 1
+            try:
+                with open(variant_path) as f:
+                    variant = json.load(f)
+                if not isinstance(variant, dict):
+                    raise ValueError(
+                        f"expected a JSON object, got {type(variant).__name__}"
+                    )
+            except (OSError, ValueError) as exc:
+                print(
+                    f"error: cannot personalize engine.json: {exc}",
+                    file=sys.stderr,
+                )
+                return 1
+            variant["id"] = args.engine_id
+            with open(variant_path, "w") as f:
+                json.dump(variant, f, indent=2)
+                f.write("\n")
+        print(f"created engine project at {dst}")
+        return 0
+
+    # template list: bundled gallery + registered engine factories
+    names = set(engine_registry())
+    gallery = _templates_dir()
+    if os.path.isdir(gallery):
+        names.update(
+            name
+            for name in os.listdir(gallery)
+            if os.path.isdir(os.path.join(gallery, name))
+        )
+    for name in sorted(names):
+        print(name)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Run an arbitrary ``module:fn`` under the environment — storage
+    configured, ComputeContext built (the FakeWorkflow/FakeRun analogue,
+    workflow/FakeWorkflow.scala:29-106). The callable receives the
+    ComputeContext."""
+    import importlib
+
+    module_name, _, attr = args.target.partition(":")
+    if not attr:
+        print(
+            "error: run target must look like 'module:function'",
+            file=sys.stderr,
+        )
+        return 1
+    sys.path.insert(0, os.getcwd())
+    try:
+        fn = getattr(importlib.import_module(module_name), attr)
+    except (ImportError, AttributeError) as e:
+        print(f"error: cannot load {args.target!r}: {e}", file=sys.stderr)
+        return 1
+    ctx = _mesh_ctx(args)
+    result = fn(ctx)
+    if result is not None:
+        print(json.dumps(result, default=str))
+    return 0
+
+
+def cmd_start_all(args) -> int:
+    """Reference bin/pio-start-all: bring up the serving daemons."""
+    from predictionio_tpu_torch.cli import daemon
+
+    if (args.with_minipg or args.minipg_port or args.with_storeserver
+            or args.storeserver_port or args.storeserver_access_key):
+        return _refuse(
+            "start-all with minipg or the store server (the networked "
+            "stores)", "3b",
+        )
+    ports = {}
+    if args.eventserver_port:
+        ports["eventserver"] = args.eventserver_port
+    if args.dashboard_port:
+        ports["dashboard"] = args.dashboard_port
+    if args.adminserver_port:
+        ports["adminserver"] = args.adminserver_port
+    return daemon.start_all(ip=args.ip, ports=ports)
+
+
+def cmd_stop_all(args) -> int:
+    """Reference bin/pio-stop-all."""
+    from predictionio_tpu_torch.cli import daemon
+
+    return daemon.stop_all()
+
+
+def cmd_daemons(args) -> int:
+    """Daemon liveness report (exit 0 iff all running)."""
+    from predictionio_tpu_torch.cli import daemon
+
+    return daemon.status_all()
+
+
+def cmd_daemon(args) -> int:
+    """Run ANY console verb as a managed background daemon
+    (reference bin/pio-daemon: nohup + pidfile)."""
+    from predictionio_tpu_torch.cli import daemon
+
+    argv = list(args.cmd)
+    if argv and argv[0] == "--":
+        argv = argv[1:]
+    if not argv:
+        print("error: daemon needs a verb to run", file=sys.stderr)
+        return 1
+    name = args.name or f"daemon-{argv[0]}"
+    state, pid = daemon.service_status(name)
+    if state == "running":
+        print(f"{name}: already running (pid {pid})", file=sys.stderr)
+        return 1
+    pid = daemon.spawn_daemon(name, argv)
+    print(f"{name}: started (pid {pid}, log {daemon.logfile(name)})")
+    return 0
+
+
+# -- parser ----------------------------------------------------------------
+
+#: verbs of the JAX console that need an unported item: verb → (what, item)
+_REFUSED_VERBS = {
+    "router": ("router (the serving fleet's front tier)", "5b"),
+    "storeserver": ("storeserver (the networked store)", "3b"),
+    "minipg": ("minipg (the postgres-wire dev store)", "3b"),
+    "launch": ("launch (the multi-process launcher)", "9"),
+}
+
+
+def _store_url_args(p) -> None:
+    p.add_argument(
+        "--store-url", dest="store_urls", action="append", default=None,
+        help="replicated store-server base URL (not ported: ROADMAP.md, "
+             "queue 1, item 3b)",
+    )
+    p.add_argument(
+        "--store-access-key", dest="store_access_key", default="",
+        help="access key the store-server peers require",
+    )
+
+
+def _device_arg(p) -> None:
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="run on the CUDA card (default) or on the host's CPU",
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="pio-tpu-torch",
+        description="PredictionIO-class ML server console (PyTorch/CUDA)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("version").set_defaults(func=cmd_version)
+    # reference Console has an explicit `help` verb besides -h
+    sub.add_parser("help").set_defaults(
+        func=lambda _args: (parser.print_help(), 0)[1]
+    )
+    p = sub.add_parser("status")
+    p.add_argument(
+        "--metrics-url", dest="metrics_url", default="",
+        help="scrape a running server's /metrics.json instead of "
+             "checking local storage/compute",
+    )
+    p.add_argument(
+        "--router-url", dest="router_url", default="",
+        help="a router's fleet summary (not ported: ROADMAP.md, queue 1, "
+             "item 5b)",
+    )
+    p.add_argument(
+        "--access-key", dest="access_key", default="",
+        help="server access key for key-authed scrape targets "
+             "(sent as the X-PIO-Server-Key header)",
+    )
+    p.add_argument(
+        "--store-url", dest="store_urls", action="append", default=None,
+        help="store-node health (not ported: ROADMAP.md, queue 1, "
+             "item 3b)",
+    )
+    _device_arg(p)
+    p.set_defaults(func=cmd_status)
+
+    p = sub.add_parser("trace")
+    p.add_argument(
+        "--url", required=True,
+        help="base URL of a live server (engine/event/dashboard)",
+    )
+    p.add_argument(
+        "--out", default="trace.json",
+        help="output file (default: trace.json)",
+    )
+    p.add_argument(
+        "--raw", action="store_true",
+        help="fetch raw span trees (/debug/traces.json) instead of "
+             "Perfetto-loadable Chrome trace-event JSON",
+    )
+    p.add_argument(
+        "--access-key", dest="access_key", default="",
+        help="server access key (servers that key-auth every route)",
+    )
+    p.set_defaults(func=cmd_trace)
+
+    p = sub.add_parser("timeline")
+    p.add_argument("--url", required=True,
+                   help="base URL of a live server")
+    p.add_argument(
+        "--since", type=float, default=0.0,
+        help="only events within the last S seconds, measured back "
+             "from the newest event (default: all)",
+    )
+    p.add_argument(
+        "--tenant", default="",
+        help="only events correlated with this tenant",
+    )
+    p.add_argument(
+        "--access-key", dest="access_key", default="",
+        help="server access key",
+    )
+    p.set_defaults(func=cmd_timeline)
+
+    p = sub.add_parser("profile")
+    p.add_argument("--url", required=True,
+                   help="base URL of a live engine server")
+    p.add_argument(
+        "--out", default="profile",
+        help="directory the profile artifact extracts into "
+             "(default: ./profile)",
+    )
+    p.add_argument(
+        "--duration-ms", dest="duration_ms", type=float, default=1000.0,
+        help="capture window in milliseconds (server-clamped; "
+             "default: 1000)",
+    )
+    p.add_argument(
+        "--access-key", dest="access_key", default="",
+        help="server access key",
+    )
+    p.set_defaults(func=cmd_profile)
+
+    sub.add_parser("lint").set_defaults(func=cmd_lint, any_args=True)
+
+    p = sub.add_parser("app")
+    ap = p.add_subparsers(dest="app_command", required=True)
+    new = ap.add_parser("new")
+    new.add_argument("name")
+    new.add_argument("--description")
+    new.add_argument("--access-key", dest="access_key")
+    ap.add_parser("list")
+    for verb in ("show", "delete"):
+        x = ap.add_parser(verb)
+        x.add_argument("name")
+    dd = ap.add_parser("data-delete")
+    dd.add_argument("name")
+    dd.add_argument("--channel")
+    for verb in ("channel-new", "channel-delete"):
+        x = ap.add_parser(verb)
+        x.add_argument("name")
+        x.add_argument("channel")
+    p.set_defaults(func=cmd_app)
+
+    p = sub.add_parser("accesskey")
+    akp = p.add_subparsers(dest="ak_command", required=True)
+    aknew = akp.add_parser("new")
+    aknew.add_argument("app_name")
+    aknew.add_argument("--events", default="")
+    aklist = akp.add_parser("list")
+    aklist.add_argument("app_name", nargs="?")
+    akdel = akp.add_parser("delete")
+    akdel.add_argument("key")
+    p.set_defaults(func=cmd_accesskey)
+
+    def _engine_args(p, mesh=True):
+        p.add_argument("--engine", help="registered name or module:factory")
+        p.add_argument("--variant", help="path to engine.json")
+        p.add_argument("--engine-id", dest="engine_id")
+        p.add_argument("--batch", default="")
+        if mesh:
+            p.add_argument(
+                "--mesh-shape",
+                dest="mesh_shape",
+                help="data,model mesh shape; one device only (more is "
+                     "ROADMAP.md, queue 1, item 9)",
+            )
+            _device_arg(p)
+
+    def _checkpoint_args(p):
+        p.add_argument(
+            "--checkpoint-dir", dest="checkpoint_dir", default="",
+            help="write mid-training factor checkpoints here "
+                 "(atomic npz; enables crash/preemption resume)",
+        )
+        p.add_argument(
+            "--checkpoint-every", dest="checkpoint_every", type=int,
+            default=5,
+            help="iterations between checkpoints (with --checkpoint-dir;"
+                 " default 5)",
+        )
+        p.add_argument(
+            "--resume", action="store_true",
+            help="resume from the latest checkpoint in --checkpoint-dir "
+                 "instead of restarting from scratch",
+        )
+
+    p = sub.add_parser("unregister")
+    p.add_argument("--engine-id", required=True)
+    p.add_argument("--engine-version", default=None)
+    p.set_defaults(func=cmd_unregister)
+
+    p = sub.add_parser("upgrade")
+    p.add_argument("--from", dest="from_source", required=True)
+    p.add_argument("--to", dest="to_source", required=True)
+    p.add_argument("--app", dest="app_name", required=True)
+    p.set_defaults(func=cmd_upgrade)
+
+    p = sub.add_parser("shell")
+    p.add_argument("--mesh-shape", default=None)
+    p.add_argument("--batch", default="shell")
+    _device_arg(p)
+    p.set_defaults(func=cmd_shell)
+
+    p = sub.add_parser("build")
+    _engine_args(p, mesh=False)
+    p.set_defaults(func=cmd_build)
+
+    p = sub.add_parser("train")
+    _engine_args(p)
+    p.add_argument("--skip-sanity-check", action="store_true")
+    p.add_argument("--stop-after-read", action="store_true")
+    p.add_argument("--stop-after-prepare", action="store_true")
+    p.add_argument("--no-save-model", action="store_true")
+    _checkpoint_args(p)
+    _store_url_args(p)
+    p.set_defaults(func=cmd_train)
+
+    p = sub.add_parser("eval")
+    p.add_argument(
+        "evaluation", help="module:attr producing an Evaluation"
+    )
+    p.add_argument("--batch", default="")
+    p.add_argument("--mesh-shape", dest="mesh_shape")
+    _device_arg(p)
+    p.set_defaults(func=cmd_eval)
+
+    p = sub.add_parser("deploy")
+    _engine_args(p)
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument(
+        "--max-batch", dest="max_batch", type=int, default=64,
+        help="micro-batcher bucket ceiling (queries per device dispatch)",
+    )
+    p.add_argument(
+        "--max-wait-ms", dest="max_wait_ms", type=float, default=2.0,
+        help="micro-batcher fill window in milliseconds",
+    )
+    p.add_argument(
+        "--pipeline-depth", dest="pipeline_depth", type=int, default=2,
+        help="batches in flight between device enqueue and collected "
+             "results (2 = double buffering; 0 = serial dispatch)",
+    )
+    p.add_argument(
+        "--quantize", choices=("int8", "bf16"), default=None,
+        help="serve int8 or bf16 factor tables through the fused kernel",
+    )
+    # the JAX console's serving-feature flags, refused (item 5a)
+    p.add_argument("--feedback", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--event-server-app", dest="event_server_app",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--log-url", dest="log_url", default="",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--log-prefix", dest="log_prefix", default="",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--no-adaptive-wait", dest="no_adaptive_wait",
+                   action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--no-admission", dest="no_admission",
+                   action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--canary", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--tenant", action="append", default=[],
+                   metavar="NAME=VARIANT", help=argparse.SUPPRESS)
+    p.add_argument("--pool-budget-bytes", dest="pool_budget_bytes",
+                   type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--workers", type=int, default=1,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--reuse-port", action="store_true",
+                   help=argparse.SUPPRESS)
+    _store_url_args(p)
+    p.set_defaults(func=cmd_deploy)
+
+    p = sub.add_parser("undeploy")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.set_defaults(func=cmd_undeploy)
+
+    p = sub.add_parser("trainer")
+    _engine_args(p)
+    p.add_argument(
+        "--app", dest="app_name", required=True,
+        help="app whose event watermark drives the training triggers",
+    )
+    p.add_argument("--channel", default="")
+    p.add_argument(
+        "--poll-interval", dest="poll_interval", type=float, default=10.0,
+        help="seconds between watermark polls",
+    )
+    p.add_argument(
+        "--min-new-events", dest="min_new_events", type=int, default=1,
+        help="fold-in new users/items once this many events arrived "
+             "since the last published generation (0 = disable fold-in)",
+    )
+    p.add_argument(
+        "--full-every-events", dest="full_every_events", type=int,
+        default=0,
+        help="full retrain once this many events accumulated since the "
+             "last full train (0 = never by count)",
+    )
+    p.add_argument(
+        "--full-every-s", dest="full_every_s", type=float, default=0.0,
+        help="full retrain at least this often in seconds "
+             "(0 = never by time)",
+    )
+    _checkpoint_args(p)
+    p.add_argument(
+        "--router-url", dest="router_url", default="",
+        help="drive this router's POST /admin/swap after every "
+             "published generation",
+    )
+    p.add_argument(
+        "--router-key", dest="router_key", default="",
+        help="X-PIO-Server-Key for the router's /admin/* routes",
+    )
+    p.add_argument(
+        "--promote-timeout", dest="promote_timeout", type=float,
+        default=600.0,
+        help="seconds to wait for one fleet promotion before giving up "
+             "polling",
+    )
+    p.add_argument(
+        "--metrics-port", dest="metrics_port", type=int, default=0,
+        help="serve /metrics + /metrics.json + /healthz on this port "
+             "(0 = no metrics server)",
+    )
+    p.add_argument(
+        "--once", action="store_true",
+        help="run one watermark poll (train if triggered) and exit",
+    )
+    p.add_argument(
+        "--no-supervise", dest="no_supervise", action="store_true",
+        help="run the training loop directly instead of supervising a "
+             "respawned child (the child mode of the supervisor)",
+    )
+    _store_url_args(p)
+    p.set_defaults(func=cmd_trainer)
+
+    p = sub.add_parser("eventserver")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7070)
+    p.add_argument("--stats", action="store_true")
+    p.add_argument("--no-admission", dest="no_admission",
+                   action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--workers", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--reuse-port", action="store_true",
+                   help=argparse.SUPPRESS)
+    _store_url_args(p)
+    p.set_defaults(func=cmd_eventserver)
+
+    p = sub.add_parser("dashboard")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9000)
+    p.set_defaults(func=cmd_dashboard)
+
+    p = sub.add_parser("adminserver")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7071)
+    p.set_defaults(func=cmd_adminserver)
+
+    p = sub.add_parser("export")
+    p.add_argument("--appname", dest="app_name", required=True)
+    p.add_argument("--channel")
+    p.add_argument("--output", required=True)
+    p.add_argument(
+        "--format", choices=["json", "npz"], default="",
+        help="default: by extension (.npz = columnar, else JSON lines)",
+    )
+    p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("import")
+    p.add_argument("--appname", dest="app_name", required=True)
+    p.add_argument("--channel")
+    p.add_argument("--input", required=True)
+    p.add_argument(
+        "--format", choices=["json", "npz"], default="",
+        help="default: by extension (.npz = columnar, else JSON lines)",
+    )
+    p.set_defaults(func=cmd_import)
+
+    p = sub.add_parser("template")
+    tp = p.add_subparsers(dest="template_command", required=True)
+    tp.add_parser("list")
+    tg = tp.add_parser("get")
+    tg.add_argument(
+        "template",
+        help="bundled template name, local path, or git URL "
+             "(https://…, git@…, file://…, anything ending .git)",
+    )
+    tg.add_argument("directory", help="destination project directory")
+    tg.add_argument("--engine-id", dest="engine_id")
+    tg.add_argument(
+        "--ref", default="",
+        help="branch or tag to fetch (git sources only)",
+    )
+    tg.add_argument(
+        "--subdir", default="",
+        help="template subdirectory inside the fetched repository",
+    )
+    p.set_defaults(func=cmd_template)
+
+    p = sub.add_parser("run")
+    p.add_argument("target", help="module:function receiving a ComputeContext")
+    p.add_argument("--batch", default="run")
+    p.add_argument("--mesh-shape", dest="mesh_shape")
+    _device_arg(p)
+    p.set_defaults(func=cmd_run)
+
+    p = sub.add_parser("start-all")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--eventserver-port", type=int, default=0)
+    p.add_argument("--dashboard-port", type=int, default=0)
+    p.add_argument("--adminserver-port", type=int, default=0)
+    p.add_argument("--with-minipg", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--minipg-port", type=int, default=0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--with-storeserver", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--storeserver-port", type=int, default=0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--storeserver-access-key",
+                   dest="storeserver_access_key", default="",
+                   help=argparse.SUPPRESS)
+    p.set_defaults(func=cmd_start_all)
+
+    sub.add_parser("stop-all").set_defaults(func=cmd_stop_all)
+    sub.add_parser("daemons").set_defaults(func=cmd_daemons)
+
+    p = sub.add_parser("daemon")
+    p.add_argument("--name", default="")
+    p.add_argument(
+        "cmd", nargs=argparse.REMAINDER,
+        help="console verb + args to daemonize (after --)",
+    )
+    p.set_defaults(func=cmd_daemon)
+
+    for verb, (what, item) in _REFUSED_VERBS.items():
+        sub.add_parser(verb, help=f"not ported ({_ITEM[item]})").set_defaults(
+            func=lambda _args, what=what, item=item: _refuse(what, item),
+            any_args=True,
+        )
+
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    import logging
+
+    from predictionio_tpu_torch.cli.commands import CommandError
+
+    level = os.environ.get("PIO_LOG_LEVEL", "INFO").upper()
+    if not isinstance(logging.getLevelName(level), int):
+        level = "INFO"
+    logging.basicConfig(
+        level=level,
+        format="[%(levelname)s] [%(name)s] %(message)s",
+    )
+    parser = build_parser()
+    # a refused verb takes whatever its JAX counterpart takes
+    args, extra = parser.parse_known_args(argv)
+    if extra and not getattr(args, "any_args", False):
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    # the argv actually parsed — NOT sys.argv, which belongs to the host
+    # process when main() is called programmatically; the trainer's
+    # child command line is rebuilt from this
+    args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
+    try:
+        return args.func(args)
+    except CommandError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except Exception as e:
+        # the device module (and torch) is imported only once an error
+        # needs classifying, so pure-HTTP verbs never load torch
+        from predictionio_tpu_torch.parallel.mesh import NoDeviceError
+
+        if isinstance(e, NoDeviceError):
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        raise
+
+
+if __name__ == "__main__":
+    sys.exit(main())

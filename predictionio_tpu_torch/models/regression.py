@@ -27,7 +27,10 @@ from predictionio_tpu_torch.core import (
     register_engine,
 )
 from predictionio_tpu_torch.data.store import EventStore
-from predictionio_tpu_torch.parallel.mesh import ComputeContext
+from predictionio_tpu_torch.parallel.mesh import (
+    ComputeContext,
+    load_cuda_linalg,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +135,7 @@ def normal_fit(X: torch.Tensor, y: torch.Tensor, l2: float) -> torch.Tensor:
     d = X.shape[1]
     gram = X.T @ X + l2 * torch.eye(d, dtype=X.dtype, device=X.device)
     rhs = X.T @ y
+    load_cuda_linalg(X.device)
     chol = torch.linalg.cholesky(gram)
     return torch.cholesky_solve(rhs[:, None], chol)[:, 0]
 

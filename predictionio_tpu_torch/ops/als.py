@@ -40,6 +40,7 @@ from predictionio_tpu_torch.obs import get_registry, tracing
 from predictionio_tpu_torch.parallel.mesh import (
     ComputeContext,
     assert_phantom_rows_zero,
+    load_cuda_linalg,
 )
 from predictionio_tpu_torch.utils import native
 from predictionio_tpu_torch.utils.profiling import sync
@@ -709,6 +710,7 @@ def train_als(
             f"got {return_layout!r}"
         )
     ctx = ctx or ComputeContext.create(batch="als")
+    load_cuda_linalg(ctx.device)
     row_multiple = ctx.data_parallelism
 
     user_packed = build_bucketed(

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Any
 
 import numpy as np
@@ -61,6 +62,33 @@ def assert_phantom_rows_zero(
         )
 
 
+_linalg_lock = threading.Lock()
+_linalg_loaded = False
+
+
+def load_cuda_linalg(device: torch.device) -> None:
+    """Make this process's first CUDA linear-algebra call, once, under a
+    lock. torch loads its CUDA linalg library at that first call, and
+    the load is not thread-safe: two threads making it together (the
+    candidates of an evaluation, each training ALS) fail with "lazy
+    wrapper should be called at most once". Callers of
+    ``torch.linalg`` on the card call this first; on the CPU it does
+    nothing."""
+    global _linalg_loaded
+    if _linalg_loaded or device.type != "cuda":
+        return
+    with _linalg_lock:
+        if not _linalg_loaded:
+            torch.linalg.cholesky_ex(torch.ones(1, 1, device=device))
+            _linalg_loaded = True
+
+
+class NoDeviceError(RuntimeError):
+    """CUDA was asked for (or defaulted to) and there is no card. The
+    console prints it as ``error: ...`` and exits 1, as the JAX console
+    does its ``DeviceInitTimeout``."""
+
+
 @dataclasses.dataclass
 class ComputeContext:
     """The card (or, for tests, the CPU) controllers run on."""
@@ -73,16 +101,15 @@ class ComputeContext:
         batch: str = "", device: str | torch.device | None = None
     ) -> "ComputeContext":
         """A context on ``device``; by default the current CUDA device.
-        Without CUDA this raises: the port never drops quietly to the
-        CPU. Pass ``device="cpu"`` to run the plain versions there."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "ComputeContext.create: no CUDA device is available; "
-                    "pass device='cpu' to run on the host"
-                )
-            device = torch.device("cuda", torch.cuda.current_device())
-        device = torch.device(device)
+        Without CUDA, asking for it (or the default) raises
+        :class:`NoDeviceError`: the port never drops quietly to the CPU.
+        Pass ``device="cpu"`` to run the plain versions there."""
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise NoDeviceError(
+                "ComputeContext.create: no CUDA device is available; "
+                "pass device='cpu' (--device cpu) to run on the host"
+            )
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         logger.info("ComputeContext %r on %s", batch, device)

@@ -15,6 +15,13 @@ Counterpart of ``EngineServer`` and ``create_engine_server`` in
   quarantined and the last good one keeps serving. Queries racing the
   swap retry once against the new batchers, which is how a continuous
   trainer's fresh generation reaches a running server
+* ``POST /stop``               → ``{"message": "stopping"}``; the listener
+  shuts down from a thread of its own (a handler cannot wait for the
+  loop it runs in), then the batchers close, so the process exits
+
+``serve`` first posts ``/stop`` to whatever engine server holds the port
+(:func:`undeploy_existing`, the undeploy-before-deploy handshake), then
+binds with retries.
 
 The deployed generation is staged on the card once
 (``load_deployment`` → ``Algorithm.stage_model``), optionally quantized
@@ -35,6 +42,8 @@ import logging
 import os
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any
 
@@ -132,6 +141,7 @@ class EngineServer:
             "POST", "/batch/queries.json", self._batch_queries
         )
         self.router.route("POST", "/reload", self._reload)
+        self.router.route("POST", "/stop", self._stop)
         self._http: HTTPServer | None = None
 
     # -- model loading ----------------------------------------------------
@@ -338,6 +348,13 @@ class EngineServer:
             200, {"message": "reloaded", "engineInstanceId": instance_id}
         )
 
+    def _stop(self, request: Request) -> Response:
+        if self._http is not None:
+            threading.Thread(
+                target=self._http.shutdown, daemon=True
+            ).start()
+        return Response(200, {"message": "stopping"})
+
     def _queries(self, request: Request) -> Response:
         t0 = time.perf_counter()
         query = request.json()
@@ -518,14 +535,23 @@ class EngineServer:
         port: int = 8000,
         bind_retries: int = 3,
     ) -> HTTPServer:
-        """Bind the REST service (with retries) and return it; the
-        caller starts it with ``start()`` or ``serve_forever()``."""
+        """Bind the REST service: the undeploy-before-deploy handshake
+        on a fixed port, then the bind with retries (reference
+        MasterActor StartServer → undeploy() → BindServer with retry 3,
+        CreateServer.scala:280-378). The JAX package's
+        ``undeploy_first=False`` serves only ``--reuse-port`` (ROADMAP.md,
+        queue 1, item 5b). The caller starts it with ``start()`` or
+        ``serve_forever()``; its shutdown (``POST /stop`` included)
+        closes the batchers."""
+        if port:
+            undeploy_existing(host, port)
         last_exc: OSError | None = None
         for attempt in range(max(1, bind_retries)):
             try:
                 self._http = HTTPServer(
                     self.router, host=host, port=port, service="engine"
                 )
+                self._http.add_shutdown_hook(self._close_batchers)
                 return self._http
             except OSError as exc:
                 last_exc = exc
@@ -537,17 +563,58 @@ class EngineServer:
                 time.sleep(1.0)
         raise last_exc  # type: ignore[misc]
 
+    def _close_batchers(self) -> None:
+        with self._lock:
+            batchers = self._batchers
+            self._batchers = []
+        for b in batchers:
+            b.close()
+
     def close(self) -> None:
         """Stop the HTTP listener (when serving) and close the batchers:
         queued queries still complete."""
         if self._http is not None:
             self._http.shutdown()
             self._http = None
-        with self._lock:
-            batchers = self._batchers
-            self._batchers = []
-        for b in batchers:
-            b.close()
+        self._close_batchers()
+
+
+def undeploy_existing(host: str, port: int) -> bool:
+    """POST /stop to whatever occupies ``host:port`` before binding
+    there (reference MasterActor.undeploy, CreateServer.scala:280-305).
+    Returns True if an old server acknowledged the stop. It stops an
+    engine server of either package that serves plain HTTP without key
+    auth; the JAX package's TLS and ``accessKey`` forms of the handshake
+    come with the port's TLS and key auth (ROADMAP.md, queue 1, item
+    5a), and until then the ``undeploy`` verb refuses them."""
+    probe_host = "127.0.0.1" if host in ("0.0.0.0", "") else host
+    url = f"http://{probe_host}:{port}/stop"
+    logger.info(
+        "Undeploying any existing engine instance at %s:%d",
+        probe_host, port,
+    )
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"), timeout=5
+        ) as resp:
+            if resp.status == 200:
+                # give the old server a moment to release the socket
+                time.sleep(1.0)
+                return True
+            logger.error(
+                "Existing server at %s:%d answered HTTP %d to /stop; "
+                "unable to undeploy",
+                probe_host, port, resp.status,
+            )
+    except urllib.error.HTTPError as exc:
+        logger.error(
+            "Another process is using %s:%d (HTTP %d on /stop). "
+            "Unable to undeploy.",
+            probe_host, port, exc.code,
+        )
+    except OSError:
+        logger.debug("Nothing at %s:%d", probe_host, port)
+    return False
 
 
 def create_engine_server(

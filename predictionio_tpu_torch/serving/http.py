@@ -403,6 +403,10 @@ class HTTPServer:
         self._httpd = _Server((host, port), _Handler)
         self._thread: threading.Thread | None = None
         self._shutdown_hooks: list[Callable[[], None]] = []
+        self._state_lock = threading.Lock()
+        self._served = False
+        self._shut = False
+        self._shut_done = threading.Event()
         self.router = router
 
     @property
@@ -410,22 +414,40 @@ class HTTPServer:
         return self._httpd.server_address[1]
 
     def start(self) -> None:
+        self._served = True
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True
         )
         self._thread.start()
 
     def serve_forever(self) -> None:
+        self._served = True
         self._httpd.serve_forever()
 
     def add_shutdown_hook(self, fn: Callable[[], None]) -> None:
         """Run ``fn`` after the server has stopped taking requests."""
         self._shutdown_hooks.append(fn)
 
-    def shutdown(self) -> None:
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-        for fn in self._shutdown_hooks:
-            fn()
+    def shutdown(self, wait_s: float = 60.0) -> None:
+        """Stop serving, close the socket and run the shutdown hooks,
+        once: a later call (``POST /stop`` racing a signal, or the
+        owner's close after either) waits up to ``wait_s`` for the
+        first to finish its hooks, so its caller never exits the
+        process under a batcher still closing. A server never started
+        is only closed."""
+        with self._state_lock:
+            first = not self._shut
+            self._shut = True
+        if not first:
+            self._shut_done.wait(wait_s)
+            return
+        try:
+            if self._served:
+                self._httpd.shutdown()
+            self._httpd.server_close()
+            if self._thread is not None:
+                self._thread.join(timeout=5)
+            for fn in self._shutdown_hooks:
+                fn()
+        finally:
+            self._shut_done.set()

@@ -539,3 +539,145 @@ def test_reload_serves_the_new_generation_through_the_kernel(
         assert fused_topk.LAUNCHES["f32"] >= before + 3
     finally:
         es.close()
+
+
+@pytest.mark.gpu
+def test_console_train_then_deploy_on_card(cuda_device, tmp_path):
+    """``main(["train", ...])`` then ``main(["deploy", ...])`` (in a
+    thread) on the card with no ``--device`` flag: the answers come from
+    the f32 kernel (its launch count rises) and equal the plain top-k
+    over the published factors; ``main(["undeploy", ...])`` ends it."""
+    import json
+    import socket
+    import threading
+    import time
+    import urllib.request
+
+    from predictionio_tpu_torch.cli.main import main
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import App, Storage, set_storage
+
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path / "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    rng = np.random.default_rng(21)
+    app_id = storage.get_meta_data_apps().insert(App(0, "cardapp"))
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": int(r)})
+        for u, i, r in zip(rng.integers(0, 500, 20_000),
+                           rng.integers(0, 2_000, 20_000),
+                           rng.integers(1, 6, 20_000))
+    ], app_id)
+    variant = tmp_path / "engine.json"
+    variant.write_text(json.dumps({
+        "id": "card-rec", "engineFactory": "recommendation",
+        "datasource": {"params": {"app_name": "cardapp"}},
+        "algorithms": [{"name": "als",
+                        "params": {"rank": 32, "num_iterations": 3}}],
+    }))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    set_storage(storage)
+    try:
+        assert main(["train", "--variant", str(variant)]) == 0
+        (inst,) = storage.get_meta_data_engine_instances().get_all()
+        assert inst.status == "COMPLETED"
+        (model,) = [m for _t, m in deserialize_models(load_generation(
+            storage.get_model_data_models(), inst.id))]
+        result = []
+        deploy = threading.Thread(target=lambda: result.append(main([
+            "deploy", "--variant", str(variant), "--ip", "127.0.0.1",
+            "--port", str(port)])))
+        before = fused_topk.LAUNCHES["f32"]
+        deploy.start()
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and deploy.is_alive():
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                time.sleep(0.1)
+        users = torch.as_tensor(model.user_factors, device=cuda_device)
+        items = torch.as_tensor(model.item_factors, device=cuda_device)
+        try:
+            after_warmup = fused_topk.LAUNCHES["f32"]
+            assert after_warmup > before  # the warm-up buckets
+            for u in ("u0", "u7", "u499"):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/queries.json",
+                    data=json.dumps({"user": u, "num": 10}).encode(),
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    ans = json.loads(resp.read())
+                row = model.user_map(u)
+                want_s, _ = fused_topk.fused_top_k_dot_reference(
+                    users[row:row + 1], items, 10)
+                got = [model.item_map(e["item"]) for e in ans["itemScores"]]
+                assert len(got) == 10
+                np.testing.assert_allclose(
+                    (items[got] @ users[row]).cpu().numpy(),
+                    want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+                np.testing.assert_allclose(
+                    [e["score"] for e in ans["itemScores"]],
+                    want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+            assert fused_topk.LAUNCHES["f32"] >= after_warmup + 3
+        finally:
+            assert main(["undeploy", "--port", str(port)]) == 0
+            deploy.join(timeout=60)
+        assert not deploy.is_alive() and result == [0]
+    finally:
+        set_storage(None)
+
+
+@pytest.mark.gpu
+def test_first_linalg_call_from_threads_in_a_fresh_process(cuda_device):
+    """An evaluation trains its candidates in threads; in a fresh process
+    their first CUDA linalg calls come together, and torch's lazy load of
+    its linalg library is not thread-safe. ``train_als`` makes that
+    first call once under a lock, so four concurrent trainings in a new
+    process all finish."""
+    import pathlib
+    import subprocess
+    import sys
+
+    script = (
+        "import threading\n"
+        "import numpy as np\n"
+        "from predictionio_tpu_torch.ops.als import train_als\n"
+        "from predictionio_tpu_torch.parallel.mesh import ComputeContext\n"
+        "ctx = ComputeContext.create(device='cuda')\n"
+        "rng = np.random.default_rng(0)\n"
+        "u = rng.integers(0, 50, 500).astype(np.int32)\n"
+        "i = rng.integers(0, 30, 500).astype(np.int32)\n"
+        "v = np.ones(500, np.float32)\n"
+        "errors = []\n"
+        "def run():\n"
+        "    try:\n"
+        "        train_als(ctx, u, i, v, 50, 30, rank=8, iterations=2)\n"
+        "    except Exception as e:\n"
+        "        errors.append(repr(e))\n"
+        "threads = [threading.Thread(target=run) for _ in range(4)]\n"
+        "for t in threads:\n"
+        "    t.start()\n"
+        "for t in threads:\n"
+        "    t.join()\n"
+        "print(errors)\n"
+    )
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[]", out.stdout

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import predictionio_tpu_torch
+import predictionio_tpu_torch.version
 from predictionio_tpu_torch.ops import fused_topk
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
@@ -74,7 +75,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "ops.naive_bayes", "ops.markov", "ops.vectorizer",
                 "core.persistent_model", "obs", "obs.context",
                 "obs.registry", "obs.tracing", "obs.timeline",
-                "obs.device", "training", "training.trainer", "version"):
+                "obs.device", "training", "training.trainer", "version",
+                "cli", "cli.main", "cli.commands", "cli.daemon",
+                "data.eventfile", "serving.config", "serving.workers",
+                "serving.dashboard", "serving.admin"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -83,6 +87,40 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"imported {len(mods)}" in out.stdout
+
+
+_CONSOLE = _BLOCKER.split("import importlib\nfor mod")[0] + r"""
+import runpy
+sys.argv = ["pio-tpu-torch"] + sys.argv[1:]
+try:
+    runpy.run_module("predictionio_tpu_torch.cli.main", run_name="__main__")
+finally:
+    assert not any(
+        m.split(".")[0] in ("jax", "predictionio_tpu") for m in sys.modules
+    )
+"""
+
+
+@pytest.mark.parametrize("argv, rc, out", [
+    (["version"], 0, predictionio_tpu_torch.version.__version__ + "\n"),
+    (["app", "list"], 0, ""),
+    (["lint"], 1, ""),
+])
+def test_console_runs_with_jax_and_reference_blocked(tmp_path, argv, rc,
+                                                     out):
+    """``python -m predictionio_tpu_torch.cli.main`` in a process where
+    neither ``jax`` nor ``predictionio_tpu`` can be imported."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PIO_FS_BASEDIR=str(tmp_path))
+    for k in list(env):
+        if k.startswith("PIO_STORAGE_"):
+            del env[k]
+    got = subprocess.run(
+        [sys.executable, "-c", _CONSOLE, *argv],
+        capture_output=True, text=True, timeout=120, env=env, cwd=tmp_path,
+    )
+    assert got.returncode == rc, got.stderr[-3000:]
+    assert got.stdout == out
 
 
 def test_no_source_names_jax_or_the_reference_package():
