@@ -54,7 +54,9 @@ and PyTorch built for CUDA. In order:
    generated access key and a second key limited to ``view``, the port's
    ``create_event_server``, and the same 200,000 events as 4,000
    ``POST /batch/events.json`` requests of 50 from 8 keep-alive client
-   threads into the native event log (every event 201), the probes (no
+   threads into the native event log (every event 201; a request the
+   event server's admission sheds is sent again after its
+   ``Retry-After``, and the retries are counted), the probes (no
    key 401, limited key 403, 51 events 400, a latest-5 find, a delete
    then 404), ``EventStore.interactions`` through the log's native scan
    (its triples equal to the generator's), then ``train_and_serve``;
@@ -142,9 +144,37 @@ and PyTorch built for CUDA. In order:
    and ``daemons``, ``trainer --once`` (a full retrain), 753 events for
    50 new users and 10 new items over the daemon event server,
    ``trainer --once`` again (a fold-in), the dashboard listing the
-   evaluation, and ``stop-all``;
-14. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-13) and, last, the device line.
+   evaluation, ``deploy --canary`` taking SIGTERM with 8 queries in
+   flight (``PIO_CHAOS`` holds each one 1 s: every one ends 200, the
+   child drains and exits 0), and ``stop-all``;
+14. runs one engine server under load and across generations at phase
+   4's width (a new generation of random factors from the seed),
+   through ``create_engine_server`` with admission, the query cache and
+   the canary on, ``max_batch`` 64, pipeline depth 2, over HTTP: (a)
+   closed-loop clients (64, 128, 256, 384 threads, 4 s a stage, until
+   p50 passes twice its unloaded value beyond the admission floor) post
+   single queries, 20 % ``critical``, 50 % ``default``, 30 %
+   ``sheddable`` (half of them with ``X-PIO-Deadline: 50``); per class
+   the 200/503/429/504 counts and the p50/p99 of the 200s, the goodput
+   and ``pio_admission_limit``; checks that every 200 equals the plain
+   top-k, the shed shares are ordered by class, every shed carries
+   ``X-PIO-Shed`` and ``Retry-After``, the kernel's launches equal
+   ``pio_batches_total``'s increase, and every accepted slot was
+   launched, cut as expired or cancelled before its launch, or evicted;
+   (b) 4,096 queries from 16 threads, users Zipf(1.1): the hit,
+   coalesced and miss shares and p50s, one launched slot per miss, every
+   answer equal to the plain top-k, and an immediate ``/reload`` making
+   the hottest query miss; (c) ``/reload {"canary": true}`` of a
+   generation 2 (item factors × (1 + 1e-3·N(0,1))) answers 202 and
+   reaches ``stable`` under traffic (the seconds, the shadow scores, the
+   mean divergence; answers then equal the plain top-k on generation
+   2), and a generation 3 with every other item row NaN ends
+   ``rejected`` with generation 2 still answering; (d) ``begin_drain``
+   with 16 queries held in the server: every one ends 200, a new one
+   gets 503, ``pio_server_draining`` reads 1, and the listener ends
+   within ``PIO_DRAIN_GRACE_S``; each number on a line beside the card;
+15. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-14) and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -159,6 +189,7 @@ import datetime as dt
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1149,17 +1180,34 @@ def ingest_phase(device, tmpdir: str, backend: str, n_events: int,
                                  stats=True)
     server.start()
     try:
+        sheds = []
+
         def client(part: int):
+            """A client that honours the server's backpressure: a shed
+            request (``X-PIO-Shed``: nothing ran) is sent again after its
+            ``Retry-After``; its latency includes the wait."""
             conn = http.client.HTTPConnection("127.0.0.1", server.port,
                                               timeout=120)
             out = []
             try:
                 for b in range(part, len(bodies), INGEST_THREADS):
                     t0 = time.perf_counter()
-                    status, res = _http_call(
-                        conn, "POST", f"/batch/events.json?accessKey={key}",
-                        bodies[b])
-                    out.append((b, time.perf_counter() - t0, status, res))
+                    while True:
+                        conn.request(
+                            "POST", f"/batch/events.json?accessKey={key}",
+                            body=bodies[b],
+                            headers={"Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        res = json.loads(resp.read() or b"null")
+                        if resp.status in (429, 503) and resp.getheader(
+                                "X-PIO-Shed"):
+                            wait = float(resp.getheader("Retry-After") or 1)
+                            sheds.append((resp.status, wait))
+                            time.sleep(wait)
+                            continue
+                        break
+                    out.append((b, time.perf_counter() - t0, resp.status,
+                                res))
             finally:
                 conn.close()
             return out
@@ -1241,6 +1289,11 @@ def ingest_phase(device, tmpdir: str, backend: str, n_events: int,
         "events_per_s": n_events / ingest_s,
         "batch_p50_ms": float(np.percentile(lat_ms, 50)),
         "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+        "shed_retries": len(sheds),
+        # of all requests sent, the share admission shed; and the client
+        # seconds spent asleep in Retry-After, summed over the clients
+        "shed_share": len(sheds) / (len(bodies) + len(sheds)),
+        "retry_after_s": sum(w for _st, w in sheds),
         "interactions_read_s": read_s,
         "probes": probes,
     }
@@ -3084,6 +3137,8 @@ CLI_APP = "MyRecApp"
 #: the unchanged example variant: rank 32, 10 iterations, implicit
 CLI_VARIANT = os.path.join(ROOT, "examples", "recommendation", "engine.json")
 CLI_QUERIES = 64
+#: queries in flight when the ``deploy --canary`` child gets SIGTERM
+CLI_DRAIN = 8
 #: every console child's time limit, seconds
 CLI_TIMEOUT_S = 600
 #: power-of-two warm-up buckets of a deploy at --max-batch 64
@@ -3135,13 +3190,14 @@ class _Console:
     def path(self, name: str, ext: str) -> str:
         return os.path.join(self.workdir, f"{name}.{ext}")
 
-    def start(self, name: str, argv: list, counted: bool = False):
+    def start(self, name: str, argv: list, counted: bool = False,
+              env: dict | None = None):
         cmd = (CLI_CHILD + [self.path(name, "json")] if counted
                else CONSOLE) + list(argv)
         with open(self.path(name, "out"), "w") as out, \
                 open(self.path(name, "err"), "w") as err:
-            proc = subprocess.Popen(cmd, env=self.env, stdout=out,
-                                    stderr=err, cwd=ROOT)
+            proc = subprocess.Popen(cmd, env={**self.env, **(env or {})},
+                                    stdout=out, stderr=err, cwd=ROOT)
         self.procs.append(proc)
         return proc
 
@@ -3369,10 +3425,37 @@ def cli_phase(device, workdir: str, seed: int) -> dict:
         console.wait("redeploy", second, timeout=120)
         console.steps["redeploy_exit_after_undeploy"] = (
             time.perf_counter() - t0)
-        for name, served in (("deploy", CLI_QUERIES + 1), ("redeploy", 1)):
+        # 5b. deploy --canary; SIGTERM with queries in flight (PIO_CHAOS
+        # holds each one): the child drains them, every one 200, and
+        # exits 0
+        canary_proc = console.start(
+            "deploy_canary", deploy_argv + ["--canary"], counted=True,
+            env={"PIO_CHAOS": "latency:p=1,ms=1000",
+                 "PIO_DRAIN_GRACE_S": "30"})
+        console.listening("deploy_canary", canary_proc, port)
+        with concurrent.futures.ThreadPoolExecutor(CLI_DRAIN) as pool:
+            futs = [pool.submit(_post, base_url, "/queries.json", q)
+                    for q in queries[:CLI_DRAIN]]
+            time.sleep(0.4)
+            t0 = time.perf_counter()
+            canary_proc.send_signal(signal.SIGTERM)
+            drained = [(q, f.result()[0])
+                       for q, f in zip(queries[:CLI_DRAIN], futs)]
+        console.wait("deploy_canary", canary_proc, timeout=120)
+        console.steps["canary_sigterm_drain"] = time.perf_counter() - t0
+        log(f"console deploy --canary, SIGTERM with {CLI_DRAIN} queries in "
+            f"flight, drained and exited 0: "
+            f"{console.steps['canary_sigterm_drain']:.2f} s")
+        n_checked, _t, _e = check_answers(drained, model, device)
+        assert n_checked == CLI_DRAIN, n_checked
+        for name, served in (("deploy", CLI_QUERIES + 1), ("redeploy", 1),
+                             ("deploy_canary", CLI_DRAIN)):
             c = counted(name)
             if device.type == "cuda":
-                assert c["launches"]["f32"] >= CLI_WARMUP_BUCKETS + served, c
+                assert c["launches"]["f32"] >= CLI_WARMUP_BUCKETS + 1, c
+                if name != "deploy_canary":
+                    assert c["launches"]["f32"] >= (
+                        CLI_WARMUP_BUCKETS + served), c
             out[f"{name}_f32_launches"] = c["launches"]["f32"]
 
         # 6. eval chip_smoke:cli_evaluation: EVALCOMPLETED, the one-liner
@@ -3457,6 +3540,656 @@ def cli_phase(device, workdir: str, seed: int) -> dict:
     return out
 
 
+# -- phase 14: one server under load and across generations ------------------
+
+#: closed-loop client threads per overload stage, and each stage's
+#: seconds; a stage past the first runs only while p50 has not reached
+#: twice its unloaded value, and at least until the in-flight count can
+#: pass the admission floor (max_batch × (pipeline depth + 1) = 192),
+#: below which nothing is shed by design
+SERVER_STAGES = (64, 128, 256, 384)
+SERVER_STAGE_S = 4.0
+SERVER_FLOOR = 64 * 3
+SERVER_MIX = (("critical", 0.2), ("default", 0.5), ("sheddable", 0.3))
+#: the budget half the sheddable requests carry (milliseconds)
+SERVER_DEADLINE_MS = "50"
+SERVER_UNLOADED = 64
+CACHE_REQUESTS, CACHE_THREADS, CACHE_ZIPF = 4096, 16, 1.1
+DRAIN_INFLIGHT = 16
+DRAIN_GRACE_S = 10.0
+#: the canary gate and watch of phase 14 (PIO_CANARY_* names them)
+SERVER_CANARY = dict(shadow_sample=0.5, min_shadow=20,
+                     watch_min_requests=20, watch_s=2.0)
+CANARY_NOISE = 1e-3
+
+
+class _Client:
+    """One keep-alive HTTP connection; ``post`` returns (status, the
+    headers phase 14 reads, body bytes, seconds). A connection the
+    server reset or dropped raises: the request is never sent again."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=300)
+
+    def post(self, path: str, body, headers=None):
+        t0 = time.perf_counter()
+        self.conn.request("POST", path, json.dumps(body).encode(), {
+            "Content-Type": "application/json", **(headers or {})})
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        seen = {h: resp.getheader(h) for h in (
+            "X-PIO-Shed", "Retry-After", "X-PIO-Cache")}
+        return resp.status, seen, raw, time.perf_counter() - t0
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _closed_loop(port: int, n_threads: int, seconds: float, seed: int,
+                 make_request, n_requests: int | None = None) -> list:
+    """``n_threads`` clients, each posting its next request as soon as
+    the last is answered, for ``seconds`` (or until ``n_requests`` are
+    answered in all). Returns (tag, body, status, headers, raw, seconds)
+    tuples; raises what a client raised, and fails unless every one of
+    ``n_requests`` was answered."""
+    import threading
+
+    stop = threading.Event()
+    results, errors, lock = [], [], threading.Lock()
+    budget = [n_requests if n_requests is not None else -1]
+
+    def worker(i: int) -> None:
+        rng = np.random.default_rng([seed, i])
+        local = []
+        try:
+            client = _Client(port)
+            try:
+                while not stop.is_set():
+                    if n_requests is not None:
+                        with lock:
+                            if budget[0] <= 0:
+                                break
+                            budget[0] -= 1
+                    body, headers, tag = make_request(rng)
+                    status, seen, raw, s = client.post(
+                        "/queries.json", body, headers)
+                    local.append((tag, body, status, seen, raw, s))
+            finally:
+                client.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised after join
+            with lock:
+                errors.append(e)
+        finally:
+            with lock:
+                results.extend(local)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    if n_requests is None:
+        time.sleep(seconds)
+        stop.set()
+    for t in threads:
+        t.join(600)
+        assert not t.is_alive(), "a client thread never ended"
+    if errors:
+        raise RuntimeError(
+            f"{len(errors)} of {n_threads} clients failed") from errors[0]
+    assert n_requests is None or len(results) == n_requests, (
+        len(results), n_requests)
+    return results
+
+
+def _family(registry, name: str, field: str = "value", **labels) -> float:
+    """Sum of one registry family's samples whose labels include
+    ``labels`` (``field`` "sum" or "count" for a histogram)."""
+    fam = registry.to_dict().get(name)
+    if fam is None:
+        return 0.0
+    return float(sum(
+        s.get(field) or 0.0 for s in fam["samples"]
+        if all(s["labels"].get(k) == v for k, v in labels.items())))
+
+
+def check_top10(results, user_f, item_f) -> dict:
+    """Hold every 200 answer of ``results`` (num 10) against the plain
+    top-k on ``user_f`` × ``item_f`` on the card, 512 rows a call."""
+    from predictionio_tpu_torch.ops import fused_topk
+
+    rows = [(int(body["user"][1:]), json.loads(raw))
+            for _tag, body, status, _h, raw, _s in results if status == 200]
+    out = {"answers_checked": 0, "tied_mismatches": 0, "max_abs_err": 0.0}
+    for lo in range(0, len(rows), 512):
+        chunk = rows[lo:lo + 512]
+        for _u, ans in chunk:
+            assert len(ans["itemScores"]) == 10, ans
+        uids = torch.tensor([u for u, _ in chunk], device=item_f.device)
+        got_i = torch.tensor(
+            [[int(e["item"][1:]) for e in ans["itemScores"]]
+             for _u, ans in chunk], dtype=torch.int32, device=item_f.device)
+        got_s = torch.tensor(
+            [[e["score"] for e in ans["itemScores"]] for _u, ans in chunk],
+            device=item_f.device)
+        q = user_f[uids]
+        want = fused_topk.fused_top_k_dot_reference(q, item_f, 10)
+        res = compare(q, item_f, None, None, 10, (got_s, got_i), want)
+        out["answers_checked"] += len(chunk)
+        out["tied_mismatches"] += res["tied_mismatches"]
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+    return out
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(values, q)) * 1e3 if len(values) else 0.0
+
+
+def _publish_next(storage, model) -> str:
+    """One more COMPLETED generation of ``model`` in ``storage``."""
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    now = dt.datetime.now(dt.timezone.utc)
+    iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status="COMPLETED", start_time=now, end_time=now,
+        engine_id="chip-smoke", engine_version="1",
+        engine_variant="default", engine_factory="recommendation",
+    ))
+    publish_generation(storage.get_model_data_models(), iid,
+                       serialize_models(iid, [ALSAlgorithm()], [model]))
+    return iid
+
+
+def _count_submits():
+    """Wrap ``MicroBatcher.submit`` to count what it accepted and what it
+    refused (over the bound, or a spent budget); returns (counts,
+    restore)."""
+    from predictionio_tpu_torch.serving import batching, resilience
+
+    counts = {"ok": 0, "refused": 0, "expired": 0}
+    real = batching.MicroBatcher.submit
+    import threading
+
+    lock = threading.Lock()
+
+    def submit(self, item):
+        try:
+            fut = real(self, item)
+        except batching.BatcherOverloaded:
+            with lock:
+                counts["refused"] += 1
+            raise
+        except resilience.DeadlineExceeded:
+            with lock:
+                counts["expired"] += 1
+            raise
+        with lock:
+            counts["ok"] += 1
+        return fut
+
+    batching.MicroBatcher.submit = submit
+
+    def restore():
+        batching.MicroBatcher.submit = real
+
+    return counts, restore
+
+
+def _slot_totals(registry) -> dict:
+    return {
+        "launched_slots": _family(registry, "pio_batch_occupancy", "sum"),
+        "batches": _family(registry, "pio_batches_total"),
+        "expired": _family(registry, "pio_batch_deadline_expired_total"),
+        "cancelled": _family(registry, "pio_batch_cancelled_total"),
+        "shed": _family(registry, "pio_shed_total"),
+    }
+
+
+def _canary_state(base: str) -> dict:
+    with urllib.request.urlopen(base + "/canary", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _drive_canary(port: int, base: str, n_users: int, seed: int,
+                  until: tuple, limit_s: float = 120.0) -> tuple:
+    """Sequential no-cache queries (which the canary observes) from 8
+    threads until ``GET /canary`` reads a state in ``until``; returns
+    (final state dict, seconds, the answers)."""
+    import threading
+
+    stop = threading.Event()
+    answers, errors, lock = [], [], threading.Lock()
+
+    def worker(i: int) -> None:
+        rng = np.random.default_rng([seed, 99, i])
+        try:
+            client = _Client(port)
+            try:
+                while not stop.is_set():
+                    body = {"user": f"u{int(rng.integers(0, n_users))}",
+                            "num": 10}
+                    status, seen, raw, s = client.post(
+                        "/queries.json", body, {
+                            "Cache-Control": "no-cache",
+                            "X-PIO-Criticality": "critical"})
+                    with lock:
+                        answers.append(
+                            ("canary", body, status, seen, raw, s))
+            finally:
+                client.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised after join
+            with lock:
+                errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    try:
+        while not errors:
+            state = _canary_state(base)
+            if state["state"] in until:
+                break
+            assert time.perf_counter() - t0 < limit_s, state
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+            assert not t.is_alive(), "a canary client never ended"
+    if errors:
+        raise RuntimeError(
+            f"{len(errors)} of {len(threads)} canary clients failed"
+        ) from errors[0]
+    return state, time.perf_counter() - t0, answers
+
+
+def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
+                 n_items: int = N_ITEMS) -> dict:
+    """Phase 14: one engine server under load and across generations."""
+    import threading
+
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.canary import CanaryConfig
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    out: dict = {"launches": {form: 0 for form in FORMS}}
+    model = make_model(n_users, n_items, RANK, seed)
+    storage, _bytes = publish(model, workdir)
+    user_f = torch.as_tensor(model.user_factors).to(device)
+    item_f = torch.as_tensor(model.item_factors).to(device)
+    engine = recommendation_engine()
+    params = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    old_grace = os.environ.get("PIO_DRAIN_GRACE_S")
+    os.environ["PIO_DRAIN_GRACE_S"] = str(DRAIN_GRACE_S)
+    counts, restore = _count_submits()
+    fused_topk.reset_launch_counts()
+    t0 = time.perf_counter()
+    es, http = create_engine_server(
+        engine, params, "chip-smoke", host="127.0.0.1", port=0,
+        storage=storage, ctx=ComputeContext.create(device=device),
+        max_batch=64, max_wait_ms=2.0, pipeline_depth=2, admission=True,
+        cache=True, canary=CanaryConfig(**SERVER_CANARY),
+    )
+    http.start()
+    out["startup_s"] = time.perf_counter() - t0
+    registry = es._registry
+    port = http.port
+    base = f"http://127.0.0.1:{port}"
+    classes = [c for c, _ in SERVER_MIX]
+    probs = [p for _, p in SERVER_MIX]
+    try:
+        # (a) overload: unloaded p50, then closed-loop stages
+        unloaded = _closed_loop(
+            port, 1, 0.0, seed, lambda rng: (
+                {"user": f"u{int(rng.integers(0, n_users))}", "num": 10},
+                {"Cache-Control": "no-cache"}, "unloaded"),
+            n_requests=SERVER_UNLOADED)
+        p50_unloaded = _pct([r[5] for r in unloaded], 50)
+        out["unloaded_p50_ms"] = p50_unloaded
+
+        def overload_request(rng):
+            cls = classes[int(rng.choice(len(classes), p=probs))]
+            headers = {"X-PIO-Criticality": cls}
+            if cls == "sheddable" and rng.random() < 0.5:
+                headers["X-PIO-Deadline"] = SERVER_DEADLINE_MS
+            return ({"user": f"u{int(rng.integers(0, n_users))}",
+                     "num": 10}, headers, cls)
+
+        before = _slot_totals(registry)
+        counts.update(ok=0, refused=0, expired=0)
+        launches0 = dict(fused_topk.LAUNCHES)
+        wasted0 = _family(registry, "pio_shed_wasted_dispatch_total")
+        stages, results = [], []
+        for i, n_threads in enumerate(SERVER_STAGES):
+            got = _closed_loop(port, n_threads, SERVER_STAGE_S,
+                               seed + 1000 * i, overload_request)
+            ok = [r[5] for r in got if r[2] == 200]
+            stage = {"threads": n_threads, "requests": len(got),
+                     "p50_ms": _pct(ok, 50), "p99_ms": _pct(ok, 99),
+                     "goodput_rps": len(ok) / SERVER_STAGE_S}
+            stages.append(stage)
+            results += got
+            log(f"server overload stage: {json.dumps(stage)}")
+            if stage["p50_ms"] > 2 * p50_unloaded and (
+                    n_threads > SERVER_FLOOR):
+                break
+        # the last waiters are answered; let the batches they left in
+        # the queue or on the card settle before counting
+        deadline = time.perf_counter() + 30
+        while True:
+            after = _slot_totals(registry)
+            launched = fused_topk.LAUNCHES["f32"] - launches0["f32"]
+            delta = {k: after[k] - before[k] for k in after}
+            victims = delta["shed"] - counts["refused"]
+            settled = counts["ok"] + counts["expired"] == (
+                delta["launched_slots"] + delta["expired"]
+                + delta["cancelled"] + victims)
+            if settled or time.perf_counter() > deadline:
+                break
+            time.sleep(0.05)
+        by_class = {}
+        for cls in classes:
+            mine = [r for r in results if r[0] == cls]
+            ok = [r[5] for r in mine if r[2] == 200]
+            row = {str(s): sum(1 for r in mine if r[2] == s)
+                   for s in (200, 503, 429, 504)}
+            row["other"] = len(mine) - sum(row.values())
+            row["requests"] = len(mine)
+            row["shed_share"] = (row["503"] + row["429"]) / max(1, len(mine))
+            row["p50_ms"] = _pct(ok, 50)
+            row["p99_ms"] = _pct(ok, 99)
+            by_class[cls] = row
+        out["overload"] = {
+            "stages": stages, "by_class": by_class,
+            "goodput_rps": stages[-1]["goodput_rps"],
+            "admission_limit": _family(registry, "pio_admission_limit"),
+            "batches": delta["batches"], "launches": launched,
+            "launched_slots": delta["launched_slots"],
+            "expired_slots": delta["expired"],
+            "cancelled_slots": delta["cancelled"],
+            "submits": dict(counts),
+            "wasted_dispatch": _family(
+                registry, "pio_shed_wasted_dispatch_total") - wasted0,
+        }
+        assert all(r[2] in (200, 503, 429, 504) for r in results), {
+            r[2] for r in results}
+        for r in results:
+            if r[2] in (503, 429):
+                assert r[3]["X-PIO-Shed"] and r[3]["Retry-After"], r[3]
+        shares = [by_class[c]["shed_share"] for c in
+                  ("critical", "default", "sheddable")]
+        assert shares[0] <= shares[1] <= shares[2], shares
+        if device.type == "cuda":
+            assert launched == delta["batches"], (launched, delta)
+        # every accepted slot was launched, cut as expired or cancelled
+        # before its launch, or evicted: an expired slot never launched
+        assert settled, (counts, delta)
+        out["overload"]["check"] = check_top10(results, user_f, item_f)
+
+        # (b) the cache under skew: Zipf(1.1) users, 16 threads
+        ranks = np.arange(1, n_users + 1, dtype=np.float64)
+        zipf_p = ranks ** -CACHE_ZIPF
+        zipf_p /= zipf_p.sum()
+        perm = np.random.default_rng(seed + 3).permutation(n_users)
+
+        def cache_request(rng):
+            u = int(perm[int(rng.choice(n_users, p=zipf_p))])
+            return {"user": f"u{u}", "num": 10}, {
+                "X-PIO-Criticality": "critical"}, "cache"
+
+        launches0 = fused_topk.LAUNCHES["f32"]
+        before = _slot_totals(registry)
+        cached = _closed_loop(port, CACHE_THREADS, 0.0, seed + 5,
+                              cache_request, n_requests=CACHE_REQUESTS)
+        by_state = {}
+        for state in ("hit", "coalesced", "miss"):
+            mine = [r[5] for r in cached if r[3]["X-PIO-Cache"] == state]
+            by_state[state] = {"share": len(mine) / CACHE_REQUESTS,
+                               "p50_ms": _pct(mine, 50)}
+        assert all(r[2] == 200 for r in cached), {r[2] for r in cached}
+        misses = sum(1 for r in cached if r[3]["X-PIO-Cache"] == "miss")
+        cache_out = {
+            "requests": len(cached), "by_state": by_state, "misses": misses,
+            "launches": fused_topk.LAUNCHES["f32"] - launches0,
+            "launched_slots": _slot_totals(registry)["launched_slots"]
+            - before["launched_slots"],
+            "check": check_top10(cached, user_f, item_f),
+        }
+        # a computed answer is one slot; hits and waiters take none
+        assert cache_out["launched_slots"] == misses, cache_out
+        assert by_state["hit"]["share"] > 0, by_state
+        # /reload (immediate) bumps the token: a hot query misses next
+        hot = max(((r[1]["user"], r[4]) for r in cached),
+                  key=lambda ur: sum(1 for r in cached
+                                     if r[1]["user"] == ur[0]))
+        hot_body = {"user": hot[0], "num": 10}
+        client = _Client(port)
+        assert client.post("/queries.json", hot_body)[1][
+            "X-PIO-Cache"] == "hit"
+        iid_same = _publish_next(storage, model)
+        status, _seen, raw, _s = client.post("/reload", {"canary": False})
+        assert status == 200 and json.loads(raw)["engineInstanceId"] == (
+            iid_same), raw
+        status, seen, raw, _s = client.post("/queries.json", hot_body)
+        assert status == 200 and seen["X-PIO-Cache"] == "miss", seen
+        assert [e["item"] for e in json.loads(raw)["itemScores"]] == [
+            e["item"] for e in json.loads(hot[1])["itemScores"]]
+        check_top10([("hot", hot_body, status, seen, raw, 0.0)], user_f,
+                    item_f)
+        cache_out["after_reload"] = seen["X-PIO-Cache"]
+        out["cache"] = cache_out
+
+        # (c) canary: generation 2, then a NaN generation 3
+        rng = np.random.default_rng(seed + 11)
+        items2 = model.item_factors * (1 + CANARY_NOISE * rng.standard_normal(
+            model.item_factors.shape)).astype(np.float32)
+        model2 = dataclasses.replace(model, item_factors=items2)
+        iid2 = _publish_next(storage, model2)
+        shadow_calls = [0]
+        real_shadow = es._shadow_score
+
+        def shadow_score(supplemented):
+            out_ = real_shadow(supplemented)
+            shadow_calls[0] += 1
+            return out_
+
+        es._shadow_score = shadow_score
+        launches0 = fused_topk.LAUNCHES["f32"]
+        batches0 = _family(registry, "pio_batches_total")
+        t0 = time.perf_counter()
+        status, _seen, raw, _s = client.post("/reload", {"canary": True})
+        assert status == 202, raw
+        stage_s = time.perf_counter() - t0
+        state, drive_s, canary_answers = _drive_canary(
+            port, base, n_users, seed, ("watching", "stable", "rejected",
+                                        "rolled_back"))
+        promote_s = stage_s + drive_s
+        assert state["state"] in ("watching", "stable"), state
+        mean_div = state["meanDivergence"]
+        state, stable_s, more = _drive_canary(
+            port, base, n_users, seed + 1, ("stable", "rolled_back"))
+        assert state["state"] == "stable", state
+        assert state["servingInstanceId"] == iid2, state
+        item2_f = torch.as_tensor(items2).to(device)
+        after_promo = _closed_loop(
+            port, 8, 0.0, seed + 13, lambda rng: (
+                {"user": f"u{int(rng.integers(0, n_users))}", "num": 10},
+                {"Cache-Control": "no-cache"}, "gen2"), n_requests=256)
+        assert all(r[2] == 200 for r in after_promo), {
+            r[2] for r in after_promo}
+        canary_out = {
+            "promote_s": promote_s, "stable_s": promote_s + stable_s,
+            "shadow_scores": shadow_calls[0],
+            "mean_divergence": mean_div,
+            "served_during": len(canary_answers) + len(more),
+            "launches": fused_topk.LAUNCHES["f32"] - launches0,
+            "serving_batches": _family(registry, "pio_batches_total")
+            - batches0,
+            "check_gen2": check_top10(after_promo, user_f, item2_f),
+        }
+        # generation 3: every other item row NaN
+        items3 = items2.copy()
+        items3[::2] = np.nan
+        iid3 = _publish_next(storage, dataclasses.replace(
+            model, item_factors=items3))
+        shadow_calls[0] = 0
+        t0 = time.perf_counter()
+        status, _seen, raw, _s = client.post("/reload", {"canary": True})
+        assert status == 202 and json.loads(raw)["engineInstanceId"] == (
+            iid3), raw
+        state, reject_s, _a = _drive_canary(
+            port, base, n_users, seed + 2, ("rejected", "watching",
+                                            "stable", "rolled_back"))
+        assert state["state"] == "rejected", state
+        assert state["servingInstanceId"] == iid2, state
+        still = _closed_loop(
+            port, 8, 0.0, seed + 17, lambda rng: (
+                {"user": f"u{int(rng.integers(0, n_users))}", "num": 10},
+                {"Cache-Control": "no-cache"}, "gen2"), n_requests=128)
+        assert all(r[2] == 200 for r in still), {r[2] for r in still}
+        canary_out.update(
+            nan_reject_s=time.perf_counter() - t0,
+            nan_reason=state["reason"],
+            nan_shadow_scores=shadow_calls[0],
+            nan_mean_divergence=state["meanDivergence"],
+            check_after_reject=check_top10(still, user_f, item2_f))
+        out["canary"] = canary_out
+        client.close()
+
+        # (d) drain: 16 requests held in the server, then begin_drain
+        gate = threading.Event()
+        batchers = list(es._batchers)
+        real_fns = [b._dispatch_fn for b in batchers]
+
+        def holding(fn):
+            def dispatch(items):
+                assert gate.wait(120), "the drain gate never opened"
+                return fn(items)
+            return dispatch
+
+        for b, fn in zip(batchers, real_fns):
+            b._dispatch_fn = holding(fn)
+
+        def held(i):
+            client = _Client(port)
+            try:
+                got = client.post("/queries.json",
+                                  {"user": f"u{i}", "num": 10},
+                                  {"Cache-Control": "no-cache"})
+            finally:
+                client.close()
+            return (*got, time.perf_counter())
+
+        ended = []
+
+        def drain_listener():
+            http.drain()
+            ended.append(time.perf_counter())
+
+        with concurrent.futures.ThreadPoolExecutor(DRAIN_INFLIGHT) as pool:
+            inflight = [pool.submit(held, i) for i in range(DRAIN_INFLIGHT)]
+            deadline = time.perf_counter() + 60
+            while http.inflight < DRAIN_INFLIGHT:
+                assert time.perf_counter() < deadline, http.inflight
+                time.sleep(0.005)
+            t_drain = time.perf_counter()
+            http.begin_drain()
+            late = _Client(port)
+            refused = late.post("/queries.json", {"user": "u1", "num": 10})
+            late.close()
+            draining = _family(registry, "pio_server_draining")
+            gate.set()
+            drained = threading.Thread(target=drain_listener, daemon=True)
+            drained.start()
+            done = [f.result(120) for f in inflight]
+            drained.join(DRAIN_GRACE_S + 30)
+        assert not drained.is_alive() and ended, (
+            "the listener outlived the drain")
+        # the listener's end waits out socketserver's 0.5 s poll of
+        # serve_forever; the last in-flight answer does not
+        answered_s = max(r[4] for r in done) - t_drain
+        drain_s = ended[0] - t_drain
+        assert [r[0] for r in done] == [200] * DRAIN_INFLIGHT, [
+            r[0] for r in done]
+        assert refused[0] == 503 and refused[1]["Retry-After"], refused
+        assert draining == 1.0, draining
+        assert drain_s < DRAIN_GRACE_S, drain_s
+        drain_rows = [("drain", {"user": f"u{i}", "num": 10}, r[0], r[1],
+                       r[2], r[3]) for i, r in enumerate(done)]
+        out["drain"] = {
+            "inflight": DRAIN_INFLIGHT, "answered_200": len(done),
+            "refused_status": refused[0], "draining_gauge": draining,
+            "answered_s": answered_s, "drain_s": drain_s,
+            "check": check_top10(drain_rows, user_f, item2_f),
+        }
+    finally:
+        restore()
+        if old_grace is None:
+            os.environ.pop("PIO_DRAIN_GRACE_S", None)
+        else:
+            os.environ["PIO_DRAIN_GRACE_S"] = old_grace
+        es.close()
+    out["launches"] = dict(fused_topk.LAUNCHES)
+    return out
+
+
+def log_server(s: dict, smi: str) -> None:
+    """Each phase 14 number on a line of its own, beside the card."""
+    o = s["overload"]
+    log(f"server [{smi}] unloaded p50_ms={s['unloaded_p50_ms']:.3f}")
+    for st in o["stages"]:
+        log(f"server [{smi}] overload threads={st['threads']} "
+            f"requests={st['requests']} p50_ms={st['p50_ms']:.3f} "
+            f"p99_ms={st['p99_ms']:.3f} goodput_rps={st['goodput_rps']:.1f}")
+    for cls, row in o["by_class"].items():
+        log(f"server [{smi}] class={cls} 200={row['200']} 503={row['503']} "
+            f"429={row['429']} 504={row['504']} "
+            f"shed_share={row['shed_share']:.4f} p50_ms={row['p50_ms']:.3f} "
+            f"p99_ms={row['p99_ms']:.3f}")
+    log(f"server [{smi}] goodput_rps={o['goodput_rps']:.1f}")
+    log(f"server [{smi}] admission_limit={o['admission_limit']:.1f}")
+    log(f"server [{smi}] overload launches={o['launches']} "
+        f"batches={o['batches']:.0f} slots={o['launched_slots']:.0f} "
+        f"expired_slots={o['expired_slots']:.0f} "
+        f"cancelled_slots={o['cancelled_slots']:.0f}")
+    log(f"server [{smi}] overload answers_checked="
+        f"{o['check']['answers_checked']} max_abs_err="
+        f"{o['check']['max_abs_err']:.3g}")
+    c = s["cache"]
+    for state, row in c["by_state"].items():
+        log(f"server [{smi}] cache {state} share={row['share']:.4f} "
+            f"p50_ms={row['p50_ms']:.3f}")
+    log(f"server [{smi}] cache misses={c['misses']} launches={c['launches']}"
+        f" answers_checked={c['check']['answers_checked']}")
+    k = s["canary"]
+    log(f"server [{smi}] canary promote_s={k['promote_s']:.2f} "
+        f"stable_s={k['stable_s']:.2f}")
+    log(f"server [{smi}] canary shadow_scores={k['shadow_scores']} "
+        f"mean_divergence={k['mean_divergence']:.6f}")
+    log(f"server [{smi}] canary nan generation rejected in "
+        f"{k['nan_reject_s']:.2f} s ({k['nan_reason']})")
+    d = s["drain"]
+    log(f"server [{smi}] drain inflight={d['inflight']} "
+        f"answered_200={d['answered_200']} "
+        f"last_200_s={d['answered_s']:.3f} listener_end_s={d['drain_s']:.3f}")
+
+
 def log_cli(c: dict) -> None:
     s = c["steps_s"]
     log(f"console: {c['compute_line']}; import {s['import']:.2f} s, "
@@ -3503,7 +4236,11 @@ def log_ingest(ingest: dict, dase: dict) -> None:
         log(f"ingest {backend}: {run['events']} events in "
             f"{run['batch_requests']} batch requests, "
             f"{run['events_per_s']:.0f} events/s, batch p50 "
-            f"{run['batch_p50_ms']:.2f} ms p99 {run['batch_p99_ms']:.2f} ms")
+            f"{run['batch_p50_ms']:.2f} ms p99 {run['batch_p99_ms']:.2f} ms, "
+            f"shed by admission and sent again after Retry-After "
+            f"{run['shed_retries']} time(s) (shed share "
+            f"{run['shed_share']:.4f}; {run['retry_after_s']:.1f} client "
+            f"seconds asleep in Retry-After over {INGEST_THREADS} clients)")
     log(f"interactions read: eventlog native scan "
         f"{ingest['eventlog']['interactions_read_s']:.3f} s "
         f"({DASE[2]} events), sqlite frame path "
@@ -3715,13 +4452,23 @@ def main() -> int:
     log(f"phase cli: ok ({cli['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-server-") as d:
+        server = server_phase(device, d, args.seed)
+    server["phase_s"] = time.perf_counter() - t_phase
+    log("server " + json.dumps(server))
+    log_server(server, smi)
+    log(f"phase server: ok ({server['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
-    # 11, 12 and the console's children in 13
+    # 11, 12, the console's children in 13 and the server of 14
     for run in (dase, *ingest.values(), evaluation, similar,
-                templates["ecommerce"], trainer, cli):
+                templates["ecommerce"], trainer, cli, server):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-13: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-14: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

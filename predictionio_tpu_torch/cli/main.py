@@ -160,31 +160,24 @@ def _mesh_ctx(args, variant: dict | None = None):
 
 
 def _serve_foreground(http) -> int:
-    """Block on a bound HTTPServer until ``POST /stop`` (engine
-    servers), SIGTERM or Ctrl-C stops its listener; its shutdown hooks
-    (an engine server's: close the batchers) then run, and the process
-    exits. The JAX console's graceful drain (503 + Retry-After while
-    in-flight requests finish) is ROADMAP.md, queue 1, item 5a."""
-    import signal
-    import threading
+    """Block on a bound HTTPServer with the graceful-drain contract of
+    the JAX console: SIGTERM flips ``/healthz`` to draining, refuses new
+    work with 503 + ``Retry-After``, lets in-flight requests (and the
+    batch on the card) finish within ``PIO_DRAIN_GRACE_S``, then shuts
+    the listener down, so ``serve_forever`` returns and the process
+    exits 0. ``POST /stop`` (engine servers) and Ctrl-C stop at once;
+    the shutdown hooks (an engine server's: close the batchers) run
+    either way."""
+    from predictionio_tpu_torch.serving import resilience
 
-    previous = None
-    if threading.current_thread() is threading.main_thread():
-        # shutdown() waits for serve_forever to return, so it must not
-        # run in the handler, which interrupts serve_forever's thread
-        previous = signal.signal(
-            signal.SIGTERM,
-            lambda signum, frame: threading.Thread(
-                target=http.shutdown, daemon=True
-            ).start(),
-        )
+    restore = resilience.install_signal_drain(http)
     try:
         http.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
-        if previous is not None:
-            signal.signal(signal.SIGTERM, previous)
+        restore()
+        # waits for a drain that is still running its hooks
         http.shutdown()
     return 0
 
@@ -932,18 +925,16 @@ def cmd_eval(args) -> int:
     return 0
 
 
-#: deploy options of the JAX console that need one server's serving
-#: features (item 5a): flag → the parsed value that means "not asked"
+#: deploy options of the JAX console that need the serving features of
+#: one server still to port (item 5a): flag → the parsed value that
+#: means "not asked"
 _DEPLOY_5A = {
     "--feedback": ("feedback", False),
     "--event-server-app": ("event_server_app", None),
     "--log-url": ("log_url", ""),
     "--log-prefix": ("log_prefix", ""),
-    "--canary": ("canary", False),
     "--tenant": ("tenant", []),
     "--pool-budget-bytes": ("pool_budget_bytes", 0),
-    "--no-adaptive-wait": ("no_adaptive_wait", False),
-    "--no-admission": ("no_admission", False),
 }
 
 
@@ -1004,6 +995,9 @@ def cmd_deploy(args) -> int:
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         pipeline_depth=args.pipeline_depth,
+        adaptive_wait=not args.no_adaptive_wait,
+        admission=not args.no_admission,
+        canary=args.canary,
         quantize=args.quantize,
     )
     http = server.serve(host=args.ip, port=args.port)
@@ -1159,15 +1153,13 @@ def cmd_eventserver(args) -> int:
 
     if _store_urls_refused(args):
         return 1
-    if args.no_admission:
-        return _refuse("eventserver --no-admission (admission control)",
-                       "5a")
     if _fleet_flags_refused(args, "eventserver"):
         return 1
     if _server_config_refused("eventserver"):
         return 1
     http = create_event_server(host=args.ip, port=args.port,
-                               stats=args.stats)
+                               stats=args.stats,
+                               admission=not args.no_admission)
     print(f"Event server is listening on {args.ip}:{http.port}",
           flush=True)
     return _serve_foreground(http)
@@ -1756,6 +1748,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--quantize", choices=("int8", "bf16"), default=None,
         help="serve int8 or bf16 factor tables through the fused kernel",
     )
+    p.add_argument(
+        "--no-adaptive-wait", dest="no_adaptive_wait",
+        action="store_true",
+        help="disable the self-tuning fill window (full batches shrink "
+             "the next wait toward 0; idle traffic restores it)",
+    )
+    p.add_argument(
+        "--no-admission", dest="no_admission", action="store_true",
+        help="disable the adaptive overload controller (criticality-"
+             "aware admission + computed Retry-After) — equivalent to "
+             "PIO_ADMISSION=0",
+    )
+    p.add_argument(
+        "--canary", action="store_true",
+        help="guard /reload with shadow-scored canary promotion + "
+             "automatic rollback (PIO_CANARY_* env tunes the gate)",
+    )
     # the JAX console's serving-feature flags, refused (item 5a)
     p.add_argument("--feedback", action="store_true",
                    help=argparse.SUPPRESS)
@@ -1765,11 +1774,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help=argparse.SUPPRESS)
     p.add_argument("--log-prefix", dest="log_prefix", default="",
                    help=argparse.SUPPRESS)
-    p.add_argument("--no-adaptive-wait", dest="no_adaptive_wait",
-                   action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--no-admission", dest="no_admission",
-                   action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--canary", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--tenant", action="append", default=[],
                    metavar="NAME=VARIANT", help=argparse.SUPPRESS)
     p.add_argument("--pool-budget-bytes", dest="pool_budget_bytes",
@@ -1850,8 +1854,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7070)
     p.add_argument("--stats", action="store_true")
-    p.add_argument("--no-admission", dest="no_admission",
-                   action="store_true", help=argparse.SUPPRESS)
+    p.add_argument(
+        "--no-admission", dest="no_admission", action="store_true",
+        help="disable the adaptive overload controller — equivalent to "
+             "PIO_ADMISSION=0",
+    )
     p.add_argument("--workers", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--reuse-port", action="store_true",
                    help=argparse.SUPPRESS)

@@ -9,9 +9,9 @@ gives every request and every training run a span tree, exported as
 Chrome trace-event JSON.
 
 Stdlib-only at import (the device sampler imports ``torch`` when it
-samples). Fleet federation (``obs/federation.py``) and SLO scoring
-(``obs/slo.py``) belong to the fleet and are not ported yet (ROADMAP.md,
-queue 1, item 5b).
+samples). SLO scoring (``obs/slo.py``) scores every served request in
+the HTTP tier. Fleet federation (``obs/federation.py``) belongs to the
+fleet and is not ported yet (ROADMAP.md, queue 1, item 5b).
 """
 
 from predictionio_tpu_torch.obs.context import (
@@ -29,6 +29,7 @@ from predictionio_tpu_torch.obs.registry import (
     TRAIN_STEP_BUCKETS,
     get_registry,
 )
+from predictionio_tpu_torch.obs.slo import Objective, SLOMonitor
 from predictionio_tpu_torch.obs.timeline import (
     Timeline,
     get_timeline,
@@ -51,6 +52,8 @@ __all__ = [
     "Histogram",
     "LATENCY_BUCKETS",
     "MetricRegistry",
+    "Objective",
+    "SLOMonitor",
     "Span",
     "TRAIN_STEP_BUCKETS",
     "Timeline",

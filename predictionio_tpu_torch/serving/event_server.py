@@ -24,11 +24,15 @@ Every event-API answer is counted into the ``registry`` (default: the
 process registry) as ``pio_events_ingested_total{app_id,status}``, and
 each store call is a ``store/*`` span of the request's trace.
 
-Not ported yet (ROADMAP.md, queue 1): admission control, TLS and the key
-auth of the ``/debug`` routes (``server_config``), ``reuse_port``
-workers (item 5); the ``/healthz`` extra, which is the replicated
-store's quorum view (item 3b). The constructor takes none of their
-options.
+The adaptive admission controller is on by default (``admission=True``,
+``PIO_ADMISSION``), with fair shares keyed by the ``accessKey``, so one
+hot app cannot starve the others' ingest; the HTTP tier adds deadlines,
+the drain, ``PIO_CHAOS`` and SLO scoring.
+
+Not ported yet (ROADMAP.md, queue 1): TLS and the key auth of the
+``/debug`` routes (``server_config``, item 5a), ``reuse_port`` workers
+(item 5b); the ``/healthz`` extra, which is the replicated store's
+quorum view (item 3b). The constructor takes none of their options.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from predictionio_tpu_torch.data.storage.base import PartialBatchError
 from predictionio_tpu_torch.obs import MetricRegistry, get_registry
 from predictionio_tpu_torch.obs import timeline as timeline_mod
 from predictionio_tpu_torch.obs import tracing
+from predictionio_tpu_torch.serving import admission as admission_mod
 from predictionio_tpu_torch.serving.http import (
     HTTPError,
     HTTPServer,
@@ -83,7 +88,10 @@ class EventServer:
         plugins: PluginContext | None = None,
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
+        admission: bool | admission_mod.AdmissionController = True,
     ):
+        """``admission`` turns on the adaptive overload controller; its
+        fair shares are keyed by the ``accessKey`` query parameter."""
         self._storage = storage or get_storage()
         self.registry = registry if registry is not None else get_registry()
         self.tracer = tracer if tracer is not None else tracing.get_tracer()
@@ -115,6 +123,12 @@ class EventServer:
         r.route("GET", "/webhooks/<name>.json", self._webhook_json_probe)
         r.route("GET", "/webhooks/<name>.form", self._webhook_form_probe)
         install_plugin_routes(r, self._plugins, INPUT_SNIFFER)
+        if admission is True:
+            r.admission = admission_mod.AdmissionController.from_env(
+                "eventserver", registry=self.registry
+            )
+        elif isinstance(admission, admission_mod.AdmissionController):
+            r.admission = admission
 
     # -- auth -------------------------------------------------------------
     def _auth(self, request: Request) -> tuple[int, int | None, tuple]:
@@ -416,12 +430,15 @@ def create_event_server(
     plugins: PluginContext | None = None,
     registry: MetricRegistry | None = None,
     tracer: tracing.Tracer | None = None,
+    admission: bool = True,
 ) -> HTTPServer:
     """An HTTP server on an :class:`EventServer` (default port 7070);
-    ``start()`` it, and ``shutdown()`` also releases the plugin
-    dispatcher. ``registry`` and ``tracer`` default to the process's."""
+    ``start()`` it, and ``shutdown()`` (or ``drain()``) also releases
+    the plugin dispatcher. ``registry`` and ``tracer`` default to the
+    process's."""
     server = EventServer(storage=storage, stats=stats, plugins=plugins,
-                         registry=registry, tracer=tracer)
+                         registry=registry, tracer=tracer,
+                         admission=admission)
     http = HTTPServer(server.router, host=host, port=port,
                       service="eventserver", registry=server.registry,
                       tracer=server.tracer)

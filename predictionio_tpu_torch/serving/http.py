@@ -1,22 +1,35 @@
-"""Minimal threaded HTTP routing layer, with the telemetry surface.
+"""Minimal threaded HTTP routing layer, with the telemetry and overload
+surface.
 
 Counterpart of ``Request``, ``Response``, ``HTTPError``, ``Router``,
 ``install_metrics_routes`` and ``HTTPServer`` in
 ``predictionio_tpu/serving/http.py``, on the standard library's
 ``ThreadingHTTPServer``: thread per connection, JSON bodies,
-``X-Request-ID`` forwarded (when well-formed) or minted, the base
-``GET /healthz`` probe answered before routing, access keys blanked out
-of the access log. With a ``registry`` every request is counted and
-timed (``pio_http_requests_total``, ``pio_http_request_seconds``,
-``pio_http_inflight_requests``); every request outside the telemetry
-routes is one root span of the tracer (trace id = request id, parent
-from ``X-Parent-Span``).
+``X-Request-ID`` forwarded (when well-formed) or minted, access keys
+blanked out of the access log. Before any handler runs a request meets,
+in this order, as in the JAX package:
+
+* ``GET /healthz``, answered before routing (``draining`` and 503 while
+  the server drains);
+* the drain: once :meth:`HTTPServer.begin_drain` ran, every request
+  outside the telemetry routes gets 503 with ``Retry-After``;
+* ``X-PIO-Deadline`` (milliseconds of budget): an expired budget is a
+  504; the budget, ``X-PIO-Criticality`` and the tenant
+  (``accessKey`` or ``X-PIO-Tenant``) ride contextvars down to the
+  micro-batcher;
+* the admission controller (``Router.admission``): 503 or 429 with
+  ``Retry-After`` and ``X-PIO-Shed``;
+* the chaos injector (``Router.chaos_middleware``, from ``PIO_CHAOS``).
+
+With a ``registry`` every request is counted and timed
+(``pio_http_requests_total``, ``pio_http_request_seconds``,
+``pio_http_inflight_requests``, ``pio_http_rejected_total``,
+``pio_server_draining``) and scored by an :class:`SLOMonitor`; every
+request outside the telemetry routes is one root span of the tracer.
 
 Not ported yet (ROADMAP.md, queue 1, item 5a): TLS and key auth of the
-``/debug`` routes (``server_config``), admission control and
-``pio_http_rejected_total``, deadlines, ``ChaosMiddleware`` /
-``PIO_CHAOS``, draining and ``pio_server_draining``, SLO scoring and
-the probe's extras.
+``/debug`` routes (``server_config``). ``reuse_port`` belongs to the
+fleet (item 5b).
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ from urllib.parse import parse_qs, urlparse
 from predictionio_tpu_torch.obs import MetricRegistry, set_request_id
 from predictionio_tpu_torch.obs import tracing
 from predictionio_tpu_torch.obs.context import log_json, redact_keys
+from predictionio_tpu_torch.obs.slo import SLOMonitor
+from predictionio_tpu_torch.serving import admission, resilience
 
 logger = logging.getLogger(__name__)
 
@@ -60,10 +75,17 @@ class Request:
         self.headers = headers
         self.body = body
         self.path_params = path_params
-        #: forwarded X-Request-ID or a minted one (set by the server)
+        #: set by the server wrapper (forwarded X-Request-ID or minted)
         self.request_id: str | None = None
-        #: the route pattern that matched (set by Router.dispatch)
+        #: remaining-budget deadline from X-PIO-Deadline (set by the
+        #: server wrapper; None when the request carried no budget)
+        self.deadline: resilience.Deadline | None = None
+        #: the route PATTERN that matched (set by Router.dispatch) —
+        #: bounded cardinality, unlike the raw path
         self.route: str | None = None
+        #: criticality class from X-PIO-Criticality (set by the server
+        #: wrapper; defaults to "default" for unlabeled requests)
+        self.criticality: str = admission.DEFAULT
 
     def json(self) -> Any:
         if not self.body:
@@ -108,6 +130,8 @@ class HTTPError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
+        #: extra response headers (e.g. a computed ``Retry-After`` on a
+        #: shed — the cooperative-backpressure contract)
         self.headers = headers or {}
 
 
@@ -117,6 +141,13 @@ class Router:
 
     def __init__(self):
         self._routes: list[tuple[str, re.Pattern, Handler, str]] = []
+        #: fault injector applied before dispatch (attached by
+        #: install_metrics_routes when PIO_CHAOS is set)
+        self.chaos_middleware: resilience.ChaosMiddleware | None = None
+        #: adaptive overload controller applied at admission (attached
+        #: by the owning server BEFORE HTTPServer construction;
+        #: docs/robustness.md "Overload & backpressure")
+        self.admission: admission.AdmissionController | None = None
 
     def route(self, method: str, pattern: str, handler: Handler) -> None:
         # escape literal segments so '.' in '.json' doesn't match anything
@@ -151,6 +182,15 @@ class Router:
             raise HTTPError(405, "method not allowed")
         raise HTTPError(404, "not found")
 
+    def match_route(self, request: Request) -> str | None:
+        """The route pattern that would handle ``request``, resolved
+        without dispatching, so a refusal before dispatch (a spent
+        deadline, a shed) still carries a real route label."""
+        for method, regex, _handler, pattern in self._routes:
+            if method == request.method and regex.match(request.path):
+                return pattern
+        return None
+
 
 def install_metrics_routes(
     router: Router,
@@ -165,7 +205,9 @@ def install_metrics_routes(
     Perfetto; ``?traceId=`` picks one trace) and ``GET
     /debug/traces.json`` (raw span trees). ``timeline`` (an object with
     ``to_dict()``, a :class:`~predictionio_tpu_torch.obs.Timeline`)
-    mounts its ring at ``GET /debug/timeline.json``.
+    mounts its ring at ``GET /debug/timeline.json``. The router also
+    gains the ``PIO_CHAOS`` fault injector
+    (:meth:`~predictionio_tpu_torch.serving.resilience.ChaosMiddleware.from_env`).
 
     The JAX package's ``server_config`` (key auth of the ``/debug``
     routes) and ``federation`` (the fleet view) are not ported yet
@@ -206,20 +248,17 @@ def install_metrics_routes(
     router.route("GET", "/debug/traces.json", _traces_json)
     if timeline is not None:
         router.route("GET", "/debug/timeline.json", _timeline_json)
+    # every server that mounts the telemetry surface also gains the
+    # env-driven fault injector (a no-op unless PIO_CHAOS is set)
+    router.chaos_middleware = resilience.ChaosMiddleware.from_env(registry)
 
 
 class HTTPServer:
     """Threaded server wrapping a Router; ``start()`` serves on a daemon
-    thread, ``shutdown()`` stops it and closes the socket.
-
-    ``registry`` turns on the request metrics:
-    ``pio_http_requests_total{service,method,status}``,
-    ``pio_http_request_seconds{service,route}`` (the route pattern, not
-    the raw path) and ``pio_http_inflight_requests{service}``.
-    ``tracer`` (default: the process tracer) opens one root span per
-    request — trace id = request id, remote parent from
-    ``X-Parent-Span`` — so handlers and storage calls hang child spans
-    off it; the telemetry routes themselves are not traced."""
+    thread, ``shutdown()`` stops it, closes the socket and runs the
+    shutdown hooks, and ``drain()`` is the lossless stop: refuse new
+    work, let in-flight requests finish, run the drain hooks, shut
+    down."""
 
     def __init__(
         self,
@@ -229,11 +268,30 @@ class HTTPServer:
         service: str = "http",
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
+        slo=None,
     ):
+        """``registry`` turns on the telemetry wrapper: every request gets
+        (or forwards) an ``X-Request-ID``, is timed into
+        ``pio_http_request_seconds{service,route}``, counted into
+        ``pio_http_requests_total{service,method,status}``, and emits a
+        structured access-log line. Request-ID handling is always on —
+        only the metrics need a registry.
+
+        ``tracer`` (default: the process tracer) opens one root span
+        per request — trace ID = request ID, remote parent from
+        ``X-Parent-Span`` — so handlers, storage calls, and the
+        micro-batcher hang child spans off it; scrape/debug routes
+        themselves are not traced.
+
+        ``slo``: None scores every served request into an
+        :class:`SLOMonitor` on the registry (objectives from the
+        environment), False turns scoring off, and a monitor passed in
+        is shared."""
         router_ref = router
         tracer_ref = tracer if tracer is not None else tracing.get_tracer()
-        inflight = [0]
-        inflight_lock = threading.Lock()
+        chaos_ref = router.chaos_middleware
+        admission_ref = router.admission
+        state = resilience.DrainState()
         if registry is not None:
             requests_total = registry.counter(
                 "pio_http_requests_total",
@@ -245,56 +303,110 @@ class HTTPServer:
                 "HTTP request latency by service and route pattern",
                 ("service", "route"),
             )
-            # a scrape-time function: in a process that rebuilds
-            # servers, the latest server's count wins the label
+            rejected_total = registry.counter(
+                "pio_http_rejected_total",
+                "Requests refused at admission, by reason "
+                "(draining | deadline | overload)",
+                ("service", "reason"),
+            )
+            # scrape-time functions: in a process that rebuilds servers
+            # (tests, reload), the latest server's state wins the label
             registry.gauge(
                 "pio_http_inflight_requests",
                 "Requests currently being handled",
                 ("service",),
-            ).labels(service).set_function(lambda: float(inflight[0]))
+            ).labels(service).set_function(lambda: float(state.inflight))
+            registry.gauge(
+                "pio_server_draining",
+                "1 while the server is draining (stopped accepting work)",
+                ("service",),
+            ).labels(service).set_function(
+                lambda: 1.0 if state.draining.is_set() else 0.0
+            )
         else:
-            requests_total = request_seconds = None
+            requests_total = request_seconds = rejected_total = None
+        # SLO scoring rides the same telemetry tail: slo=None auto-
+        # creates a monitor on the registry (env-configured
+        # objectives), slo=False disables it (the router scores fleet
+        # traffic from federated counters instead — scoring its own
+        # proxy hops too would double-count every request), and an
+        # explicit SLOMonitor is shared (tests, embedding servers)
+        if slo is False or registry is None:
+            slo_ref = None
+        elif slo is not None:
+            slo_ref = slo
+        else:
+            slo_ref = SLOMonitor(registry)
 
         class _Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
-            # header and body go out in one write; without NODELAY Nagle
-            # + delayed ACK add ~40 ms to every keep-alive request
+            # response header+body go out in one write; without NODELAY
+            # Nagle + delayed ACK adds ~40 ms to every keep-alive request
             disable_nagle_algorithm = True
 
             def log_message(self, fmt, *args):  # route through logging
                 line = redact_keys(fmt % args)
                 logger.debug("%s %s", self.address_string(), line)
 
+            def _admission(
+                self, request, path, deadline, telemetry_path
+            ) -> Response | None:
+                """Work the server refuses before running any handler:
+                the /healthz probe itself, everything while draining,
+                and requests whose deadline already expired (admitting
+                them would spend handler + device time computing an
+                answer nobody is waiting for)."""
+                if path == "/healthz" and self.command == "GET":
+                    draining = state.draining.is_set()
+                    request.route = "/healthz"
+                    payload = {
+                        "status": "draining" if draining else "ok",
+                        "service": service,
+                        "pid": os.getpid(),
+                    }
+                    return Response(503 if draining else 200, payload)
+                if self._draining_at_entry and not telemetry_path:
+                    request.route = "(draining)"
+                    if rejected_total is not None:
+                        rejected_total.labels(service, "draining").inc()
+                    return Response(
+                        503,
+                        {
+                            "message": "server is draining; "
+                            "retry against another instance"
+                        },
+                        headers={"Retry-After": "1"},
+                    )
+                if deadline is not None and deadline.expired:
+                    request.route = (
+                        router_ref.match_route(request) or "(unmatched)"
+                    )
+                    if rejected_total is not None:
+                        rejected_total.labels(service, "deadline").inc()
+                    return Response(
+                        504,
+                        {"message": "deadline already expired at admission"},
+                    )
+                return None
+
             def _handle(self):
-                # in flight until the response bytes are written
-                with inflight_lock:
-                    inflight[0] += 1
+                # count the request in-flight for the WHOLE handler —
+                # until the response bytes are written, so the process
+                # does not exit mid-write. ORDER MATTERS: increment
+                # BEFORE snapshotting the draining flag. Drain sets the
+                # flag first and then samples inflight, so every
+                # request is either visible to the drain's inflight
+                # wait or sees the flag and is refused — there is no
+                # window where a just-admitted request is invisible to
+                # a concurrent drain. The snapshot (not a live read)
+                # also means a request whose body was still streaming
+                # when SIGTERM arrived is finished, not refused.
+                state.begin_request()
+                self._draining_at_entry = state.draining.is_set()
                 try:
                     self._handle_inner()
                 finally:
-                    with inflight_lock:
-                        inflight[0] -= 1
-
-            def _dispatch(self, request: Request, path: str) -> Response:
-                if path == "/healthz" and self.command == "GET":
-                    # the liveness probe answers before routing
-                    request.route = "/healthz"
-                    return Response(200, {
-                        "status": "ok", "service": service,
-                        "pid": os.getpid(),
-                    })
-                try:
-                    return router_ref.dispatch(request)
-                except HTTPError as e:
-                    return Response(
-                        e.status, {"message": e.message},
-                        headers=dict(e.headers),
-                    )
-                except json.JSONDecodeError as e:
-                    return Response(400, {"message": f"bad JSON: {e}"})
-                except Exception as e:  # noqa: BLE001 - server boundary
-                    logger.exception("handler error (%s)", service)
-                    return Response(500, {"message": str(e)})
+                    state.end_request()
 
             def _handle_inner(self):
                 parsed = urlparse(self.path)
@@ -311,47 +423,221 @@ class HTTPServer:
                     body=body,
                     path_params={},
                 )
-                # forwarded (when well-formed) or minted; installed in
-                # the thread's context for log lines downstream
+                # forwarded or minted; installed in the thread context so
+                # the batcher and log lines downstream can read it
                 request.request_id = set_request_id(
                     self.headers.get("X-Request-ID")
                 )
+                # the remaining-budget deadline rides the same context;
+                # set unconditionally — a keep-alive connection reuses
+                # this thread, and a stale deadline must not leak into
+                # the next request
+                deadline = resilience.Deadline.from_header(
+                    self.headers.get(resilience.DEADLINE_HEADER)
+                )
+                resilience.set_deadline(deadline)
+                request.deadline = deadline
+                # criticality rides the same contextvar discipline:
+                # set unconditionally so a keep-alive thread cannot
+                # leak one request's class into the next
+                request.criticality = admission.parse_criticality(
+                    self.headers.get(admission.CRITICALITY_HEADER)
+                )
+                admission.set_criticality(request.criticality)
+                # tenant identity, same discipline: installed
+                # unconditionally so the batcher downstream can
+                # attribute device time, and so a keep-alive thread
+                # cannot charge one tenant for the next request
+                tenant = (
+                    query.get("accessKey")
+                    or self.headers.get(admission.TENANT_HEADER)
+                    or ""
+                )
+                admission.set_tenant(tenant)
+                # the operator's window into a sick server: never
+                # drain-refused, never chaos-faulted
                 telemetry_path = parsed.path == "/healthz" or (
                     parsed.path.startswith(("/metrics", "/debug/"))
                 )
                 t0 = time.perf_counter()
-                # root span: trace id = request id; a forwarded
-                # X-Parent-Span makes this request a child in a
-                # distributed trace. Scrapes of the telemetry surface
-                # would drown real traffic in the recorder.
-                span_cm = (
-                    tracing.NOOP
-                    if not tracer_ref.enabled or telemetry_path
-                    else tracer_ref.trace(
-                        f"{service} {self.command}",
-                        trace_id=request.request_id,
-                        parent_id=tracing.sanitize_id(
-                            self.headers.get(tracing.PARENT_SPAN_HEADER)
-                        ),
-                        attributes={
-                            "service": service,
-                            "method": self.command,
-                        },
-                    )
-                )
-                with span_cm as root_span:
-                    response = self._dispatch(request, parsed.path)
-                    if root_span is not None:
-                        root_span.set(
-                            "route", request.route or "(unmatched)"
+                early = self._admission(request, parsed.path, deadline,
+                                        telemetry_path)
+                # adaptive overload gate, AFTER drain/deadline refusals
+                # (those must not consume limiter slots) and never for
+                # the telemetry surface. Every admit is paired with
+                # exactly one release below — including the chaos-reset
+                # early return.
+                admitted = False
+                if (
+                    early is None
+                    and admission_ref is not None
+                    and not telemetry_path
+                ):
+                    try:
+                        admission_ref.try_acquire(
+                            request.criticality, tenant
                         )
-                        root_span.set("status", response.status)
-                elapsed = time.perf_counter() - t0
+                        admitted = True
+                    except admission.AdmissionRejected as rej:
+                        request.route = (
+                            router_ref.match_route(request)
+                            or "(unmatched)"
+                        )
+                        if rejected_total is not None:
+                            rejected_total.labels(
+                                service, "overload"
+                            ).inc()
+                        early = Response(
+                            rej.status,
+                            {
+                                "message": (
+                                    "server overloaded"
+                                    if rej.reason == "limit"
+                                    else "tenant over fair share"
+                                )
+                                + "; retry after the hinted delay",
+                                "reason": rej.reason,
+                            },
+                            headers={
+                                "Retry-After": admission
+                                .format_retry_after(rej.retry_after_s),
+                                # refused BEFORE the handler: nothing
+                                # ran, so even a POST replays safely
+                                admission.SHED_HEADER: rej.reason,
+                            },
+                        )
+                # True when the response carries NO verdict about this
+                # server's capacity (dependency fast-fail, injected
+                # fault): released without feeding the limiter
+                no_verdict = False
+                response: Response | None = None
+                try:
+                    if early is not None:
+                        response = early
+                    else:
+                        # root span: trace ID = request ID; a forwarded
+                        # X-Parent-Span makes this request a child in a
+                        # distributed trace. Scrapes of the telemetry surface
+                        # itself would drown real traffic in the recorder; a
+                        # disabled tracer skips even the name/attribute builds.
+                        span_cm = (
+                            tracing.NOOP
+                            if not tracer_ref.enabled
+                            or parsed.path.startswith(("/metrics", "/debug/"))
+                            else tracer_ref.trace(
+                                f"{service} {self.command}",
+                                trace_id=request.request_id,
+                                parent_id=tracing.sanitize_id(
+                                    self.headers.get(tracing.PARENT_SPAN_HEADER)
+                                ),
+                                attributes={
+                                    "service": service,
+                                    "method": self.command,
+                                },
+                            )
+                        )
+                        try:
+                            with span_cm as root_span:
+                                try:
+                                    if (
+                                        chaos_ref is not None
+                                        and not telemetry_path
+                                    ):
+                                        chaos_ref.apply(parsed.path)
+                                    response = router_ref.dispatch(request)
+                                except resilience.ChaosReset:
+                                    raise  # handled below: slam the socket
+                                except HTTPError as e:
+                                    response = Response(
+                                        e.status,
+                                        {"message": e.message},
+                                        headers=dict(e.headers),
+                                    )
+                                except resilience.DeadlineExceeded as e:
+                                    response = Response(
+                                        504,
+                                        {"message": f"deadline exceeded: {e}"},
+                                    )
+                                except resilience.ChaosError as e:
+                                    # an injected fault says nothing about
+                                    # this server's capacity — it must not
+                                    # feed the limiter (a chaos rehearsal
+                                    # would drag the limit to the floor on
+                                    # an unloaded server)
+                                    no_verdict = True
+                                    response = Response(
+                                        e.status, {"message": e.message}
+                                    )
+                                except resilience.CircuitOpenError as e:
+                                    # a dependency's breaker is open: the
+                                    # request CAN be retried elsewhere/
+                                    # later. A fast-fail says nothing
+                                    # about THIS server's capacity, so it
+                                    # is flagged out of the limiter's
+                                    # latency signal below.
+                                    no_verdict = True
+                                    response = Response(
+                                        503,
+                                        {"message": str(e)},
+                                        headers={
+                                            "Retry-After": (
+                                                admission_ref
+                                                .retry_after_header()
+                                                if admission_ref is not None
+                                                else "1"
+                                            )
+                                        },
+                                    )
+                                except json.JSONDecodeError as e:
+                                    response = Response(
+                                        400, {"message": f"bad JSON: {e}"}
+                                    )
+                                except Exception as e:  # noqa: BLE001 - server boundary
+                                    logger.exception("handler error")
+                                    response = Response(
+                                        500, {"message": str(e)}
+                                    )
+                                if root_span is not None:
+                                    root_span.set(
+                                        "route", request.route or "(unmatched)"
+                                    )
+                                    root_span.set("status", response.status)
+                        except resilience.ChaosReset:
+                            # a slammed connection produced no verdict
+                            # about capacity — the finally below
+                            # releases without a latency sample
+                            no_verdict = True
+                            log_json(
+                                access_logger, logging.INFO, "chaos_reset",
+                                service=service, path=parsed.path,
+                            )
+                            self.close_connection = True
+                            return
+                finally:
+                    # EVERY admitted request releases its slot exactly
+                    # once — here, on all paths: normal responses, the
+                    # chaos-reset early return, and anything escaping
+                    # the handler machinery itself (which produced no
+                    # response and therefore no capacity verdict).
+                    # Outcome classification feeds the adaptive limit:
+                    # sheds and deadline misses are the AIMD backoff
+                    # signal; a circuit-open fast-fail is NO sample
+                    # (its near-zero latency would inflate the limit);
+                    # every real served request is a latency sample
+                    elapsed = time.perf_counter() - t0
+                    if admitted:
+                        if no_verdict or response is None:
+                            outcome = admission.OUTCOME_IGNORE
+                        elif response.status in (429, 503, 504):
+                            outcome = admission.OUTCOME_DROP
+                        else:
+                            outcome = admission.OUTCOME_OK
+                        admission_ref.release(elapsed, outcome, tenant)
                 if response.status >= 400 and isinstance(
                     response.body, dict
                 ):
-                    # error bodies carry the ID so a client report can
-                    # be joined against server logs
+                    # error responses carry the ID so a client report
+                    # can be joined against server logs
                     response.body = {
                         **response.body, "requestId": request.request_id
                     }
@@ -363,6 +649,12 @@ class HTTPServer:
                     ).inc()
                     request_seconds.labels(service, route).observe(
                         elapsed
+                    )
+                if slo_ref is not None and not telemetry_path:
+                    # scrapes and debug pulls are operator traffic,
+                    # not served load — they never burn the budget
+                    slo_ref.observe(
+                        request.criticality, response.status, elapsed
                     )
                 log_json(
                     access_logger,
@@ -402,16 +694,80 @@ class HTTPServer:
 
         self._httpd = _Server((host, port), _Handler)
         self._thread: threading.Thread | None = None
+        self._state = state
+        self._service = service
+        self._drain_hooks: list[Callable[[], None]] = []
         self._shutdown_hooks: list[Callable[[], None]] = []
         self._state_lock = threading.Lock()
         self._served = False
         self._shut = False
         self._shut_done = threading.Event()
         self.router = router
+        #: the per-server SLO monitor (None when disabled), so tests and
+        #: status routes can read burn rates directly
+        self.slo = slo_ref
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
+
+    # -- graceful drain ---------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self._state.draining.is_set()
+
+    @property
+    def inflight(self) -> int:
+        return self._state.inflight
+
+    def add_drain_hook(self, hook: Callable[[], None]) -> None:
+        """Run ``hook`` during drain, after in-flight requests finished
+        and before the listener closes: where an engine server closes
+        its micro-batchers so the batch on the card completes."""
+        self._drain_hooks.append(hook)
+
+    def begin_drain(self) -> None:
+        """Stop accepting work now: ``/healthz`` answers ``draining``
+        (503) and every request outside the telemetry routes gets 503
+        with ``Retry-After``. In-flight requests keep running."""
+        if not self._state.draining.is_set():
+            self._state.draining.set()
+            log_json(
+                logger, logging.INFO, "drain_begin",
+                service=self._service,
+            )
+
+    def drain(self, grace_s: float | None = None) -> bool:
+        """The lossless stop: :meth:`begin_drain`, wait for in-flight
+        requests (at most ``grace_s``, default ``PIO_DRAIN_GRACE_S``),
+        run the drain hooks, shut the listener down. Returns True when
+        every in-flight request finished inside the grace window."""
+        grace = (
+            grace_s if grace_s is not None else resilience.drain_grace_s()
+        )
+        self.begin_drain()
+        deadline = time.monotonic() + grace
+        while self._state.inflight > 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        clean = self._state.inflight == 0
+        if not clean:
+            log_json(
+                logger, logging.WARNING, "drain_grace_exceeded",
+                service=self._service,
+                inflight=self._state.inflight,
+                graceS=grace,
+            )
+        for hook in self._drain_hooks:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 - drain must reach shutdown
+                logger.exception("drain hook failed")
+        log_json(
+            logger, logging.INFO, "server_drained",
+            service=self._service, clean=clean,
+        )
+        self.shutdown()
+        return clean
 
     def start(self) -> None:
         self._served = True

@@ -698,12 +698,8 @@ _REFUSALS = [
     (["deploy", "--event-server-app", "a"], "5a"),
     (["deploy", "--log-url", "http://127.0.0.1:1/"], "5a"),
     (["deploy", "--log-prefix", "p"], "5a"),
-    (["deploy", "--canary"], "5a"),
     (["deploy", "--tenant", "a=v.json"], "5a"),
     (["deploy", "--pool-budget-bytes", "1024"], "5a"),
-    (["deploy", "--no-adaptive-wait"], "5a"),
-    (["deploy", "--no-admission"], "5a"),
-    (["eventserver", "--no-admission"], "5a"),
     (["deploy", "--workers", "2"], "5b"),
     (["deploy", "--reuse-port"], "5b"),
     (["eventserver", "--workers", "4"], "5b"),

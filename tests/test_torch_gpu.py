@@ -1,7 +1,8 @@
 """The fused top-k CUDA kernel against its plain version, ALS on the
-card against ALS on the CPU, the device-memory sampler on the card, and
+card against ALS on the CPU, the device-memory sampler on the card,
 ``POST /reload`` swapping a server on the card to a new generation
-served through the kernel.
+served through the kernel, and one server's cache, deadline cut and
+canary promotion on the card.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -681,3 +682,122 @@ def test_first_linalg_call_from_threads_in_a_fresh_process(cuda_device):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.gpu
+def test_one_server_cache_deadline_and_canary_on_card(cuda_device,
+                                                      tmp_path):
+    """On the card: a cache miss launches the f32 kernel once, hits
+    launch nothing, a spent ``X-PIO-Deadline`` is a 504 that launches
+    nothing, and ``/reload {"canary": true}`` of a new generation
+    shadow-scores on the card, promotes, and serves answers equal to the
+    plain top-k on it."""
+    import dataclasses
+    import datetime as dt
+    import json
+    import time
+    import urllib.error
+    import urllib.request
+
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.canary import CanaryConfig
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    rng = np.random.default_rng(3)
+    users = rng.standard_normal((64, 32)).astype(np.float32)
+    items = rng.standard_normal((20_000, 32)).astype(np.float32)
+
+    def publish(item_factors):
+        model = als_model_from_numpy(
+            users, item_factors, np.char.add("u", np.arange(64).astype(str)),
+            np.char.add("i", np.arange(len(item_factors)).astype(str)))
+        now = dt.datetime.now(dt.timezone.utc)
+        instances = storage.get_meta_data_engine_instances()
+        iid = instances.insert(EngineInstance(
+            id="", status="INIT", start_time=now, end_time=now,
+            engine_id="rec", engine_version="1", engine_variant="default",
+            engine_factory="recommendation"))
+        publish_generation(storage.get_model_data_models(), iid,
+                           serialize_models(iid, [ALSAlgorithm()], [model]))
+        instances.update(dataclasses.replace(instances.get(iid),
+                                             status="COMPLETED"))
+        return iid
+
+    def post(base, path, body, headers=None):
+        req = urllib.request.Request(
+            base + path, data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, resp.headers, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, json.loads(e.read())
+
+    publish(items)
+    engine = recommendation_engine()
+    es, http = create_engine_server(
+        engine, engine.params_from_variant({}), "rec", host="127.0.0.1",
+        port=0, storage=storage,
+        ctx=ComputeContext.create(device=cuda_device), max_batch=8,
+        cache=True, canary=CanaryConfig(shadow_sample=1.0, min_shadow=5,
+                                        watch_min_requests=5, watch_s=0.5))
+    http.start()
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        before = fused_topk.LAUNCHES["f32"]
+        states = [post(base, "/queries.json", {"user": "u3", "num": 10})[1][
+            "X-PIO-Cache"] for _ in range(3)]
+        assert states == ["miss", "hit", "hit"]
+        assert fused_topk.LAUNCHES["f32"] == before + 1
+        status, headers, _ = post(base, "/queries.json", {"user": "u4"},
+                                  {"X-PIO-Deadline": "0"})
+        assert status == 504
+        assert fused_topk.LAUNCHES["f32"] == before + 1
+        items2 = (items * (1 + 1e-4 * rng.standard_normal(items.shape))
+                  ).astype(np.float32)
+        iid2 = publish(items2)
+        assert post(base, "/reload", {"canary": True})[0] == 202
+        deadline = time.monotonic() + 60
+        state = "shadowing"
+        while state != "stable":
+            assert time.monotonic() < deadline, state
+            for u in range(8):
+                post(base, "/queries.json", {"user": f"u{u}", "num": 10},
+                     {"Cache-Control": "no-cache"})
+            with urllib.request.urlopen(base + "/canary", timeout=60) as r:
+                state = json.loads(r.read())["state"]
+            assert state in ("shadowing", "watching", "stable"), state
+        u_t = torch.as_tensor(users, device=cuda_device)
+        i_t = torch.as_tensor(items2, device=cuda_device)
+        for u in (0, 9, 63):
+            status, headers, ans = post(
+                base, "/queries.json", {"user": f"u{u}", "num": 10})
+            assert status == 200 and headers["X-PIO-Cache"] == "miss"
+            want_s, _want_i = fused_topk.fused_top_k_dot_reference(
+                u_t[u:u + 1], i_t, 10)
+            np.testing.assert_allclose(
+                [e["score"] for e in ans["itemScores"]],
+                want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            assert json.loads(r.read())["engineInstanceId"] == iid2
+    finally:
+        es.close()

@@ -78,7 +78,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "obs.device", "training", "training.trainer", "version",
                 "cli", "cli.main", "cli.commands", "cli.daemon",
                 "data.eventfile", "serving.config", "serving.workers",
-                "serving.dashboard", "serving.admin"):
+                "serving.dashboard", "serving.admin",
+                "serving.admission", "serving.resilience", "obs.slo",
+                "serving.querycache", "serving.canary",
+                "serving.batching", "serving.http"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(

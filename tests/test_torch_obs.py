@@ -580,7 +580,7 @@ def event_servers():
         "jax": jax_create_event_server(
             host="127.0.0.1", port=0,
             storage=_event_storage(JaxStorage, JaxApp, JaxAccessKey),
-            registry=regs["jax"], tracer=tracers["jax"], admission=False),
+            registry=regs["jax"], tracer=tracers["jax"]),
     }
     statuses = {}
     for name, server in servers.items():
@@ -676,11 +676,12 @@ def test_event_server_metrics_text_names_the_same_families(event_servers):
 
     got = families(event_servers["servers"]["torch"])
     want = families(event_servers["servers"]["jax"])
-    # the JAX server adds its admission, drain and SLO families (item 5a)
+    # admission, drain and SLO scoring are on in both servers
     assert {"pio_events_ingested_total", "pio_http_requests_total",
-            "pio_http_request_seconds",
-            "pio_http_inflight_requests"} <= got & want
-    assert got <= want
+            "pio_http_request_seconds", "pio_http_inflight_requests",
+            "pio_http_rejected_total", "pio_server_draining",
+            "pio_admission_limit"} <= got & want
+    assert got == want
 
 
 def test_request_id_forwarded_or_minted(event_servers):

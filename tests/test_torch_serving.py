@@ -281,9 +281,11 @@ def test_engine_server_answers_over_http(served, jax_answers):
 
 def test_engine_server_refuses_options_of_later_slices(tmp_path, cpu):
     engine, params = _params()
-    with pytest.raises(TypeError):
-        EngineServer(engine, params, "rec", storage=_storage(tmp_path),
-                     ctx=cpu, cache=True)
+    for option in ({"tenants": {"a": "v"}}, {"feedback": True},
+                   {"log_url": "http://127.0.0.1:1/"}):
+        with pytest.raises(TypeError):
+            EngineServer(engine, params, "rec",
+                         storage=_storage(tmp_path), ctx=cpu, **option)
     with pytest.raises(ValueError):
         EngineServer(engine, params, "rec", storage=_storage(tmp_path),
                      ctx=cpu, quantize="int4")

@@ -27,8 +27,9 @@ and the outcomes are compared:
 * ``POST /reload`` on the port's engine server: it swaps the served
   instance (the JAX server answers the same on the same store), keeps
   the last good generation when the newest is corrupt, answers 400
-  naming ROADMAP item 5a to ``canary`` and to the per-tenant form, and
-  queries racing a reload all succeed.
+  naming ROADMAP item 5a to the per-tenant form, 200 "already serving"
+  to a canary of the generation it serves, and queries racing a reload
+  all succeed.
 
 The trainer's ``ComputeContext`` takes the CUDA device without one
 passed and raises without CUDA. The card-only checks (the device
@@ -907,7 +908,7 @@ def test_reload_keeps_the_last_good_generation(served):
 
 
 @pytest.mark.parametrize("body, raw, status, needle", [
-    ({"canary": True}, None, 400, "item 5a"),
+    ({"canary": True}, None, 200, "already serving"),
     ({"tenant": "acme"}, None, 400, "item 5a"),
     (None, b"{not json", 400, "JSON"),
     ([1, 2], None, 400, "JSON object"),

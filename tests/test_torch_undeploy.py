@@ -9,6 +9,11 @@ deploy process that exits after it; ``ServerConfig`` read and refused.
 * ``python -m predictionio_tpu_torch.cli.main deploy --device cpu`` in
   a child process answers queries, and exits 0 after ``undeploy`` and
   after SIGTERM; a second ``deploy`` on the same port ends the first;
+* ``deploy --canary`` (and ``--no-admission --no-adaptive-wait``) runs,
+  and SIGTERM drains it: the requests in flight (``PIO_CHAOS`` holds
+  each one 400 ms) all end 200, a new one gets 503 with
+  ``Retry-After``, and the child exits 0; ``eventserver --no-admission``
+  serves without the admission families and drains on SIGTERM too;
 * ``ServerConfig.from_env`` reads what the JAX package reads (env over
   ``$PIO_CONF_DIR/server.json``), and every verb that binds an HTTP
   server, and ``undeploy``, refuses key auth and TLS, naming ROADMAP.md
@@ -177,8 +182,10 @@ def test_undeploy_existing_across_packages(store):
         es.close()
 
 
-def _deploy_child(base: pathlib.Path, port: int, name: str):
-    env = dict(os.environ, PIO_FS_BASEDIR=str(base), PYTHONPATH=str(ROOT))
+def _deploy_child(base: pathlib.Path, port: int, name: str,
+                  flags=(), extra_env=None):
+    env = dict(os.environ, PIO_FS_BASEDIR=str(base), PYTHONPATH=str(ROOT),
+               **(extra_env or {}))
     for k in list(env):
         if k.startswith("PIO_STORAGE_"):
             del env[k]
@@ -186,7 +193,8 @@ def _deploy_child(base: pathlib.Path, port: int, name: str):
     proc = subprocess.Popen(
         [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
          "--variant", str(base / "engine.json"), "--device", "cpu",
-         "--ip", "127.0.0.1", "--port", str(port), "--max-batch", "4"],
+         "--ip", "127.0.0.1", "--port", str(port), "--max-batch", "4",
+         *flags],
         stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
     out.close()
     return proc, base / f"{name}.log"
@@ -238,6 +246,79 @@ def test_deploy_child_exits_on_sigterm(store):
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0, log.read_text()[-3000:]
         assert _refused(port)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _request(port, body, path="/queries.json"):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--canary"], ["--no-admission", "--no-adaptive-wait"]])
+def test_deploy_child_drains_on_sigterm(store, flags):
+    import concurrent.futures
+
+    base, _ = store
+    port = _free_port()
+    proc, log = _deploy_child(
+        base, port, "drain-" + flags[0].strip("-"), flags,
+        {"PIO_CHAOS": "latency:p=1,ms=400", "PIO_DRAIN_GRACE_S": "20"})
+    try:
+        _listening(proc, log, port)
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            inflight = [pool.submit(_request, port, {"user": f"u{i}",
+                                                     "num": 2})
+                        for i in range(4)]
+            time.sleep(0.2)
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(0.05)
+            refused = _request(port, {"user": "u1", "num": 2})
+            assert [f.result(30)[0] for f in inflight] == [200] * 4
+        assert refused[0] == 503 and refused[1]["Retry-After"] == "1"
+        assert proc.wait(timeout=60) == 0, log.read_text()[-3000:]
+        assert _refused(port)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def test_eventserver_without_admission_drains_on_sigterm(tmp_path):
+    port = _free_port()
+    env = dict(os.environ, PIO_FS_BASEDIR=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    for k in list(env):
+        if k.startswith("PIO_STORAGE_"):
+            del env[k]
+    out = open(tmp_path / "es.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+         "eventserver", "--ip", "127.0.0.1", "--port", str(port),
+         "--no-admission"],
+        stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+    out.close()
+    log = tmp_path / "es.log"
+    try:
+        line = f"Event server is listening on 127.0.0.1:{port}"
+        assert _wait(lambda: line in log.read_text()
+                     or proc.poll() is not None, 60), log.read_text()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as resp:
+            text = resp.read().decode()
+        assert "pio_http_requests_total" in text
+        assert "pio_admission_limit" not in text
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, log.read_text()[-3000:]
     finally:
         if proc.poll() is None:
             proc.kill()
