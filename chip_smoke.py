@@ -173,8 +173,38 @@ and PyTorch built for CUDA. In order:
    with 16 queries held in the server: every one ends 200, a new one
    gets 503, ``pio_server_draining`` reads 1, and the listener ends
    within ``PIO_DRAIN_GRACE_S``; each number on a line beside the card;
-15. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-14) and, last, the device line.
+15. serves many tenants from one card (JAX ``scripts/serving_bench.py
+   --density`` and ``scripts/density_smoke.py``, over HTTP): 8 tenants
+   at phase 4's width (random factors from seed + t), each a generation
+   of its own engine variant in a local model store, behind
+   ``create_engine_server(tenants=...)`` with a ``ModelPool`` whose
+   budget is 2.5 f32 tenants, once with f32, bf16 and int8 + scale
+   tables: the preload leaves the tenants that fit resident, then 64 /
+   128 / 256 ``/queries.json`` (num 10) from 8 threads (cut from 256 for
+   f32 and bf16: cold loads), tenants Zipf(1.0), users
+   uniform, half naming the tenant by ``accessKey`` and half by
+   ``X-PIO-Tenant``; every answer a 200 equal to the plain top-k on that
+   tenant's tables in that form; evictions during the f32 and bf16
+   traffic; at least twice the f32 tenants resident at int8; int8
+   recall@10 against the f32 ranking at least 0.99; each form's kernel
+   launched; the card's memory back to its level after each server
+   closes. The f32 pass also posts one batch request per tenant and,
+   mid-traffic, publishes a new generation of tenant t0 and reloads t0
+   alone (its generation gauge advances, its later answers are the new
+   factors', the other tenants keep answering 200). The int8 pass runs
+   under TLS and the server key (a certificate made here): an HTTPS
+   answer equal to the plain top-k, keyless ``/reload`` and ``/stop``
+   401, a ``/debug/profile`` capture during traffic whose
+   ``torch.profiler`` trace names the kernel, an overlapping capture
+   409, and ``undeploy_existing`` with the key stopping the server.
+   Then 16 queries to a single-tenant server with feedback leave 16
+   ``predict`` events whose ids are the answers' ``prId``s. Each number
+   (bytes per tenant from ``model_resident_bytes`` and from
+   ``memory_allocated``, tenants resident, cold-load seconds, hit and
+   miss p50, evictions, answers/s, tenants per card as arithmetic) on a
+   line beside the card;
+16. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-15) and, last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -194,6 +224,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -3568,11 +3599,15 @@ class _Client:
     headers phase 14 reads, body bytes, seconds). A connection the
     server reset or dropped raises: the request is never sent again."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, tls=None):
         import http.client
 
-        self.conn = http.client.HTTPConnection("127.0.0.1", port,
-                                               timeout=300)
+        if tls is None:
+            self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                   timeout=300)
+        else:
+            self.conn = http.client.HTTPSConnection(
+                "127.0.0.1", port, timeout=300, context=tls)
 
     def post(self, path: str, body, headers=None):
         t0 = time.perf_counter()
@@ -3687,8 +3722,9 @@ def _pct(values, q: float) -> float:
     return float(np.percentile(values, q)) * 1e3 if len(values) else 0.0
 
 
-def _publish_next(storage, model) -> str:
-    """One more COMPLETED generation of ``model`` in ``storage``."""
+def _publish_next(storage, model, variant: str = "default") -> str:
+    """One more COMPLETED generation of ``model`` in ``storage``, under
+    engine variant ``variant``."""
     from predictionio_tpu_torch.core.persistence import (
         publish_generation,
         serialize_models,
@@ -3700,7 +3736,7 @@ def _publish_next(storage, model) -> str:
     iid = storage.get_meta_data_engine_instances().insert(EngineInstance(
         id="", status="COMPLETED", start_time=now, end_time=now,
         engine_id="chip-smoke", engine_version="1",
-        engine_variant="default", engine_factory="recommendation",
+        engine_variant=variant, engine_factory="recommendation",
     ))
     publish_generation(storage.get_model_data_models(), iid,
                        serialize_models(iid, [ALSAlgorithm()], [model]))
@@ -4148,6 +4184,701 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     out["launches"] = dict(fused_topk.LAUNCHES)
     return out
 
+# -- phase 15: many tenants, one card ------------------------------------------
+
+#: tenants at phase 4's width, the pool budget in f32 tenants (JAX
+#: scripts/serving_bench.py --density sets 2.5), requests per form,
+#: client threads, the Zipf exponent over tenants. The f32 and bf16
+#: counts are cut from 256: at 256 a form, 85 f32 cold loads of 0.95-2.26
+#: s each made phase 15 take 197.5 s on an H100 80GB HBM3 at 700 W.
+POOL_TENANTS = 8
+POOL_BUDGET_TENANTS = 2.5
+POOL_REQUESTS = {"f32": 64, "bf16": 128, "int8": 256}
+POOL_THREADS = 8
+POOL_ZIPF = 1.0
+POOL_BATCH = 8
+POOL_KEY = "chip-smoke-server-key"
+FEEDBACK_QUERIES = 16
+#: what the allocator may hold beyond the pool's resident bytes (its
+#: 2 MiB blocks and the launches' small outputs)
+POOL_ALLOC_SLACK = 64 * 1024 * 1024
+
+
+def _pool_storage(workdir: str):
+    """Memory metadata and events, localfs models under ``workdir``."""
+    from predictionio_tpu_torch.data.storage import Storage
+
+    return Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": workdir,
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+
+
+def _make_cert(workdir: str) -> tuple[str, str]:
+    """A self-signed certificate for localhost: with ``cryptography``
+    where it is installed, else with the ``openssl`` command; neither
+    is a failure of the phase."""
+    cert = os.path.join(workdir, "cert.pem")
+    key = os.path.join(workdir, "key.pem")
+    try:
+        from cryptography import x509
+        from cryptography.hazmat.primitives import hashes, serialization
+        from cryptography.hazmat.primitives.asymmetric import rsa
+        from cryptography.x509.oid import NameOID
+    except ImportError:
+        openssl = shutil.which("openssl")
+        if openssl is None:
+            raise RuntimeError(
+                "phase 15 cannot make a TLS certificate: neither the "
+                "cryptography package nor the openssl command is here")
+        subprocess.run(
+            [openssl, "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", key, "-out", cert, "-days", "2", "-subj",
+             "/CN=localhost"],
+            check=True, capture_output=True, timeout=120)
+        return cert, key
+    pkey = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = dt.datetime.now(dt.timezone.utc)
+    built = (
+        x509.CertificateBuilder().subject_name(name).issuer_name(name)
+        .public_key(pkey.public_key())
+        .serial_number(x509.random_serial_number())
+        .not_valid_before(now - dt.timedelta(days=1))
+        .not_valid_after(now + dt.timedelta(days=2))
+        .sign(pkey, hashes.SHA256())
+    )
+    with open(cert, "wb") as f:
+        f.write(built.public_bytes(serialization.Encoding.PEM))
+    with open(key, "wb") as f:
+        f.write(pkey.private_bytes(
+            serialization.Encoding.PEM,
+            serialization.PrivateFormat.TraditionalOpenSSL,
+            serialization.NoEncryption()))
+    return cert, key
+
+
+def _tls_client_context():
+    import ssl
+
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    return ctx
+
+
+def _staged_tables(model, form: str, device):
+    """(users as served, items as served, scale) of a tenant's model in
+    ``form``: quantized like the server's tables, the user rows
+    dequantized as serving dequantizes them."""
+    from predictionio_tpu_torch.ops.quantize import (
+        dequantize,
+        quantize_factors,
+    )
+
+    users = torch.as_tensor(model.user_factors).to(device)
+    items = torch.as_tensor(model.item_factors).to(device)
+    if not form:
+        return users, items, None
+    qf = quantize_factors(items, form)
+    return dequantize(quantize_factors(users, form)), qf.data, qf.scale
+
+
+def _check_pooled(rows, model, form: str, device, recall=None) -> dict:
+    """Hold (user index, answer) rows of one tenant's generation against
+    the plain top-k on its tables in ``form``, 512 rows a call; with
+    ``recall`` (a list) also append each row's recall@10 against the f32
+    ranking, as phase 4 ranks it."""
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.ops.quantize import recall_at_k
+
+    users, items, scale = _staged_tables(model, form, device)
+    f32_items = (torch.as_tensor(model.item_factors).to(device)
+                 if recall is not None else None)
+    out = {"answers_checked": 0, "tied_mismatches": 0, "max_abs_err": 0.0}
+    for lo in range(0, len(rows), 512):
+        chunk = rows[lo:lo + 512]
+        uids = torch.tensor([u for u, _ in chunk], device=device)
+        got_i = torch.tensor(
+            [[int(e["item"][1:]) for e in ans["itemScores"]]
+             for _u, ans in chunk], dtype=torch.int32, device=device)
+        got_s = torch.tensor(
+            [[e["score"] for e in ans["itemScores"]] for _u, ans in chunk],
+            device=device)
+        q = users[uids]
+        want = fused_topk.fused_top_k_dot_reference(q, items, 10, None,
+                                                    scale)
+        res = compare(q, items.float(), scale, None, 10, (got_s, got_i),
+                      want)
+        out["answers_checked"] += len(chunk)
+        out["tied_mismatches"] += res["tied_mismatches"]
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+        if recall is not None:
+            ref = fused_topk.fused_top_k_dot_reference(q, f32_items, 10)[1]
+            recall.append((recall_at_k(ref.cpu().numpy(),
+                                       got_i.cpu().numpy()), len(chunk)))
+    return out
+
+
+def _pool_plan(n: int, n_tenants: int, n_users: int, seed: int) -> list:
+    """``n`` (tenant, user index, route) draws: tenants Zipf(POOL_ZIPF)
+    over the ranks, users uniform, every other request naming its
+    tenant by ``accessKey`` and the rest by ``X-PIO-Tenant``."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, n_tenants + 1, dtype=np.float64) ** -POOL_ZIPF
+    tenants = rng.choice(n_tenants, size=n, p=p / p.sum())
+    users = rng.integers(0, n_users, size=n)
+    return [(f"t{int(t)}", int(u), "key" if i % 2 == 0 else "header")
+            for i, (t, u) in enumerate(zip(tenants, users))]
+
+
+def _pool_traffic(port: int, plan: list, tls=None, midway=None) -> list:
+    """POST the plan's queries from POOL_THREADS keep-alive clients; the
+    main thread runs ``midway`` once half of them are answered, and in
+    the second half every other query of tenant t0 waits for it to end
+    (so t0 has answers from after it, and others racing it). Returns
+    one (tenant, user, status, raw, sent, done, request id) per plan
+    entry; raises what a client raised."""
+    import threading
+
+    gate = threading.Event()
+    if midway is None:
+        gate.set()
+    results = [None] * len(plan)
+    lock = threading.Lock()
+    state = {"next": 0, "done": 0}
+    errors = []
+
+    def worker() -> None:
+        try:
+            client = _Client(port, tls)
+            try:
+                while True:
+                    with lock:
+                        i = state["next"]
+                        state["next"] += 1
+                    if i >= len(plan):
+                        return
+                    tenant, user, route = plan[i]
+                    if (tenant == "t0" and i % 2 and i >= len(plan) // 2
+                            and not gate.wait(600)):
+                        raise RuntimeError("the midway step never ended")
+                    rid = f"pool-{port}-{i}"
+                    path = "/queries.json"
+                    headers = {"X-Request-ID": rid}
+                    if route == "key":
+                        path += f"?accessKey={tenant}"
+                    else:
+                        headers["X-PIO-Tenant"] = tenant
+                    sent = time.perf_counter()
+                    status, _seen, raw, s = client.post(
+                        path, {"user": f"u{user}", "num": 10}, headers)
+                    results[i] = (tenant, user, status, raw, sent,
+                                  sent + s, rid)
+                    with lock:
+                        state["done"] += 1
+            finally:
+                client.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised after join
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(POOL_THREADS)]
+    for t in threads:
+        t.start()
+    if midway is not None:
+        while state["done"] < len(plan) // 2 and not errors and any(
+                t.is_alive() for t in threads):
+            time.sleep(0.005)
+        try:
+            midway()
+        finally:
+            gate.set()
+    for t in threads:
+        t.join(600)
+        assert not t.is_alive(), "a pool client never ended"
+    if errors:
+        raise RuntimeError(
+            f"{len(errors)} of {POOL_THREADS} pool clients failed"
+        ) from errors[0]
+    assert all(r is not None for r in results), "a pool query went missing"
+    return results
+
+
+def _post_json(base: str, path: str, body, headers=None, tls=None):
+    """(status, parsed body) of one POST."""
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        method="POST", headers={"Content-Type": "application/json",
+                                **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=300, context=tls) as resp:
+            return resp.status, json.loads(resp.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def _pool_pass(device, storage, models, form: str, seed: int, budget: int,
+               tls_files=None, reload_model=None) -> dict:
+    """One multi-tenant server over a pool of ``budget`` bytes, its
+    tables in ``form`` ("" = f32): the preload (the tenants resident
+    under the budget), the form's POOL_REQUESTS routed queries from POOL_THREADS
+    threads, every answer held against the plain top-k; the f32 pass
+    also posts a batch request per tenant and, mid-traffic, publishes
+    ``reload_model`` as tenant t0's next generation and reloads t0 alone;
+    the pass with ``tls_files`` runs under TLS and the server key."""
+    import threading
+
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.obs import MetricRegistry
+    from predictionio_tpu_torch.obs.context import get_request_id
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.config import ServerConfig
+    from predictionio_tpu_torch.serving.engine_server import (
+        EngineServer,
+        create_engine_server,
+        undeploy_existing,
+    )
+    from predictionio_tpu_torch.serving.modelpool import ModelPool
+
+    name = form or "f32"
+    cuda = device.type == "cuda"
+    n_tenants = len(models)
+    n_users = len(next(iter(models.values())).user_map)
+    tenants = {f"t{t}": f"v{t}" for t in range(n_tenants)}
+    config = ServerConfig()
+    tls = None
+    if tls_files is not None:
+        config = ServerConfig(
+            key_auth_enforced=True, access_key=POOL_KEY, ssl_enabled=True,
+            ssl_certfile=tls_files[0], ssl_keyfile=tls_files[1])
+        tls = _tls_client_context()
+    key_header = {"X-PIO-Server-Key": POOL_KEY}
+
+    def alloc() -> int:
+        if not cuda:
+            return 0
+        torch.cuda.synchronize(device)
+        return torch.cuda.memory_allocated(device)
+
+    loads = []  # (seconds, allocated bytes delta)
+    real_loader = EngineServer._tenant_loader
+
+    def timed_loader(self, tenant):
+        load = real_loader(self, tenant)
+
+        def timed():
+            a0, t0 = alloc(), time.perf_counter()
+            value = load()
+            loads.append((time.perf_counter() - t0, alloc() - a0))
+            return value
+
+        return timed
+
+    registry = MetricRegistry()
+    pool = ModelPool(budget, registry=registry)
+    hits, lock = {}, threading.Lock()
+    real_pin = pool.pin
+
+    def pin(tenant, loader, timeout=None):
+        # a query's lookup is a hit when its tenant is resident as it
+        # asks; its request id joins the answer's latency to that
+        with pool._lock:
+            resident = tenant in pool._entries
+        rid = get_request_id()
+        if rid is not None:
+            with lock:
+                hits[rid] = resident
+        return real_pin(tenant, loader, timeout)
+
+    pool.pin = pin
+    engine = recommendation_engine()
+    params = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    out: dict = {"form": name, "tls": tls is not None}
+    base_alloc = alloc()
+    launches0 = dict(fused_topk.LAUNCHES)
+    EngineServer._tenant_loader = timed_loader
+    es = None
+    try:
+        t0 = time.perf_counter()
+        es, http = create_engine_server(
+            engine, params, "chip-smoke", host="127.0.0.1", port=0,
+            storage=storage, ctx=ComputeContext.create(device=device),
+            max_batch=64, max_wait_ms=2.0, tenants=tenants, pool=pool,
+            quantize=form, registry=registry, server_config=config)
+        http.start()
+        out["startup_s"] = time.perf_counter() - t0
+        port = http.port
+        base = f"{'https' if tls else 'http'}://127.0.0.1:{port}"
+        stats = pool.stats()
+        out["tenants_resident"] = stats["tenantsResident"]
+        per_tenant = {s["residentBytes"] for s in stats["tenants"].values()}
+        assert len(per_tenant) == 1, per_tenant
+        out["tenant_bytes"] = per_tenant.pop()
+        out["preload_alloc_deltas"] = [d for _s, d in loads]
+        out["alloc_after_preload"] = alloc() - base_alloc
+        out["resident_bytes"] = stats["residentBytes"]
+        if cuda:
+            # the evicted tenants' tables are gone from the card
+            assert out["alloc_after_preload"] <= (
+                stats["residentBytes"] + POOL_ALLOC_SLACK), out
+        evictions0 = _family(registry, "pio_pool_evictions_total")
+
+        plan = _pool_plan(POOL_REQUESTS[name], n_tenants, n_users,
+                          seed + {"": 1, "bf16": 2, "int8": 3}[form])
+        reload = {}
+
+        def midway():
+            # one batch request per tenant, then t0's new generation
+            # and its reload, while the clients keep posting
+            rng = np.random.default_rng(seed + 21)
+            batches = {}
+            for t in tenants:
+                qs = [{"user": f"u{int(u)}", "num": 10}
+                      for u in rng.integers(0, n_users, POOL_BATCH)]
+                status, body = _post_json(
+                    base, f"/batch/queries.json?accessKey={t}", qs, tls=tls)
+                assert status == 200 and all(
+                    r["status"] == 200 for r in body), (t, status, body)
+                batches[t] = [(int(q["user"][1:]), r["prediction"])
+                              for q, r in zip(qs, body)]
+            reload["batches"] = batches
+            gen0 = _family(registry, "pio_model_generation", tenant="t0")
+            _publish_next(storage, reload_model, "v0")
+            reload["sent"] = time.perf_counter()
+            status, body = _post_json(base, "/reload", {"tenant": "t0"},
+                                      key_header, tls)
+            reload["done"] = time.perf_counter()
+            assert status == 200 and body["tenant"] == "t0", body
+            gen1 = _family(registry, "pio_model_generation", tenant="t0")
+            assert gen1 > gen0, (gen0, gen1)
+            reload["generation"] = (gen0, gen1)
+
+        t0 = time.perf_counter()
+        results = _pool_traffic(port, plan, tls,
+                                midway if reload_model is not None else None)
+        traffic_s = time.perf_counter() - t0
+        statuses = sorted({r[2] for r in results})
+        assert statuses == [200], statuses
+        out["requests"] = len(results)
+        out["answers_per_s"] = len(results) / traffic_s
+        out["evictions"] = _family(registry, "pio_pool_evictions_total") - (
+            evictions0)
+        lat_hit = [r[5] - r[4] for r in results if hits.get(r[6]) is True]
+        lat_miss = [r[5] - r[4] for r in results if hits.get(r[6]) is False]
+        out["hits"], out["misses"] = len(lat_hit), len(lat_miss)
+        out["hit_p50_ms"] = _pct(lat_hit, 50)
+        out["miss_p50_ms"] = _pct(lat_miss, 50)
+        out["load_s"] = [s for s, _d in loads]
+
+        # every answer against the plain top-k of the generation that
+        # served it: t0's answers sent after its reload came back are
+        # the new generation's, those answered before it was sent the
+        # old one's, and one in between may be either's
+        recall = [] if form == "int8" else None
+        checks = []
+        by_tenant: dict = {}
+        for tenant, user, _st, raw, sent, done, _rid in results:
+            by_tenant.setdefault(tenant, []).append(
+                (user, json.loads(raw), sent, done))
+        for tenant, rows in sorted(by_tenant.items()):
+            model = models[tenant]
+            if tenant == "t0" and reload:
+                old = [(u, a) for u, a, s, d in rows if d < reload["sent"]]
+                new = [(u, a) for u, a, s, d in rows if s > reload["done"]]
+                either = [(u, a) for u, a, s, d in rows
+                          if d >= reload["sent"] and s <= reload["done"]]
+                checks.append(_check_pooled(old, model, form, device))
+                checks.append(_check_pooled(new, reload_model, form,
+                                            device))
+                for row in either:
+                    try:
+                        checks.append(_check_pooled([row], model, form,
+                                                    device))
+                    except AssertionError:
+                        checks.append(_check_pooled([row], reload_model,
+                                                    form, device))
+                out["t0_old_new_either"] = [len(old), len(new),
+                                            len(either)]
+                assert new, "no answer of t0 after its reload"
+                continue
+            checks.append(_check_pooled([(u, a) for u, a, _s, _d in rows],
+                                        model, form, device, recall))
+        if reload:
+            # posted before the reload: every tenant's first generation
+            for tenant, rows in reload["batches"].items():
+                checks.append(_check_pooled(rows, models[tenant], form,
+                                            device))
+            out["reload_generation"] = reload["generation"]
+            out["batch_answers"] = sum(len(r) for r in
+                                       reload["batches"].values())
+        out["answers_checked"] = sum(c["answers_checked"] for c in checks)
+        out["tied_mismatches"] = sum(c["tied_mismatches"] for c in checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        if recall is not None:
+            out["recall_at_10"] = (sum(r * n for r, n in recall)
+                                   / sum(n for _r, n in recall))
+            assert out["recall_at_10"] >= 0.99, out["recall_at_10"]
+
+        if tls is not None:
+            out.update(_tls_checks(base, port, tls, config, models, form,
+                                   device, n_users))
+            assert not _listening(port), "undeploy left the TLS server up"
+    finally:
+        EngineServer._tenant_loader = real_loader
+        if es is not None:
+            es.close()
+        pool.close()
+    out["launched"] = {f: fused_topk.LAUNCHES[f] - launches0[f]
+                       for f in FORMS}
+    assert out["launched"][name] > 0, f"{name}: no launch while pooled"
+    out["alloc_after_close"] = alloc() - base_alloc
+    if cuda:
+        assert out["alloc_after_close"] <= POOL_ALLOC_SLACK, out
+    return out
+
+
+def _listening(port: int) -> bool:
+    import socket
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=2):
+            return True
+    except OSError:
+        return False
+
+
+def _tls_checks(base, port, tls, config, models, form, device,
+                n_users) -> dict:
+    """Under TLS and the server key: an HTTPS answer equal to the plain
+    top-k, keyless /reload and /stop 401, a ``/debug/profile`` capture
+    during traffic whose trace names the kernel, an overlapping capture
+    409, and ``undeploy_existing`` with the key stopping the server."""
+    import base64
+    import io
+    import tarfile
+    import threading
+
+    from predictionio_tpu_torch.serving.engine_server import (
+        undeploy_existing,
+    )
+
+    key_header = {"X-PIO-Server-Key": POOL_KEY}
+    out = {}
+    status, ans = _post_json(base, "/queries.json?accessKey=t1",
+                             {"user": "u3", "num": 10}, tls=tls)
+    assert status == 200, ans
+    _check_pooled([(3, ans)], models["t1"], form, device)
+    out["keyless"] = [
+        _post_json(base, "/reload", {"tenant": "t1"}, tls=tls)[0],
+        _post_json(base, "/stop", None, tls=tls)[0],
+        _post_json(base, "/reload?accessKey=t1", {}, tls=tls)[0],
+    ]
+    assert out["keyless"] == [401, 401, 401], out["keyless"]
+
+    stop = threading.Event()
+
+    def traffic() -> None:
+        client = _Client(port, tls)
+        rng = np.random.default_rng(77)
+        try:
+            while not stop.is_set():
+                t = int(rng.integers(0, len(models)))
+                status, _seen, _raw, _s = client.post(
+                    f"/queries.json?accessKey=t{t}",
+                    {"user": f"u{int(rng.integers(0, n_users))}",
+                     "num": 10})
+                assert status == 200, status
+        finally:
+            client.close()
+
+    background = threading.Thread(target=traffic, daemon=True)
+    background.start()
+    captured = {}
+
+    def capture(name: str, ms: float) -> None:
+        captured[name] = _post_json(base, "/debug/profile",
+                                    {"durationMs": ms}, key_header, tls)
+
+    names = []
+    try:
+        for attempt in range(2):
+            first = threading.Thread(target=capture, args=("long", 1500.0))
+            first.start()
+            time.sleep(0.3)
+            capture("overlap", 100.0)
+            first.join(120)
+            assert not first.is_alive(), "the profile capture never ended"
+            assert captured["overlap"][0] == 409, captured["overlap"]
+            status, body = captured["long"]
+            assert status == 200, body
+            bundle = base64.b64decode(body["bundle"])
+            names = []
+            with tarfile.open(fileobj=io.BytesIO(bundle),
+                              mode="r:gz") as tar:
+                for member in tar.getmembers():
+                    if member.name.endswith(".trace.json"):
+                        text = tar.extractfile(member).read().decode(
+                            "utf-8", "replace")
+                        names += [k for k in ("topk_pass1", "topk_pass2")
+                                  if k in text]
+            out["profile_bytes"] = len(bundle)
+            out["profile_attempts"] = attempt + 1
+            if names or device.type != "cuda":
+                break
+    finally:
+        stop.set()
+        background.join(60)
+    out["profile_kernels"] = sorted(set(names))
+    if device.type == "cuda":
+        assert "topk_pass1" in names, "the profile names no fused kernel"
+    out["undeployed"] = undeploy_existing("127.0.0.1", port, config)
+    assert out["undeployed"] is True
+    deadline = time.perf_counter() + 30
+    while _listening(port) and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    return out
+
+
+def _feedback_check(device, storage, model, seed: int) -> dict:
+    """FEEDBACK_QUERIES queries to a single-tenant server with feedback:
+    each answer's prId names one stored ``predict`` event of entity
+    ``pio_pr``, which holds that query."""
+    from predictionio_tpu_torch.data.storage import App
+    from predictionio_tpu_torch.models.recommendation import (
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.config import ServerConfig
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    app_id = storage.get_meta_data_apps().insert(App(0, "chip-feedback"))
+    storage.get_events().init(app_id)
+    engine = recommendation_engine()
+    params = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    es, http = create_engine_server(
+        engine, params, "chip-smoke", host="127.0.0.1", port=0,
+        engine_variant="v1", storage=storage,
+        ctx=ComputeContext.create(device=device), max_batch=64,
+        feedback=True, feedback_app_id=app_id, server_config=ServerConfig())
+    http.start()
+    rng = np.random.default_rng(seed + 31)
+    n_users = len(model.user_map)
+    rows, pr_ids = [], []
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        for u in rng.integers(0, n_users, FEEDBACK_QUERIES):
+            status, ans = _post_json(base, "/queries.json",
+                                     {"user": f"u{int(u)}", "num": 10})
+            assert status == 200, ans
+            pr_ids.append(ans.pop("prId"))
+            rows.append((int(u), ans))
+    finally:
+        es.close()
+    events = list(storage.get_events().find(app_id, entity_type="pio_pr"))
+    assert sorted(e.entity_id for e in events) == sorted(pr_ids), (
+        len(events), len(pr_ids))
+    assert all(e.event == "predict" for e in events)
+    check = _check_pooled(rows, model, "", device)
+    return {"queries": FEEDBACK_QUERIES, "events": len(events),
+            "answers_checked": check["answers_checked"]}
+
+
+def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
+               n_items: int = N_ITEMS) -> dict:
+    """Phase 15: many tenants on one card (JAX scripts/serving_bench.py
+    --density and scripts/density_smoke.py, over HTTP)."""
+    from predictionio_tpu_torch.ops import fused_topk
+
+    out: dict = {"tenants": POOL_TENANTS}
+    storage = _pool_storage(workdir)
+    t0 = time.perf_counter()
+    models = {}
+    for t in range(POOL_TENANTS):
+        models[f"t{t}"] = make_model(n_users, n_items, RANK, seed + t)
+        _publish_next(storage, models[f"t{t}"], f"v{t}")
+    out["publish_s"] = time.perf_counter() - t0
+    f32_bytes = (n_users + n_items) * RANK * 4
+    budget = int(POOL_BUDGET_TENANTS * f32_bytes)
+    out["budget_bytes"] = budget
+    tls_files = _make_cert(workdir)
+    fused_topk.reset_launch_counts()
+    passes = {}
+    for form in ("", "bf16", "int8"):
+        t_pass = time.perf_counter()
+        reload_model = None
+        if not form:
+            reload_model = make_model(n_users, n_items, RANK, seed + 100)
+        passes[form or "f32"] = _pool_pass(
+            device, storage, models, form, seed, budget,
+            tls_files=tls_files if form == "int8" else None,
+            reload_model=reload_model)
+        if reload_model is not None:
+            # t0's newest generation from here on
+            models["t0"] = reload_model
+        passes[form or "f32"]["pass_s"] = time.perf_counter() - t_pass
+        log(f"pool pass {form or 'f32'}: "
+            f"{json.dumps(passes[form or 'f32'])}")
+    out["passes"] = passes
+    for form in ("f32", "bf16"):
+        assert passes[form]["evictions"] > 0, (form, passes[form])
+    assert passes["int8"]["tenants_resident"] >= (
+        2 * passes["f32"]["tenants_resident"]), passes
+    out["feedback"] = _feedback_check(device, storage, models["t1"], seed)
+    out["launches"] = dict(fused_topk.LAUNCHES)
+    if device.type == "cuda":
+        out["card_total_bytes"] = torch.cuda.mem_get_info(device)[1]
+    return out
+
+
+def log_pool(p: dict, smi: str) -> None:
+    """Each phase 15 number on a line of its own, beside the card."""
+    total = p.get("card_total_bytes")
+    for form, r in p["passes"].items():
+        tag = f"pool [{smi}] {form}{' (TLS)' if r['tls'] else ''}"
+        deltas = sorted(r["preload_alloc_deltas"])
+        log(f"{tag} bytes_per_tenant model_resident_bytes="
+            f"{r['tenant_bytes']} memory_allocated_delta_median="
+            f"{deltas[len(deltas) // 2] if deltas else 0}")
+        log(f"{tag} tenants_resident={r['tenants_resident']} of "
+            f"{p['tenants']} under budget_bytes={p['budget_bytes']}")
+        loads = sorted(r["load_s"])
+        log(f"{tag} cold_load_s p50={loads[len(loads) // 2]:.3f} "
+            f"max={loads[-1]:.3f} loads={len(loads)}")
+        log(f"{tag} query p50_ms hit={r['hit_p50_ms']:.3f} "
+            f"({r['hits']}) miss={r['miss_p50_ms']:.3f} ({r['misses']})")
+        log(f"{tag} requests={r['requests']} evictions={r['evictions']:.0f} "
+            f"answers_per_s={r['answers_per_s']:.1f} "
+            f"answers_checked={r['answers_checked']} "
+            f"max_abs_err={r['max_abs_err']:.3g}")
+        if total:
+            log(f"{tag} tenants_per_card (arithmetic, not a load: "
+                f"floor(0.5 x {total} / {r['tenant_bytes']}))="
+                f"{int(0.5 * total // r['tenant_bytes'])}")
+    f = p["passes"]["f32"]
+    log(f"pool [{smi}] f32 reload of t0: generation "
+        f"{f['reload_generation'][0]:.0f} -> {f['reload_generation'][1]:.0f}"
+        f", t0 answers old/new/either {f['t0_old_new_either']}")
+    i = p["passes"]["int8"]
+    log(f"pool [{smi}] int8 recall_at_10={i['recall_at_10']:.4f}; TLS: "
+        f"keyless {i['keyless']}, profile kernels {i['profile_kernels']} "
+        f"({i['profile_bytes']} bytes), undeployed={i['undeployed']}")
+    fb = p["feedback"]
+    log(f"pool [{smi}] feedback {fb['queries']} queries -> {fb['events']} "
+        f"predict events")
+
 
 def log_server(s: dict, smi: str) -> None:
     """Each phase 14 number on a line of its own, beside the card."""
@@ -4462,13 +5193,23 @@ def main() -> int:
     log(f"phase server: ok ({server['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-pool-") as d:
+        pool = pool_phase(device, d, args.seed)
+    pool["phase_s"] = time.perf_counter() - t_phase
+    log("pool " + json.dumps(pool))
+    log_pool(pool, smi)
+    log(f"phase pool: ok ({pool['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
-    # 11, 12, the console's children in 13 and the server of 14
+    # 11, 12, the console's children in 13, the server of 14 and the
+    # tenants of 15
     for run in (dase, *ingest.values(), evaluation, similar,
-                templates["ecommerce"], trainer, cli, server):
+                templates["ecommerce"], trainer, cli, server, pool):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-14: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-15: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

@@ -20,9 +20,8 @@ never drops to the CPU unasked. ``trace``, ``timeline``, ``profile`` and
 ``status --metrics-url`` are pure HTTP and never import torch.
 
 A verb or option that needs a part of the system not ported yet exits 1
-naming its ROADMAP.md item before doing anything: the serving features
-of one server (item 5a), the fleet (5b), the networked stores (3b) and
-more than one card (9).
+naming its ROADMAP.md item before doing anything: the fleet (item 5b),
+the networked stores (3b) and more than one card (9).
 """
 
 from __future__ import annotations
@@ -39,7 +38,6 @@ from predictionio_tpu_torch.version import __version__
 
 _ITEM = {
     "3b": "ROADMAP.md, queue 1, item 3b",
-    "5a": "ROADMAP.md, queue 1, item 5a",
     "5b": "ROADMAP.md, queue 1, item 5b",
     "9": "ROADMAP.md, queue 1, item 9",
 }
@@ -83,18 +81,6 @@ def _store_urls_refused(args) -> int:
     """1 (after printing why) when ``--store-url`` was given, else 0."""
     if getattr(args, "store_urls", None):
         return _refuse("--store-url (the replicated store tier)", "3b")
-    return 0
-
-
-def _server_config_refused(server: str) -> int:
-    """1 (after printing why) when the environment asks ``server`` for
-    key auth or TLS, which the port does not serve yet; else 0."""
-    from predictionio_tpu_torch.serving.config import ServerConfig
-
-    reason = ServerConfig.from_env().refusal(server)
-    if reason:
-        print(f"error: {reason}", file=sys.stderr)
-        return 1
     return 0
 
 
@@ -925,19 +911,6 @@ def cmd_eval(args) -> int:
     return 0
 
 
-#: deploy options of the JAX console that need the serving features of
-#: one server still to port (item 5a): flag → the parsed value that
-#: means "not asked"
-_DEPLOY_5A = {
-    "--feedback": ("feedback", False),
-    "--event-server-app": ("event_server_app", None),
-    "--log-url": ("log_url", ""),
-    "--log-prefix": ("log_prefix", ""),
-    "--tenant": ("tenant", []),
-    "--pool-budget-bytes": ("pool_budget_bytes", 0),
-}
-
-
 def _fleet_flags_refused(args, verb: str) -> int:
     """1 (after printing why) for ``--workers > 1`` / ``--reuse-port``,
     the SO_REUSEPORT worker fleet (item 5b); else 0."""
@@ -974,30 +947,65 @@ def cmd_deploy(args) -> int:
             file=sys.stderr,
         )
         return 1
-    asked = [
-        flag for flag, (dest, unset) in _DEPLOY_5A.items()
-        if getattr(args, dest) != unset
-    ]
-    if asked:
-        return _refuse(f"deploy {', '.join(asked)}", "5a")
     if _fleet_flags_refused(args, "deploy"):
         return 1
-    if _server_config_refused("deploy"):
-        return 1
+
+    tenants = None
+    if args.tenant:
+        tenants = {}
+        for spec in args.tenant:
+            name, sep, tenant_variant = spec.partition("=")
+            if not (sep and name and tenant_variant):
+                print(
+                    f"error: --tenant expects NAME=VARIANT, got {spec!r}",
+                    file=sys.stderr,
+                )
+                return 1
+            tenants[name] = tenant_variant
+        if args.canary:
+            print(
+                "error: --canary and --tenant are mutually exclusive "
+                "(per-tenant /reload replaces the canary gate)",
+                file=sys.stderr,
+            )
+            return 1
+        if args.pool_budget_bytes:
+            # the environment rather than a ModelPool of our own, so the
+            # server owns (and closes) the pool it builds
+            os.environ["PIO_POOL_BUDGET_BYTES"] = str(
+                args.pool_budget_bytes
+            )
 
     engine, params, engine_id, variant, variant_dict = _resolve(args)
+    feedback_app_id = None
+    if args.feedback:
+        from predictionio_tpu_torch.data.storage import get_storage
+
+        app = get_storage().get_meta_data_apps().get_by_name(
+            args.event_server_app or ""
+        )
+        if app is None:
+            raise SystemExit(
+                "error: --feedback requires --event-server-app <existing app>"
+            )
+        feedback_app_id = app.id
     server = EngineServer(
         engine,
         params,
         engine_id=engine_id,
         engine_variant=variant,
         ctx=_mesh_ctx(args, variant_dict),
+        feedback=args.feedback,
+        feedback_app_id=feedback_app_id,
+        log_url=args.log_url or None,
+        log_prefix=args.log_prefix,
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         pipeline_depth=args.pipeline_depth,
         adaptive_wait=not args.no_adaptive_wait,
         admission=not args.no_admission,
         canary=args.canary,
+        tenants=tenants,
         quantize=args.quantize,
     )
     http = server.serve(host=args.ip, port=args.port)
@@ -1018,8 +1026,6 @@ def cmd_trainer(args) -> int:
     import threading
 
     if _store_urls_refused(args):
-        return 1
-    if args.metrics_port and _server_config_refused("trainer --metrics-port"):
         return 1
     base_dir = args.checkpoint_dir or os.path.join(
         os.environ.get(
@@ -1096,6 +1102,7 @@ def cmd_trainer(args) -> int:
     http = None
     if args.metrics_port:
         from predictionio_tpu_torch.obs import get_registry, tracing
+        from predictionio_tpu_torch.serving.config import ServerConfig
         from predictionio_tpu_torch.serving.http import (
             HTTPServer,
             Router,
@@ -1103,7 +1110,10 @@ def cmd_trainer(args) -> int:
         )
 
         router = Router()
-        install_metrics_routes(router, get_registry(), tracing.get_tracer())
+        install_metrics_routes(
+            router, get_registry(), tracing.get_tracer(),
+            server_config=ServerConfig.from_env(),
+        )
         http = HTTPServer(
             router,
             host="127.0.0.1",
@@ -1129,13 +1139,12 @@ def cmd_trainer(args) -> int:
 
 
 def cmd_undeploy(args) -> int:
+    from predictionio_tpu_torch.serving.config import ServerConfig
     from predictionio_tpu_torch.serving.engine_server import (
         undeploy_existing,
     )
 
-    if _server_config_refused("undeploy"):
-        return 1
-    if undeploy_existing(args.ip, args.port):
+    if undeploy_existing(args.ip, args.port, ServerConfig.from_env()):
         print(f"Undeployed engine server at {args.ip}:{args.port}")
         return 0
     print(
@@ -1155,8 +1164,6 @@ def cmd_eventserver(args) -> int:
         return 1
     if _fleet_flags_refused(args, "eventserver"):
         return 1
-    if _server_config_refused("eventserver"):
-        return 1
     http = create_event_server(host=args.ip, port=args.port,
                                stats=args.stats,
                                admission=not args.no_admission)
@@ -1168,8 +1175,6 @@ def cmd_eventserver(args) -> int:
 def cmd_dashboard(args) -> int:
     from predictionio_tpu_torch.serving.dashboard import create_dashboard
 
-    if _server_config_refused("dashboard"):
-        return 1
     http = create_dashboard(host=args.ip, port=args.port)
     print(f"Dashboard is listening on {args.ip}:{http.port}", flush=True)
     return _serve_foreground(http)
@@ -1178,8 +1183,6 @@ def cmd_dashboard(args) -> int:
 def cmd_adminserver(args) -> int:
     from predictionio_tpu_torch.serving.admin import create_admin_server
 
-    if _server_config_refused("adminserver"):
-        return 1
     http = create_admin_server(host=args.ip, port=args.port)
     print(f"Admin server is listening on {args.ip}:{http.port}",
           flush=True)
@@ -1765,19 +1768,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="guard /reload with shadow-scored canary promotion + "
              "automatic rollback (PIO_CANARY_* env tunes the gate)",
     )
-    # the JAX console's serving-feature flags, refused (item 5a)
-    p.add_argument("--feedback", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--event-server-app", dest="event_server_app",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--log-url", dest="log_url", default="",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--log-prefix", dest="log_prefix", default="",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--tenant", action="append", default=[],
-                   metavar="NAME=VARIANT", help=argparse.SUPPRESS)
-    p.add_argument("--pool-budget-bytes", dest="pool_budget_bytes",
-                   type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--feedback", action="store_true",
+        help="store a predict event (entity pio_pr) for every answer "
+             "and return its prId (needs --event-server-app)",
+    )
+    p.add_argument("--event-server-app", dest="event_server_app")
+    p.add_argument(
+        "--log-url", dest="log_url", default="",
+        help="POST serving errors to this collector URL",
+    )
+    p.add_argument(
+        "--log-prefix", dest="log_prefix", default="",
+        help="prefix for remote error-log messages",
+    )
+    p.add_argument(
+        "--tenant", action="append", default=[], metavar="NAME=VARIANT",
+        help="serve engine variant VARIANT as tenant NAME through the "
+             "model pool on the card (repeatable). Mutually exclusive "
+             "with --canary",
+    )
+    p.add_argument(
+        "--pool-budget-bytes", dest="pool_budget_bytes", type=int,
+        default=0,
+        help="model-pool byte budget for --tenant mode (0 = "
+             "PIO_POOL_BUDGET_BYTES env, else PIO_POOL_HBM_FRACTION of "
+             "the card's memory)",
+    )
     p.add_argument("--workers", type=int, default=1,
                    help=argparse.SUPPRESS)
     p.add_argument("--reuse-port", action="store_true",

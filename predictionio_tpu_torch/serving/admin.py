@@ -105,15 +105,18 @@ def create_admin_server(
     host: str = "0.0.0.0",
     port: int = 7071,
     storage: Storage | None = None,
+    server_config=None,
 ) -> HTTPServer:
-    """An HTTP server on an :class:`AdminServer`; ``start()`` it. The
-    reference AdminAPI has neither TLS nor key auth, and neither does
-    this one."""
+    """An HTTP server on an :class:`AdminServer`; ``start()`` it.
+    ``server_config`` gives it TLS and key auth; the reference AdminAPI
+    has neither, so unlike the dashboard nothing is read from the
+    environment by default."""
     server = AdminServer(storage)
     return HTTPServer(
         server.router,
         host=host,
         port=port,
+        server_config=server_config,
         service="adminserver",
         registry=server.registry,
     )

@@ -1,9 +1,11 @@
-"""Server security configuration: access-key auth and TLS, as asked for.
+"""Server security configuration: access-key auth and TLS.
 
-Counterpart of ``ServerConfig`` in ``predictionio_tpu/serving/config.py``,
-with the same settings read the same way: env vars win, then an
-optional JSON file ``$PIO_CONF_DIR/server.json``, then the defaults
-(auth off, TLS off).
+Counterpart of ``ServerConfig`` in ``predictionio_tpu/serving/config.py``
+(reference ``KeyAuthentication.scala:30-58`` and
+``SSLConfiguration.scala``), with the same settings read the same way:
+env vars win, then an optional JSON file ``$PIO_CONF_DIR/server.json``,
+then the defaults (auth off, TLS off). Certificates are PEM files loaded
+through :mod:`ssl`.
 
 Env vars / server.json keys::
 
@@ -13,20 +15,18 @@ Env vars / server.json keys::
     PIO_SERVER_SSL_CERTFILE        "ssl_certfile": PEM cert chain path
     PIO_SERVER_SSL_KEYFILE         "ssl_keyfile": PEM private key path
     PIO_SERVER_SSL_KEY_PASSWORD    "ssl_key_password": key password
-
-The port's servers do not check the server key nor wrap TLS yet
-(``check_key`` and ``ssl_context`` are ROADMAP.md, queue 1, item 5a).
-So a console verb that binds an HTTP server asks :meth:`refusal` first
-and exits when either is asked for: the port must not serve open what
-the JAX package would guard.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hmac
 import json
 import os
+import ssl
 from typing import Mapping
+
+from predictionio_tpu_torch.serving.http import HTTPError, Request
 
 _TRUE = {"1", "true", "yes", "on"}
 
@@ -86,22 +86,43 @@ class ServerConfig:
             ),
         )
 
-    def refusal(self, server: str) -> str | None:
-        """Why ``server`` may not start under this config (key auth or
-        TLS asked for, neither ported), or None when it may."""
-        asked = [
-            what
-            for what, on in (
-                ("server key auth (PIO_SERVER_KEY_AUTH_ENFORCED)",
-                 self.key_auth_enforced),
-                ("TLS (PIO_SERVER_SSL_ENABLED)", self.ssl_enabled),
-            )
-            if on
-        ]
-        if not asked:
+    # -- key auth (reference KeyAuthentication.withAccessKeyFromFile) -----
+    def check_key(self, request: Request) -> None:
+        """Raise 401 unless auth is off or the supplied server key
+        matches. The key is read from (in order) the
+        ``X-PIO-Server-Key`` header, an ``Authorization: Bearer`` header,
+        or the ``accessKey`` query param (reference parity) — prefer the
+        headers: query strings leak into request logs, shell history,
+        and upstream proxies when TLS terminates early."""
+        if not self.key_auth_enforced:
+            return
+        headers = getattr(request, "headers", None) or {}
+        supplied = headers.get("X-PIO-Server-Key", "")
+        if not supplied:
+            auth = headers.get("Authorization", "")
+            if auth.startswith("Bearer "):
+                supplied = auth[len("Bearer "):].strip()
+        if not supplied:
+            supplied = request.query.get("accessKey", "")
+        # compare as bytes: compare_digest rejects non-ASCII str input
+        if not self.access_key or not hmac.compare_digest(
+            supplied.encode("utf-8"), self.access_key.encode("utf-8")
+        ):
+            raise HTTPError(401, "invalid server access key")
+
+    # -- TLS (reference SSLConfiguration.sslContext) ----------------------
+    def ssl_context(self) -> ssl.SSLContext | None:
+        if not self.ssl_enabled:
             return None
-        return (
-            f"{server}: {' and '.join(asked)} is not ported yet, and the "
-            "server will not start without it (ROADMAP.md, queue 1, "
-            "item 5a)"
+        if not self.ssl_certfile or not self.ssl_keyfile:
+            raise ValueError(
+                "ssl_enabled requires ssl_certfile and ssl_keyfile"
+            )
+        context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        context.minimum_version = ssl.TLSVersion.TLSv1_2
+        context.load_cert_chain(
+            certfile=self.ssl_certfile,
+            keyfile=self.ssl_keyfile,
+            password=self.ssl_key_password or None,
         )
+        return context

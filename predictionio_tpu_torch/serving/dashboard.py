@@ -3,9 +3,9 @@ default port 9000): lists completed evaluation instances with their
 metric results; per-instance drill-down renders the stored HTML report.
 
 Counterpart of ``predictionio_tpu/serving/dashboard.py``, with the same
-routes and pages, on the port's HTTP server, storage and registry. The
-JAX dashboard's key auth and TLS are ROADMAP.md, queue 1, item 5a: the
-``dashboard`` verb refuses to start when either is asked for.
+routes and pages, on the port's HTTP server, storage and registry; like
+the reference (Dashboard.scala:44-60) it takes the environment's key
+auth and TLS unless it is given a ``server_config``.
 """
 
 from __future__ import annotations
@@ -29,11 +29,14 @@ class Dashboard:
         self,
         storage: Storage | None = None,
         registry: MetricRegistry | None = None,
+        server_config=None,
     ):
         self._storage = storage or get_storage()
         self.registry = registry if registry is not None else get_registry()
         self.router = Router()
-        install_metrics_routes(self.router, self.registry)
+        install_metrics_routes(
+            self.router, self.registry, server_config=server_config
+        )
         self.router.route("GET", "/", self._index)
         self.router.route("GET", "/engine_instances/<iid>", self._detail)
 
@@ -76,14 +79,23 @@ def create_dashboard(
     host: str = "0.0.0.0",
     port: int = 9000,
     storage: Storage | None = None,
+    server_config=None,
     registry: MetricRegistry | None = None,
 ) -> HTTPServer:
-    """An HTTP server on a :class:`Dashboard`; ``start()`` it."""
-    dashboard = Dashboard(storage, registry=registry)
+    """An HTTP server on a :class:`Dashboard`; ``start()`` it. With
+    ``server_config`` None the environment's key auth and TLS apply."""
+    from predictionio_tpu_torch.serving.config import ServerConfig
+
+    if server_config is None:
+        server_config = ServerConfig.from_env()
+    dashboard = Dashboard(
+        storage, registry=registry, server_config=server_config
+    )
     return HTTPServer(
         dashboard.router,
         host=host,
         port=port,
+        server_config=server_config,
         service="dashboard",
         registry=dashboard.registry,
     )

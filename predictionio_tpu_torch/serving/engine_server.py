@@ -3,7 +3,9 @@
 Counterpart of ``EngineServer`` and ``create_engine_server`` in
 ``predictionio_tpu/serving/engine_server.py`` for the serving slice:
 
-* ``GET  /``                   → status JSON (instance, warmup, counts)
+* ``GET  /``                   → status JSON (instance, warmup, counts;
+  the pool and its tenants in multi-tenant mode), or the HTML status
+  page when the client prefers ``text/html``
 * ``POST /queries.json``       → one query: supplement → per-algorithm
   micro-batcher → serve → JSON
 * ``POST /batch/queries.json`` → up to 100 queries in one round trip,
@@ -24,8 +26,13 @@ Counterpart of ``EngineServer`` and ``create_engine_server`` in
 * ``POST /stop``               → ``{"message": "stopping"}``; the listener
   shuts down from a thread of its own (a handler cannot wait for the
   loop it runs in), then the batchers close, so the process exits
+* ``POST /debug/profile``      → a ``torch.profiler`` capture of
+  ``durationMs`` (bounded by ``PIO_PROFILE_MAX_MS``) with the tracer's
+  spans and a device sample, as a base64 ``tar.gz``; one at a time
+  (409 on overlap)
 * ``GET  /metrics``, ``/metrics.json``, ``/debug/traces``,
-  ``/debug/traces.json``, ``/debug/timeline.json``
+  ``/debug/traces.json``, ``/debug/timeline.json``, ``/plugins.json``,
+  ``/plugins/outputsniffer/<name>/<path>``
 
 ``serve`` first posts ``/stop`` to whatever engine server holds the port
 (:func:`undeploy_existing`, the undeploy-before-deploy handshake), then
@@ -45,24 +52,45 @@ kernel; every swap (``/reload``, promotion, rollback) bumps the cache
 token. A shed carries ``Retry-After`` and ``X-PIO-Shed``; an expired
 ``X-PIO-Deadline`` is a 504 and its slot is cut before the launch.
 
-The tenant pool (the per-tenant ``/reload``), feedback events,
-engine-server plugins, TLS and key auth, the remote error log, the HTML
-status page and ``/debug/profile`` come with a later slice (ROADMAP.md,
-queue 1, item 5a); the constructor does not accept their options, and
-``/reload`` answers 400 to a tenant.
+Multi-tenant mode (``tenants={name: engine_variant}``): one process
+serves many engine variants through a byte-budgeted
+:class:`~predictionio_tpu_torch.serving.modelpool.ModelPool` on the
+card. A query names its tenant by ``accessKey`` or ``X-PIO-Tenant``
+(400 without one, 404 for an unknown one); the tenant's staged
+generation (its tables in f32, or int8 + scale or bf16 under
+``quantize`` / ``PIO_POOL_QUANT``) is pinned from submit through
+collect, so an eviction never frees a table a launch still reads; a
+cold tenant loads on the pool's one loader thread and a request waiting
+past its predict timeout gets 503 with ``Retry-After``. ``/reload
+{"tenant": ...}`` restages that tenant alone. The canary and the
+tenants exclude each other.
+
+A ``server_config`` (default: the environment's) gives the listener TLS
+and key-auths ``/reload``, ``/stop``, ``/debug/profile`` and the
+``/debug`` telemetry; queries stay open. ``feedback`` stores a
+``predict`` event (entity ``pio_pr``) for every answer into
+``feedback_app_id`` and injects its ``prId`` (the query cache is off
+then); ``log_url`` ships every serving failure but a shed to a
+collector from one bounded sender thread; ``plugins`` fold output
+blockers over each answer and hand it to the output sniffers.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import datetime as _dt
+import html as _html
 import json
 import logging
 import os
+import queue
+import secrets
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any
@@ -70,6 +98,8 @@ from typing import Any
 from predictionio_tpu_torch.core.controller import Algorithm
 from predictionio_tpu_torch.core.engine import Engine, EngineParams
 from predictionio_tpu_torch.core.workflow import load_deployment
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.obs import MetricRegistry, get_registry
 from predictionio_tpu_torch.obs import timeline as timeline_mod
@@ -78,6 +108,7 @@ from predictionio_tpu_torch.obs.device import CompileTracker, DeviceSampler
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 from predictionio_tpu_torch.serving import admission as admission_mod
 from predictionio_tpu_torch.serving import canary as canary_mod
+from predictionio_tpu_torch.serving import modelpool as modelpool_mod
 from predictionio_tpu_torch.serving import querycache as querycache_mod
 from predictionio_tpu_torch.serving import resilience
 from predictionio_tpu_torch.serving.batching import (
@@ -93,6 +124,11 @@ from predictionio_tpu_torch.serving.http import (
     Response,
     Router,
     install_metrics_routes,
+)
+from predictionio_tpu_torch.serving.plugins import (
+    OUTPUT_SNIFFER,
+    PluginContext,
+    install_plugin_routes,
 )
 from predictionio_tpu_torch.utils import profiling
 
@@ -124,6 +160,8 @@ class EngineServer:
         *,
         storage: Storage | None = None,
         ctx: ComputeContext | None = None,
+        feedback: bool = False,
+        feedback_app_id: int | None = None,
         max_batch: int = 64,
         max_wait_ms: float = 2.0,
         max_queue: int | None = None,
@@ -132,17 +170,35 @@ class EngineServer:
         warmup: bool = True,
         quantize: str | None = None,
         predict_timeout_s: float = 30.0,
+        plugins: PluginContext | None = None,
+        server_config=None,
+        log_url: str | None = None,
+        log_prefix: str = "",
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
         admission: bool | admission_mod.AdmissionController = True,
         canary: bool | canary_mod.CanaryConfig = False,
+        tenants: dict[str, str] | None = None,
+        pool: modelpool_mod.ModelPool | None = None,
         cache: bool | querycache_mod.QueryCache | None = None,
     ):
-        if quantize and quantize not in ("int8", "bf16"):
+        self._quantize = (
+            quantize
+            if quantize is not None
+            else os.environ.get("PIO_POOL_QUANT", "").strip()
+        )
+        if self._quantize and self._quantize not in ("int8", "bf16"):
             raise ValueError(
-                f"unknown quantize mode {quantize!r} "
+                f"unknown quantize mode {self._quantize!r} "
                 "(expected int8, bf16, or empty)"
             )
+        if log_url:
+            parsed = urllib.parse.urlsplit(log_url)
+            if parsed.scheme not in ("http", "https") or not parsed.netloc:
+                # fail at deploy, not per failing query
+                raise ValueError(
+                    f"--log-url {log_url!r} is not an http(s) URL"
+                )
         self._engine = engine
         self._params = params
         self._engine_id = engine_id
@@ -152,14 +208,30 @@ class EngineServer:
         self._ctx = ctx or ComputeContext.create(
             batch=f"serving:{engine_id}"
         )
+        self._feedback = feedback
+        self._feedback_app_id = feedback_app_id
         self._max_batch = max_batch
         self._max_wait_ms = max_wait_ms
         self._max_queue = max_queue
         self._pipeline_depth = pipeline_depth
         self._adaptive_wait = adaptive_wait
         self._warmup = warmup
-        self._quantize = quantize or ""
         self._predict_timeout_s = predict_timeout_s
+        self._plugins = plugins or PluginContext()
+        self._log_url = log_url
+        self._log_prefix = log_prefix
+        # a bounded handoff to one sender thread: a slow or dead
+        # collector must never grow threads or block serving. The thread
+        # starts at the end of __init__ (a later failure here would leak
+        # it) and close() stops it with a None sentinel.
+        self._log_queue: queue.Queue | None = (
+            queue.Queue(maxsize=64) if log_url else None
+        )
+        if server_config is None:
+            from predictionio_tpu_torch.serving.config import ServerConfig
+
+            server_config = ServerConfig.from_env()
+        self._server_config = server_config
 
         self._lock = threading.Lock()
         self._request_count = 0
@@ -191,6 +263,19 @@ class EngineServer:
             self._canary_config = None
         self._canary: canary_mod.ShadowCanary | None = None
         self._last_canary: dict | None = None
+        self._tenants = dict(tenants) if tenants else None
+        if self._tenants is not None and self._canary_config is not None:
+            # a tenant's reload is immediate; the shadow canary assumes
+            # one serving generation a process
+            raise ValueError(
+                "canary and multi-tenant mode are mutually exclusive"
+            )
+        self._pool: modelpool_mod.ModelPool | None = None
+        self._owns_pool = False
+        #: tenant → reload count and newest instance (under self._lock;
+        #: the labelled generation and age gauges read these)
+        self._tenant_generations: dict[str, int] = {}
+        self._tenant_instances: dict[str, Any] = {}
         # serializes /reload: staging takes a warm-up, two reloads must
         # not both stage, and a manual reload supersedes a live canary
         self._reload_mutex = threading.Lock()
@@ -216,14 +301,27 @@ class EngineServer:
             "tenant in multi-tenant mode, empty label otherwise)",
             ("tenant",),
         )
-        self._age_gauge.labels("").set_function(self._model_age_seconds)
+        if self._tenants is None:
+            self._age_gauge.labels("").set_function(
+                self._model_age_seconds
+            )
         # card memory gauges (started by serve()) and the warm-up's
         # compile counters: a warm-up bucket's first launch is where the
         # kernel library is built and loaded
         self._device_sampler = DeviceSampler(self._registry)
         self._compile_tracker = CompileTracker(self._registry)
+        #: one profile capture at a time (the profiler is process-wide),
+        #: a flag under self._lock, never a lock held across the capture
+        self._profile_active = False
         if cache is None:
             cache = querycache_mod.cache_enabled_from_env()
+        if cache and self._feedback:
+            # every feedback answer carries a fresh prId and records an
+            # event: answers are not replayable
+            logger.warning(
+                "serving cache disabled: incompatible with feedback mode"
+            )
+            cache = False
         if cache is True:
             self._cache: querycache_mod.QueryCache | None = (
                 querycache_mod.QueryCache(
@@ -234,11 +332,24 @@ class EngineServer:
             self._cache = cache
         else:
             self._cache = None
-        #: flush epoch, part of the cache key: every swap bumps it, so a
-        #: child generation of the same lineage still changes every key
-        self._cache_epoch = 0
+        #: flush epoch per tenant ("" in single-tenant mode), part of the
+        #: cache key: every swap bumps it, so a child generation of the
+        #: same lineage still changes every key
+        self._cache_epochs: dict[str, int] = {}
         self._batchers: list[MicroBatcher] = []
-        self._load()
+        if self._tenants is None:
+            self._load()
+        else:
+            self._instance = None
+            self._serving = None
+            if pool is not None:
+                self._pool = pool
+            else:
+                self._pool = modelpool_mod.ModelPool(
+                    registry=self._registry, timeline=self._timeline,
+                )
+                self._owns_pool = True
+            self._preload_tenants()
 
         self.router = Router()
         self.router.route("GET", "/", self._status)
@@ -249,10 +360,13 @@ class EngineServer:
         self.router.route("POST", "/reload", self._reload)
         self.router.route("GET", "/canary", self._canary_status)
         self.router.route("POST", "/stop", self._stop)
+        self.router.route("POST", "/debug/profile", self._debug_profile)
         install_metrics_routes(
             self.router, self._registry, self._tracer,
+            server_config=self._server_config,
             timeline=self._timeline,
         )
+        install_plugin_routes(self.router, self._plugins, OUTPUT_SNIFFER)
         # the limit follows observed latency; attached before serve() so
         # the HTTP server picks it up. Its floor keeps one full pipeline
         # of batches admissible, so the limit never starves the card.
@@ -266,6 +380,13 @@ class EngineServer:
         elif isinstance(admission, admission_mod.AdmissionController):
             self.router.admission = admission
         self._http: HTTPServer | None = None
+        self._closed = False
+        if self._log_queue is not None:
+            threading.Thread(
+                target=self._drain_log_queue,
+                name="remote-error-log",
+                daemon=True,
+            ).start()
 
     # -- model loading ----------------------------------------------------
     def _model_age_seconds(self) -> float:
@@ -283,27 +404,41 @@ class EngineServer:
         self._activate(self._stage())
 
     # -- serving query cache ----------------------------------------------
-    def _bump_cache_generation(self, reason: str, generation=None) -> None:
-        """Invalidate the cache: bump the flush epoch so new lookups miss
-        by key at once, then drop the resident entries (one
+    def _bump_cache_generation(
+        self, reason: str, tenant: str = "", generation=None
+    ) -> None:
+        """Invalidate the cache for one tenant ("" = the single-tenant
+        namespace): bump its flush epoch so new lookups miss by key at
+        once, then drop its resident entries (one
         ``cache_flush{reason}`` timeline event). Every swap path comes
-        here: ``/reload``, canary promotion and rollback."""
+        here: ``/reload`` (a tenant's too), canary promotion and
+        rollback."""
         if self._cache is None:
             return
         with self._lock:
-            self._cache_epoch += 1
+            self._cache_epochs[tenant] = self._cache_epochs.get(tenant, 0) + 1
         self._cache.flush(
-            None, reason=reason,
+            tenant if tenant else None,
+            reason=reason,
             generation=(
                 str(generation) if generation is not None else None
             ),
         )
 
-    def _cache_token(self) -> str:
+    def _cache_token(self, tenant: str) -> str | None:
         """Generation token of the cache keys: the serving instance id
-        and the flush epoch."""
+        and the tenant's flush epoch. None (compute, skip the cache)
+        while the tenant has no instance yet: a hit must never force a
+        pool load or take a pin."""
         with self._lock:
-            return f"{self._instance.id}:{self._cache_epoch}"
+            if self._tenants is None:
+                instance = self._instance
+            else:
+                instance = self._tenant_instances.get(tenant)
+            epoch = self._cache_epochs.get(tenant, 0)
+        if instance is None:
+            return None
+        return f"{instance.id}:{epoch}"
 
     def _cache_bypass(self, request: Request) -> bool:
         """``Cache-Control: no-cache`` (or ``no-store``) bypasses the
@@ -313,6 +448,124 @@ class EngineServer:
             or ""
         ).lower()
         return "no-cache" in directives or "no-store" in directives
+
+    # -- multi-tenant pool ------------------------------------------------
+    def _tenant_age_seconds(self, tenant: str) -> float:
+        with self._lock:
+            instance = self._tenant_instances.get(tenant)
+        if instance is None:
+            return 0.0
+        age = (
+            _dt.datetime.now(_dt.timezone.utc) - instance.end_time
+        ).total_seconds()
+        return max(0.0, age)
+
+    def _tenant_loader(self, tenant: str):
+        """The pool's loader for one tenant: stage the tenant's engine
+        variant (host load, staging on the card, quantization, warm-up,
+        all on the pool's loader thread, never a request thread),
+        advance its labelled generation and age, and hand the pool the
+        staged generation with its bytes on the card. Its close ends the
+        batchers; the pool then drops the generation, and its tables go
+        with it."""
+
+        def load():
+            staged = self._stage(
+                engine_variant=self._tenants[tenant], tenant=tenant
+            )
+            with self._lock:
+                generation = self._tenant_generations.get(tenant, 0) + 1
+                first = tenant not in self._tenant_generations
+                self._tenant_generations[tenant] = generation
+                self._tenant_instances[tenant] = staged.instance
+            self._generation_gauge.labels(tenant).set(generation)
+            if first:
+                self._age_gauge.labels(tenant).set_function(
+                    lambda t=tenant: self._tenant_age_seconds(t)
+                )
+            logger.info(
+                "tenant %r serving instance %s (variant %r, "
+                "generation %d, %d bytes)",
+                tenant, staged.instance.id, self._tenants[tenant],
+                generation, staged.nbytes,
+            )
+
+            def close():
+                for b in staged.batchers:
+                    b.close()
+
+            return staged, staged.nbytes, close
+
+        return load
+
+    def _preload_tenants(self) -> None:
+        """Load every tenant once through the pool (LRU keeps what fits
+        the budget; the rest load again on their next query). The
+        server reads warm once every tenant's warm-up ran."""
+        warmed_all = True
+        for tenant in self._tenants:
+            with self._pool.pin(
+                tenant, self._tenant_loader(tenant)
+            ) as staged:
+                warmed_all = warmed_all and staged.warmed
+        self._warmed_gauge.set(1 if warmed_all else 0)
+        logger.info(
+            "multi-tenant server preloaded %d tenant(s), %d resident",
+            len(self._tenants), len(self._pool.resident()),
+        )
+
+    def _resolve_tenant(self, request: Request) -> str:
+        """A request's tenant: the ``accessKey`` query param, then the
+        ``X-PIO-Tenant`` header (the admission controller's fair-share
+        order)."""
+        tenant = (
+            request.query.get("accessKey")
+            or request.headers.get(admission_mod.TENANT_HEADER)
+            or ""
+        )
+        if not tenant:
+            raise HTTPError(
+                400,
+                "multi-tenant server requires an accessKey query "
+                f"param or {admission_mod.TENANT_HEADER} header",
+            )
+        if tenant not in self._tenants:
+            raise HTTPError(404, f"unknown tenant {tenant!r}")
+        return tenant
+
+    @contextlib.contextmanager
+    def _serving_snapshot(self, request: Request):
+        """Yield ``(serving, batchers)`` for one request: the serving
+        pointers in single-tenant mode; in multi-tenant mode the
+        tenant's pool entry, pinned for the scope (submit through
+        collect), so an eviction racing the query never closes the
+        generation, nor frees the tables, under it."""
+        if self._tenants is None:
+            with self._lock:
+                serving = self._serving
+                batchers = self._batchers
+            yield serving, batchers
+            return
+        tenant = self._resolve_tenant(request)
+        try:
+            with self._pool.pin(
+                tenant,
+                self._tenant_loader(tenant),
+                timeout=self._predict_timeout_s,
+            ) as staged:
+                yield staged.serving, staged.batchers
+        except modelpool_mod.PoolLoadTimeout:
+            raise HTTPError(
+                503,
+                f"tenant {tenant!r} is still loading; retry",
+                headers={
+                    "Retry-After": admission_mod.format_retry_after(1.0)
+                },
+            ) from None
+        except modelpool_mod.PoolLoadError as exc:
+            raise HTTPError(
+                500, f"tenant {tenant!r} failed to load: {exc}"
+            ) from exc
 
     def _activate(self, staged: _StagedGeneration) -> None:
         """Swap ``staged`` in, then close the old batchers: queries
@@ -346,12 +599,22 @@ class EngineServer:
             staged.instance.id, len(staged.batchers), generation,
         )
 
-    def _stage(self, for_canary: bool = False) -> _StagedGeneration:
+    def _stage(
+        self,
+        for_canary: bool = False,
+        engine_variant: str | None = None,
+        tenant: str | None = None,
+    ) -> _StagedGeneration:
         """Load, stage, optionally quantize and warm the newest loadable
         generation and build its batchers, without touching the serving
         pointers: the canary path scores it beside live traffic before
-        :meth:`_activate` (or a promotion) ever runs."""
-        if not for_canary:
+        :meth:`_activate` (or a promotion) ever runs.
+
+        ``tenant`` stages one pooled tenant's variant: its batchers and
+        warm-up sites are named per tenant, and the server's warm gauge
+        is left alone (a tenant loading under traffic must not flap
+        it)."""
+        if not for_canary and tenant is None:
             # the gauge describes the newest generation, cold until its
             # warm-up ends; a canary leaves it alone, since the warm old
             # generation keeps serving
@@ -361,7 +624,11 @@ class EngineServer:
             self._params,
             engine_id=self._engine_id,
             engine_version=self._engine_version,
-            engine_variant=self._engine_variant,
+            engine_variant=(
+                engine_variant
+                if engine_variant is not None
+                else self._engine_variant
+            ),
             ctx=self._ctx,
             storage=self._storage,
         )
@@ -373,8 +640,14 @@ class EngineServer:
                 for m in models
             ]
         nbytes = sum(quantize_mod.model_resident_bytes(m) for m in models)
+        name_prefix = (
+            f"{self._engine_id}/{tenant}/"
+            if tenant is not None
+            else f"{self._engine_id}/"
+        )
         warmed = bool(
-            self._warmup and self._precompile(algorithms, models)
+            self._warmup
+            and self._precompile(algorithms, models, name_prefix)
         )
 
         def batch_fn(a, m):
@@ -422,7 +695,7 @@ class EngineServer:
                 pipeline_depth=self._pipeline_depth,
                 adaptive_wait=self._adaptive_wait,
                 registry=self._registry,
-                name=f"{self._engine_id}/algo{i}",
+                name=f"{name_prefix}algo{i}",
             )
             for i, (algo, model) in enumerate(zip(algorithms, models))
         ]
@@ -434,7 +707,7 @@ class EngineServer:
             nbytes=nbytes,
         )
 
-    def _precompile(self, algorithms, models) -> bool:
+    def _precompile(self, algorithms, models, name_prefix: str) -> bool:
         """Run every power-of-two batch bucket up to ``max_batch`` once
         before traffic: the first call builds and loads the kernel
         library, and each bucket's first launch pays its one-time costs
@@ -457,7 +730,7 @@ class EngineServer:
         total_failures = 0
         for i, (algo, model) in enumerate(zip(algorithms, models)):
             name = type(algo).__name__
-            batcher_name = f"{self._engine_id}/algo{i}"
+            batcher_name = f"{name_prefix}algo{i}"
             query = getattr(algo, "warmup_query", lambda: {})()
             if query is None:
                 logger.info("%s: no warmup query — serving cold", name)
@@ -494,12 +767,8 @@ class EngineServer:
                 "engineId": self._engine_id,
                 "engineVersion": self._engine_version,
                 "engineVariant": self._engine_variant,
-                "engineInstanceId": self._instance.id,
-                "generation": self._generation,
                 "device": str(self._ctx.device),
                 "quantize": self._quantize,
-                "modelBytes": self._nbytes,
-                "warmed": self._warmed,
                 "canaryState": (
                     self._canary.state
                     if self._canary is not None
@@ -508,8 +777,6 @@ class EngineServer:
                     )
                 ),
                 "startTime": self._start_time.isoformat(),
-                "trainingStartTime": self._instance.start_time.isoformat(),
-                "trainingEndTime": self._instance.end_time.isoformat(),
                 "requestCount": self._request_count,
                 "avgServingSec": round(self._avg_serving_sec, 6),
                 "lastServingSec": round(self._last_serving_sec, 6),
@@ -517,17 +784,104 @@ class EngineServer:
                     self._last_batch_per_query_sec, 6
                 ),
             }
+            if self._tenants is None:
+                data["engineInstanceId"] = self._instance.id
+                data["generation"] = self._generation
+                data["modelBytes"] = self._nbytes
+                data["warmed"] = self._warmed
+                data["trainingStartTime"] = (
+                    self._instance.start_time.isoformat()
+                )
+                data["trainingEndTime"] = (
+                    self._instance.end_time.isoformat()
+                )
+            else:
+                data["multiTenant"] = True
+                data["tenants"] = sorted(self._tenants)
+                data["tenantGenerations"] = dict(self._tenant_generations)
+        if self._tenants is not None:
+            # the pool's own lock, never under ours
+            data["pool"] = self._pool.stats()
         if self._cache is not None:
             # the cache's shard locks, never under ours
             data["cache"] = self._cache.stats()
         return data
 
     def _status(self, request: Request) -> Response:
-        return Response(200, self._status_data())
+        data = self._status_data()
+        if "text/html" in (request.headers.get("Accept") or ""):
+            # the reference's status page (twirl index.scala.html)
+            return Response(
+                200, self._status_html(data), content_type="text/html"
+            )
+        return Response(200, data)
 
-    def _snapshot(self):
-        with self._lock:
-            return self._serving, self._batchers
+    def _status_html(self, data: dict) -> str:
+        e = _html.escape
+
+        def table(rows: list[tuple[str, str]]) -> str:
+            return "<table>" + "".join(
+                f"<tr><th>{e(k)}</th><td>{e(v)}</td></tr>"
+                for k, v in rows
+            ) + "</table>"
+
+        def params_rows(named) -> list[tuple[str, str]]:
+            name, params = named
+            return [("Class", name or type(params).__name__),
+                    ("Parameters", repr(params))]
+
+        p = self._params
+        algo_rows: list[tuple[str, str]] = []
+        for i, (name, params) in enumerate(p.algorithms):
+            algo_rows.append((f"Algorithm {i}", name))
+            algo_rows.append((f"Algorithm {i} Parameters", repr(params)))
+        title = (
+            f"{e(self._engine_id)} ({e(self._engine_variant)}) - "
+            "Engine Server"
+        )
+        return f"""<!DOCTYPE html>
+<html lang="en">
+  <head>
+    <title>{title}</title>
+    <style>
+      body {{ font-family: sans-serif; margin: 2em; }}
+      table {{ border-collapse: collapse; margin-bottom: 1.5em; }}
+      th, td {{ border: 1px solid #ccc; padding: 4px 10px;
+               font-family: monospace; text-align: left; }}
+      th {{ background: #f3f3f3; }}
+    </style>
+  </head>
+  <body>
+    <h1>Engine Server</h1>
+    <p>{e(self._engine_id)} {e(self._engine_version)}
+       ({e(self._engine_variant)})</p>
+    <h2>Engine Information</h2>
+    {table([
+        ("Training Start Time", data.get("trainingStartTime", "-")),
+        ("Training End Time", data.get("trainingEndTime", "-")),
+        ("Variant ID", data["engineVariant"]),
+        ("Instance ID", data.get("engineInstanceId", "-")),
+        ("Tenants", ", ".join(data.get("tenants", [])) or "-"),
+    ])}
+    <h2>Server Information</h2>
+    {table([
+        ("Start Time", data["startTime"]),
+        ("Request Count", str(data["requestCount"])),
+        ("Average Serving Time", f'{data["avgServingSec"]} seconds'),
+        ("Last Serving Time", f'{data["lastServingSec"]} seconds'),
+        ("Last Batch Per-Query Time",
+         f'{data["lastBatchPerQuerySec"]} seconds'),
+    ])}
+    <h2>Data Source</h2>
+    {table(params_rows(p.data_source))}
+    <h2>Data Preparator</h2>
+    {table(params_rows(p.preparator))}
+    <h2>Algorithms</h2>
+    {table(algo_rows)}
+    <h2>Serving</h2>
+    {table(params_rows(p.serving))}
+  </body>
+</html>"""
 
     def _shed_headers(self) -> dict[str, str]:
         """What a batcher shed carries: a ``Retry-After`` from live queue
@@ -547,7 +901,9 @@ class EngineServer:
         """``/reload``: with ``{"canary": true}`` (or on a server built
         with a canary) stage the newest generation beside the serving
         one and answer 202; otherwise restage and swap at once, which
-        resolves a live canary in favour of what is serving first."""
+        resolves a live canary in favour of what is serving first. In
+        multi-tenant mode it restages one tenant. Key-gated."""
+        self._server_config.check_key(request)
         body: Any = {}
         if request.body:
             try:
@@ -556,12 +912,8 @@ class EngineServer:
                 raise HTTPError(400, "reload body must be JSON") from None
         if not isinstance(body, dict):
             raise HTTPError(400, "reload body must be a JSON object")
-        if body.get("tenant"):
-            raise HTTPError(
-                400,
-                "per-tenant reload needs the multi-tenant model pool, "
-                "which is not ported yet (ROADMAP.md, queue 1, item 5a)",
-            )
+        if self._tenants is not None:
+            return self._reload_tenant(request, body)
         want_canary = body.get("canary")
         if want_canary is None:
             want_canary = self._canary_config is not None
@@ -576,7 +928,60 @@ class EngineServer:
                 )
             return self._start_canary()
 
+    def _reload_tenant(self, request: Request, body: dict) -> Response:
+        """Restage one tenant's variant through the pool. Its in-flight
+        queries keep the old generation pinned until they end; the other
+        tenants are untouched."""
+        tenant = (
+            body.get("tenant")
+            or request.query.get("accessKey")
+            or request.headers.get(admission_mod.TENANT_HEADER)
+            or ""
+        )
+        if not tenant:
+            raise HTTPError(
+                400,
+                'multi-tenant reload requires a tenant (body '
+                '{"tenant": ...}, accessKey param, or '
+                f"{admission_mod.TENANT_HEADER} header)",
+            )
+        if tenant not in self._tenants:
+            raise HTTPError(404, f"unknown tenant {tenant!r}")
+        with self._reload_mutex:
+            try:
+                self._pool.replace(tenant, self._tenant_loader(tenant))
+            except Exception as exc:  # noqa: BLE001 - surfaced as 500
+                self._timeline.record(
+                    "tenant_reload",
+                    f"tenant {tenant!r} reload failed: {exc}",
+                    severity=timeline_mod.ERROR, tenant=tenant,
+                )
+                raise HTTPError(
+                    500, f"tenant {tenant!r} reload failed: {exc}"
+                ) from exc
+            with self._lock:
+                generation = self._tenant_generations.get(tenant, 0)
+                instance = self._tenant_instances.get(tenant)
+            self._bump_cache_generation(
+                "foldin"
+                if getattr(instance, "batch", "") == "fold-in"
+                else "reload",
+                tenant=tenant,
+                generation=getattr(instance, "id", generation),
+            )
+            self._timeline.record(
+                "tenant_reload",
+                f"tenant {tenant!r} reloaded to generation {generation}",
+                tenant=tenant, generation=generation,
+            )
+        return Response(
+            200,
+            {"message": "reloaded", "tenant": tenant,
+             "generation": generation},
+        )
+
     def _stop(self, request: Request) -> Response:
+        self._server_config.check_key(request)
         if self._http is not None:
             threading.Thread(
                 target=self._http.shutdown, daemon=True
@@ -584,25 +989,95 @@ class EngineServer:
         return Response(200, {"message": "stopping"})
 
     def _queries(self, request: Request) -> Response:
+        return self._with_remote_log(self._queries_inner, request)
+
+    def _batch_queries(self, request: Request) -> Response:
+        return self._with_remote_log(self._batch_queries_inner, request)
+
+    def _with_remote_log(self, handler, request: Request) -> Response:
+        try:
+            return handler(request)
+        except Exception as exc:
+            # the remote error log (reference CreateServer.scala:446-457):
+            # a serving failure goes to the collector before the error
+            # answer goes out. Sheds (503) are left out: logging each
+            # would amplify the overload that shedding protects against.
+            shed = isinstance(exc, HTTPError) and exc.status == 503
+            if self._log_queue is not None and not shed:
+                self._post_remote_log(exc, request)
+            raise
+
+    #: a report carries at most this much of the failing query body: the
+    #: 64-slot queue bounds bytes, not only entries
+    _LOG_QUERY_LIMIT = 4096
+
+    def _post_remote_log(self, exc: Exception, request: Request) -> None:
+        """Queue an error report for the sender thread. Nothing here may
+        raise: the serving error must reach the client as it is."""
+        try:
+            body = request.body[: self._LOG_QUERY_LIMIT]
+            payload = json.dumps(
+                {
+                    "message":
+                        f"{self._log_prefix}{type(exc).__name__}: {exc}",
+                    "engineInstance": {
+                        "engineId": self._engine_id,
+                        "engineVersion": self._engine_version,
+                        "engineVariant": self._engine_variant,
+                    },
+                    "query": body.decode("utf-8", "replace"),
+                    "queryTruncated":
+                        len(request.body) > self._LOG_QUERY_LIMIT,
+                }
+            ).encode("utf-8")
+            self._log_queue.put_nowait(payload)
+        except queue.Full:
+            logger.debug("remote error log queue full; report dropped")
+        except Exception as enc_exc:  # noqa: BLE001 - must not mask exc
+            logger.debug("remote error log encode failed: %s", enc_exc)
+
+    def _drain_log_queue(self) -> None:
+        while True:
+            payload = self._log_queue.get()
+            if payload is None:  # close() sentinel
+                return
+            try:
+                req = urllib.request.Request(
+                    self._log_url,
+                    data=payload,
+                    headers={"Content-Type": "application/json"},
+                    method="POST",
+                )
+                urllib.request.urlopen(req, timeout=5).read()
+            except Exception as send_exc:  # noqa: BLE001 - best effort
+                logger.debug("remote error log failed: %s", send_exc)
+
+    def _queries_inner(self, request: Request) -> Response:
         t0 = time.perf_counter()
         query = request.json()
         if not isinstance(query, dict):
             raise HTTPError(400, "query must be a JSON object")
         claim = None
         if self._cache is not None and not self._cache_bypass(request):
-            # after admission (the HTTP tier admitted us), before the
-            # batcher: a hit or a coalesced waiter takes no batcher slot
-            # and launches nothing
-            claim = self._cache.claim(
-                "", self._cache_token(),
-                querycache_mod.canonical_query_bytes(query),
+            tenant = (
+                "" if self._tenants is None
+                else self._resolve_tenant(request)
             )
-            if claim.hit:
-                return self._cached_response(claim.value, "hit", t0)
-            if not claim.leader:
-                return self._join_coalesced(claim, t0)
+            token = self._cache_token(tenant)
+            if token is not None:
+                # after admission (the HTTP tier admitted us), before the
+                # batcher: a hit or a coalesced waiter takes no batcher
+                # slot, no pool pin, and launches nothing
+                claim = self._cache.claim(
+                    tenant, token,
+                    querycache_mod.canonical_query_bytes(query),
+                )
+                if claim.hit:
+                    return self._cached_response(claim.value, "hit", t0)
+                if not claim.leader:
+                    return self._join_coalesced(claim, t0)
         try:
-            return self._compute_query(query, t0, claim)
+            return self._compute_query(request, query, t0, claim)
         except BaseException as exc:
             if claim is not None:
                 # the leader failed: wake every waiter with the real
@@ -665,84 +1140,100 @@ class EngineServer:
         return self._cached_response(value, "coalesced", t0)
 
     def _compute_query(
-        self, query: dict, t0: float, claim: querycache_mod.Claim | None
+        self,
+        request: Request,
+        query: dict,
+        t0: float,
+        claim: querycache_mod.Claim | None,
     ) -> Response:
         for _attempt in range(2):
-            serving, batchers = self._snapshot()
-            supplemented = serving.supplement(query)
-            futures = []
-            # a single-flight leader submits at the highest class of its
-            # waiters: a critical waiter must not sit behind a sheddable
-            # leader's slot
-            escalate = (
-                admission_mod.criticality(claim.criticality())
-                if claim is not None
-                else contextlib.nullcontext()
-            )
-            try:
-                with escalate:
-                    for b in batchers:
-                        futures.append(b.submit(supplemented))
-            except BatcherOverloaded:
-                # earlier algorithms' accepted submits must not run for
-                # nothing
-                self._abandon(futures)
-                raise HTTPError(
-                    503, "server overloaded; retry later",
-                    headers=self._shed_headers(),
+            # the snapshot holds the tenant's pool pin (multi-tenant) over
+            # the whole submit → collect span
+            with self._serving_snapshot(request) as (serving, batchers):
+                supplemented = serving.supplement(query)
+                futures = []
+                # a single-flight leader submits at the highest class of
+                # its waiters: a critical waiter must not sit behind a
+                # sheddable leader's slot
+                escalate = (
+                    admission_mod.criticality(claim.criticality())
+                    if claim is not None
+                    else contextlib.nullcontext()
                 )
-            except resilience.DeadlineExceeded:
-                self._abandon(futures)
-                raise HTTPError(504, "deadline expired before dispatch")
-            except BatcherClosed:
-                # /reload swapped and closed the batchers between the
-                # snapshot and the submit: retry against the new ones
-                self._abandon(futures)
-                continue
-            try:
-                prediction = self._serve_one(serving, supplemented, futures)
-            except resilience.DeadlineExceeded:
-                # the batcher cut the slot before its launch: the
-                # client's budget ran out while it was queued
-                raise HTTPError(
-                    504, "deadline expired before device dispatch"
-                )
-            except BatcherOverloaded:
-                # evicted by a higher-criticality submission while it
-                # waited: a shed, not a fault
-                self._abandon([f for f in futures if not f.done()])
-                raise HTTPError(
-                    503, "shed under overload; retry later",
-                    headers=self._shed_headers(),
-                )
-            except Exception:
-                # a serving error feeds the post-promotion watch (sheds
-                # and expiries indict the load, not the model)
+                try:
+                    with escalate:
+                        for b in batchers:
+                            futures.append(b.submit(supplemented))
+                except BatcherOverloaded:
+                    # earlier algorithms' accepted submits must not run
+                    # for nothing
+                    self._abandon(futures)
+                    raise HTTPError(
+                        503, "server overloaded; retry later",
+                        headers=self._shed_headers(),
+                    )
+                except resilience.DeadlineExceeded:
+                    self._abandon(futures)
+                    raise HTTPError(504, "deadline expired before dispatch")
+                except BatcherClosed:
+                    # /reload swapped and closed the batchers between the
+                    # snapshot and the submit: retry against the new ones
+                    # (a new pin in multi-tenant mode)
+                    self._abandon(futures)
+                    continue
+                try:
+                    prediction = self._serve_one(
+                        serving, query, supplemented, futures
+                    )
+                except resilience.DeadlineExceeded:
+                    # the batcher cut the slot before its launch: the
+                    # client's budget ran out while it was queued
+                    raise HTTPError(
+                        504, "deadline expired before device dispatch"
+                    )
+                except BatcherOverloaded:
+                    # evicted by a higher-criticality submission while it
+                    # waited: a shed, not a fault
+                    self._abandon([f for f in futures if not f.done()])
+                    raise HTTPError(
+                        503, "shed under overload; retry later",
+                        headers=self._shed_headers(),
+                    )
+                except Exception:
+                    # a serving error feeds the post-promotion watch
+                    # (sheds and expiries indict the load, not the model)
+                    self._canary_observe(
+                        supplemented, None, time.perf_counter() - t0,
+                        ok=False,
+                    )
+                    raise
+                elapsed = time.perf_counter() - t0
+                self._count_request(elapsed)
                 self._canary_observe(
-                    supplemented, None, time.perf_counter() - t0, ok=False,
+                    supplemented, prediction, elapsed, ok=True
                 )
-                raise
-            elapsed = time.perf_counter() - t0
-            self._count_request(elapsed)
-            self._canary_observe(supplemented, prediction, elapsed, ok=True)
-            if claim is not None:
-                # serialized once, by the call the dict response path
-                # uses, so hits and coalesced answers are byte-identical
-                # to uncached ones; fill wakes every coalesced waiter
-                body = json.dumps(prediction).encode("utf-8")
-                self._cache.fill(claim, body)
-                return Response(
-                    200, body,
-                    headers={querycache_mod.CACHE_HEADER: "miss"},
-                )
-            return Response(200, prediction)
+                if claim is not None:
+                    # serialized once, by the call the dict response path
+                    # uses, so hits and coalesced answers are
+                    # byte-identical to uncached ones; fill wakes every
+                    # coalesced waiter
+                    body = json.dumps(prediction).encode("utf-8")
+                    self._cache.fill(claim, body)
+                    return Response(
+                        200, body,
+                        headers={querycache_mod.CACHE_HEADER: "miss"},
+                    )
+                return Response(200, prediction)
         raise HTTPError(503, "server is reloading; retry")
 
-    def _serve_one(self, serving, supplemented, futures, deadline=None):
-        """Collect one query's per-algorithm futures and combine them.
-        The total wait is bounded by ``deadline`` (a ``time.monotonic()``
-        value, default one predict timeout from now), further capped by
-        the request's ``X-PIO-Deadline``."""
+    def _serve_one(self, serving, query, supplemented, futures,
+                   deadline=None):
+        """Collect one query's per-algorithm futures, then the shared tail
+        of the single and batch routes: serve → feedback → the output
+        blockers and sniffers (CreateServer.scala:603-606). The total
+        wait is bounded by ``deadline`` (a ``time.monotonic()`` value,
+        default one predict timeout from now), further capped by the
+        request's ``X-PIO-Deadline``."""
         if deadline is None:
             deadline = time.monotonic() + self._predict_timeout_s
         request_deadline = resilience.get_deadline()
@@ -763,12 +1254,60 @@ class EngineServer:
                 ) from None
             self._abandon(futures)
             raise HTTPError(504, "prediction timed out") from None
-        return serving.serve(supplemented, predictions)
+        prediction = serving.serve(supplemented, predictions)
+        if self._feedback:
+            prediction = self._record_feedback(query, prediction)
+        engine_info = {
+            "engineId": self._engine_id,
+            "engineVersion": self._engine_version,
+            "engineVariant": self._engine_variant,
+        }
+        prediction = self._plugins.block_output(
+            engine_info, query, prediction
+        )
+        self._plugins.sniff_output(engine_info, query, prediction)
+        return prediction
+
+    def _record_feedback(self, query: dict, prediction):
+        """Store a ``predict`` event (entity ``pio_pr``) carrying the
+        query and the answer, and inject its ``prId`` into the answer
+        (reference CreateServer.scala:539-600). A failed store is logged
+        and never fails the query."""
+        pr_id = None
+        if isinstance(prediction, dict):
+            pr_id = prediction.get("prId")
+        pr_id = pr_id or secrets.token_hex(16)
+        try:
+            with self._lock:
+                instance = self._instance
+            event = Event(
+                event="predict",
+                entity_type="pio_pr",
+                entity_id=pr_id,
+                properties=DataMap(
+                    {
+                        "engineInstanceId": (
+                            instance.id if instance is not None else ""
+                        ),
+                        "query": query,
+                        "prediction": prediction,
+                    }
+                ),
+            )
+            app_id = self._feedback_app_id
+            if app_id is not None:
+                with tracing.span("store/insert_event", kind="feedback"):
+                    self._storage.get_events().insert(event, app_id)
+        except Exception:  # noqa: BLE001 - feedback must not break serving
+            logger.exception("feedback event failed")
+        if isinstance(prediction, dict):
+            prediction = {**prediction, "prId": pr_id}
+        return prediction
 
     #: queries per /batch/queries.json call, bounding one request's memory
     MAX_QUERY_BATCH = 100
 
-    def _batch_queries(self, request: Request) -> Response:
+    def _batch_queries_inner(self, request: Request) -> Response:
         t0 = time.perf_counter()
         payload = request.json()
         if not isinstance(payload, list):
@@ -782,18 +1321,21 @@ class EngineServer:
         if not payload:
             return Response(200, [])
         for _attempt in range(2):
-            serving, batchers = self._snapshot()
-            entries, any_submitted = self._submit_batch(
-                serving, batchers, payload
-            )
-            if _attempt == 0 and not any_submitted and any(
-                e[0] == "reloading" for e in entries
-            ):
-                # a /reload raced us before any submit was accepted:
-                # nothing was dispatched, so a retry is safe
-                continue
-            results = self._collect_batch(serving, entries)
-            break
+            # the pin (multi-tenant) spans the submits and the collection
+            with self._serving_snapshot(request) as (serving, batchers):
+                entries, any_submitted = self._submit_batch(
+                    serving, batchers, payload
+                )
+                if _attempt == 0 and not any_submitted and any(
+                    e[0] == "reloading" for e in entries
+                ):
+                    # a /reload raced us before any submit was accepted:
+                    # nothing was dispatched, so a retry is safe
+                    continue
+                results = self._collect_batch(
+                    serving, entries, payload, request
+                )
+                break
         elapsed = time.perf_counter() - t0
         n = len(payload)
         with self._lock:
@@ -850,12 +1392,13 @@ class EngineServer:
             entries.append(("ok", supplemented, futures))
         return entries, any_submitted
 
-    def _collect_batch(self, serving, entries) -> list[dict]:
+    def _collect_batch(self, serving, entries, payload, request) -> list[dict]:
         # one deadline for the whole batch: a hung launch must not hold
         # the connection for N sequential predict timeouts
         deadline = time.monotonic() + self._predict_timeout_s
         results = []
-        for state, data, futures in entries:
+        logged = False  # one remote report a batch, not one a slot
+        for (state, data, futures), q in zip(entries, payload):
             if state == "bad":
                 results.append(
                     {"status": 400, "message": "query must be a JSON object"}
@@ -874,11 +1417,14 @@ class EngineServer:
                      "message": "deadline expired before dispatch"}
                 )
             elif state == "error":
+                if self._log_queue is not None and not logged:
+                    self._post_remote_log(data, request)
+                    logged = True
                 results.append({"status": 500, "message": str(data)})
             else:
                 try:
                     prediction = self._serve_one(
-                        serving, data, futures, deadline=deadline
+                        serving, q, data, futures, deadline=deadline
                     )
                     results.append({"status": 200, "prediction": prediction})
                 except resilience.DeadlineExceeded:
@@ -893,10 +1439,16 @@ class EngineServer:
                          "message": "shed under overload; retry later"}
                     )
                 except HTTPError as exc:
+                    if self._log_queue is not None and not logged:
+                        self._post_remote_log(exc, request)
+                        logged = True
                     results.append(
                         {"status": exc.status, "message": exc.message}
                     )
                 except Exception as exc:  # noqa: BLE001 - per-slot status
+                    if self._log_queue is not None and not logged:
+                        self._post_remote_log(exc, request)
+                        logged = True
                     results.append({"status": 500, "message": str(exc)})
         return results
 
@@ -1035,7 +1587,14 @@ class EngineServer:
         ) as e:
             self._abandon([f for f in futures if not f.done()])
             raise canary_mod.ShadowDropped() from e
-        return staged.serving.serve(supplemented, predictions)
+        prediction = staged.serving.serve(supplemented, predictions)
+        if self._feedback and isinstance(prediction, dict):
+            # as on the serving side (_canary_observe): only what the
+            # model answered enters the divergence score
+            prediction = {
+                k: v for k, v in prediction.items() if k != "prId"
+            }
+        return prediction
 
     def _canary_observe(
         self, supplemented, prediction, elapsed_s: float, ok: bool
@@ -1045,6 +1604,13 @@ class EngineServer:
         canary = self._canary
         if canary is None:
             return
+        if self._feedback and isinstance(prediction, dict):
+            # feedback injected a random prId after serving; the shadow
+            # path runs no feedback, so leaving it in would score a
+            # key mismatch on every shadow sample and veto every canary
+            prediction = {
+                k: v for k, v in prediction.items() if k != "prId"
+            }
         canary.observe(supplemented, prediction, elapsed_s, ok=ok)
         decision = canary.take_decision()
         if decision is not None:
@@ -1170,6 +1736,52 @@ class EngineServer:
             daemon=True,
         ).start()
 
+    def _debug_profile(self, request: Request) -> Response:
+        """Key-gated profile capture: a duration-bounded
+        ``torch.profiler`` trace (the card's kernels among its events)
+        with the flight recorder's spans and a device sample of the same
+        window, returned as a base64 ``tar.gz``. One at a time (the
+        profiler is process-wide): 409 on overlap."""
+        self._server_config.check_key(request)
+        body = request.json() if request.body else {}
+        if body is None:
+            body = {}
+        if not isinstance(body, dict):
+            raise HTTPError(400, "body must be a JSON object")
+        max_ms = max(
+            50.0, resilience._env_float("PIO_PROFILE_MAX_MS", 30000.0)
+        )
+        try:
+            duration_ms = float(body.get("durationMs", 1000.0))
+        except (TypeError, ValueError):
+            raise HTTPError(400, "durationMs must be a number")
+        duration_ms = min(max_ms, max(50.0, duration_ms))
+        with self._lock:
+            # a flag, not a held lock: the capture sleeps for durationMs
+            # and must not block the status and metrics readers
+            if self._profile_active:
+                raise HTTPError(
+                    409, "a profile capture is already running"
+                )
+            self._profile_active = True
+        try:
+            manifest = profiling.capture(
+                duration_ms / 1000.0,
+                tracer=self._tracer,
+                device_sample_fn=self._device_sampler.sample_once,
+            )
+            bundle = profiling.bundle(manifest["artifactDir"])
+        finally:
+            with self._lock:
+                self._profile_active = False
+        return Response(
+            200,
+            {
+                "profile": manifest,
+                "bundle": base64.b64encode(bundle).decode("ascii"),
+            },
+        )
+
     # -- lifecycle --------------------------------------------------------
     def serve(
         self,
@@ -1187,13 +1799,18 @@ class EngineServer:
         closes the batchers, and its ``drain()`` closes them after the
         in-flight requests have finished."""
         if port:
-            undeploy_existing(host, port)
+            undeploy_existing(host, port, self._server_config)
         last_exc: OSError | None = None
         for attempt in range(max(1, bind_retries)):
             try:
+                # enforce_key=False: TLS still applies, but the key is
+                # asked per route (/reload, /stop, /debug); queries stay
+                # open
                 self._http = HTTPServer(
-                    self.router, host=host, port=port, service="engine",
-                    registry=self._registry, tracer=self._tracer,
+                    self.router, host=host, port=port,
+                    server_config=self._server_config, enforce_key=False,
+                    service="engine", registry=self._registry,
+                    tracer=self._tracer,
                 )
                 # once the listener stops (a drain ends in shutdown,
                 # after the in-flight requests have left; /stop too) the
@@ -1212,10 +1829,15 @@ class EngineServer:
         raise last_exc  # type: ignore[misc]
 
     def _close_serving(self) -> None:
-        """Close every generation's batchers (the serving one, and a live
-        canary's staged or retained one), then the cache and the device
-        sampler. Queued queries still complete."""
+        """Close every generation's batchers (the serving one, a live
+        canary's staged or retained one, every pooled tenant's through
+        the pool it owns), then the cache, the device sampler, the
+        plugins and the remote log's sender. Queued queries still
+        complete. A second call does nothing."""
         with self._lock:
+            if self._closed:
+                return
+            self._closed = True
             canary = self._canary
             self._canary = None
             batchers = self._batchers
@@ -1229,10 +1851,23 @@ class EngineServer:
                     b.close()
         for b in batchers:
             b.close()
+        if self._pool is not None and self._owns_pool:
+            # ends the loader thread and closes every resident tenant
+            self._pool.close()
         if self._cache is not None:
             # fails still-coalesced waiters instead of stranding them
             self._cache.close()
         self._device_sampler.stop()
+        self._plugins.close()
+        if self._log_queue is not None:
+            # stop the sender, so a retired server can be collected; a
+            # full queue is being drained (at most 5 s a send), so a
+            # bounded wait suffices, after which the daemon thread is
+            # left to the process's exit
+            try:
+                self._log_queue.put(None, timeout=10)
+            except queue.Full:
+                logger.debug("remote error log sender did not stop")
 
     def close(self) -> None:
         """Stop the HTTP listener (when serving) and close the batchers:
@@ -1243,23 +1878,37 @@ class EngineServer:
         self._close_serving()
 
 
-def undeploy_existing(host: str, port: int) -> bool:
+def undeploy_existing(host: str, port: int, server_config=None) -> bool:
     """POST /stop to whatever occupies ``host:port`` before binding
     there (reference MasterActor.undeploy, CreateServer.scala:280-305).
     Returns True if an old server acknowledged the stop. It stops an
-    engine server of either package that serves plain HTTP without key
-    auth; the JAX package's TLS and ``accessKey`` forms of the handshake
-    come with the port's TLS and key auth (ROADMAP.md, queue 1, item
-    5a), and until then the ``undeploy`` verb refuses them."""
+    engine server of either package; under ``server_config`` it speaks
+    TLS when TLS is on (the old server's certificate is not verified:
+    this is a localhost control handshake, not a trust decision) and
+    sends the server key as ``accessKey``, as the JAX package does."""
     probe_host = "127.0.0.1" if host in ("0.0.0.0", "") else host
-    url = f"http://{probe_host}:{port}/stop"
+    ssl_enabled = bool(getattr(server_config, "ssl_enabled", False))
+    scheme = "https" if ssl_enabled else "http"
+    url = f"{scheme}://{probe_host}:{port}/stop"
+    key = getattr(server_config, "access_key", "") or ""
+    if key:
+        url += "?" + urllib.parse.urlencode({"accessKey": key})
+    tls_ctx = None
+    if ssl_enabled:
+        import ssl as _ssl
+
+        tls_ctx = _ssl.create_default_context()
+        tls_ctx.check_hostname = False
+        tls_ctx.verify_mode = _ssl.CERT_NONE
     logger.info(
         "Undeploying any existing engine instance at %s:%d",
         probe_host, port,
     )
     try:
         with urllib.request.urlopen(
-            urllib.request.Request(url, method="POST"), timeout=5
+            urllib.request.Request(url, method="POST"),
+            timeout=5,
+            context=tls_ctx,
         ) as resp:
             if resp.status == 200:
                 # give the old server a moment to release the socket

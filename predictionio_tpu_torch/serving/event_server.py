@@ -29,10 +29,13 @@ The adaptive admission controller is on by default (``admission=True``,
 hot app cannot starve the others' ingest; the HTTP tier adds deadlines,
 the drain, ``PIO_CHAOS`` and SLO scoring.
 
-Not ported yet (ROADMAP.md, queue 1): TLS and the key auth of the
-``/debug`` routes (``server_config``, item 5a), ``reuse_port`` workers
-(item 5b); the ``/healthz`` extra, which is the replicated store's
-quorum view (item 3b). The constructor takes none of their options.
+``server_config`` (default: the environment's ``ServerConfig``) gives
+the server TLS and key-auths its ``/debug`` routes; the event API keeps
+its own per-app access keys, so the server key is never asked of it.
+
+Not ported yet (ROADMAP.md, queue 1): ``reuse_port`` workers (item 5b)
+and the ``/healthz`` extra, which is the replicated store's quorum view
+(item 3b). The constructor takes neither option.
 """
 
 from __future__ import annotations
@@ -88,9 +91,13 @@ class EventServer:
         plugins: PluginContext | None = None,
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
+        server_config=None,
         admission: bool | admission_mod.AdmissionController = True,
     ):
-        """``admission`` turns on the adaptive overload controller; its
+        """``server_config`` key-auths the ``/debug`` routes; the event
+        API itself stays on per-app access keys.
+
+        ``admission`` turns on the adaptive overload controller; its
         fair shares are keyed by the ``accessKey`` query parameter."""
         self._storage = storage or get_storage()
         self.registry = registry if registry is not None else get_registry()
@@ -108,7 +115,7 @@ class EventServer:
         self.router = Router()
         r = self.router
         install_metrics_routes(
-            r, self.registry, self.tracer,
+            r, self.registry, self.tracer, server_config=server_config,
             timeline=timeline_mod.get_timeline(),
         )
         r.route("GET", "/", self._status)
@@ -431,15 +438,24 @@ def create_event_server(
     registry: MetricRegistry | None = None,
     tracer: tracing.Tracer | None = None,
     admission: bool = True,
+    server_config=None,
 ) -> HTTPServer:
     """An HTTP server on an :class:`EventServer` (default port 7070);
     ``start()`` it, and ``shutdown()`` (or ``drain()``) also releases
     the plugin dispatcher. ``registry`` and ``tracer`` default to the
-    process's."""
+    process's. TLS comes from ``server_config`` (default: the
+    environment's ``ServerConfig``); the server key is never enforced on
+    the event API."""
+    from predictionio_tpu_torch.serving.config import ServerConfig
+
+    if server_config is None:
+        server_config = ServerConfig.from_env()
     server = EventServer(storage=storage, stats=stats, plugins=plugins,
                          registry=registry, tracer=tracer,
+                         server_config=server_config,
                          admission=admission)
     http = HTTPServer(server.router, host=host, port=port,
+                      server_config=server_config, enforce_key=False,
                       service="eventserver", registry=server.registry,
                       tracer=server.tracer)
     http.add_shutdown_hook(server.close)

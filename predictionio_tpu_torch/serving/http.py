@@ -19,7 +19,13 @@ in this order, as in the JAX package:
   micro-batcher;
 * the admission controller (``Router.admission``): 503 or 429 with
   ``Retry-After`` and ``X-PIO-Shed``;
-* the chaos injector (``Router.chaos_middleware``, from ``PIO_CHAOS``).
+* the chaos injector (``Router.chaos_middleware``, from ``PIO_CHAOS``);
+* with a ``server_config`` whose key auth is enforced (and
+  ``enforce_key``), the server key on every route.
+
+With a ``server_config`` whose TLS is on, every connection is wrapped
+in its SSL context, and the handshake runs in the connection's own
+thread, so a client that stalls it holds no other connection.
 
 With a ``registry`` every request is counted and timed
 (``pio_http_requests_total``, ``pio_http_request_seconds``,
@@ -27,9 +33,7 @@ With a ``registry`` every request is counted and timed
 ``pio_server_draining``) and scored by an :class:`SLOMonitor`; every
 request outside the telemetry routes is one root span of the tracer.
 
-Not ported yet (ROADMAP.md, queue 1, item 5a): TLS and key auth of the
-``/debug`` routes (``server_config``). ``reuse_port`` belongs to the
-fleet (item 5b).
+``reuse_port`` belongs to the fleet (ROADMAP.md, queue 1, item 5b).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import json
 import logging
 import os
 import re
+import ssl
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -196,6 +201,7 @@ def install_metrics_routes(
     router: Router,
     registry: MetricRegistry,
     tracer: tracing.Tracer | None = None,
+    server_config=None,
     timeline=None,
 ) -> None:
     """The common telemetry surface: Prometheus text at ``GET
@@ -209,9 +215,12 @@ def install_metrics_routes(
     gains the ``PIO_CHAOS`` fault injector
     (:meth:`~predictionio_tpu_torch.serving.resilience.ChaosMiddleware.from_env`).
 
-    The JAX package's ``server_config`` (key auth of the ``/debug``
-    routes) and ``federation`` (the fleet view) are not ported yet
-    (ROADMAP.md, queue 1, items 5a and 5b)."""
+    ``server_config`` key-auths the ``/debug`` routes when its key auth
+    is enforced: traces and the timeline carry per-request data
+    (request IDs, tenants, latencies) that a server whose other routes
+    are open must not hand to anonymous clients. ``/metrics`` stays as
+    open as the server: aggregates only. The JAX package's
+    ``federation`` (the fleet view) is ROADMAP.md, queue 1, item 5b."""
     tracer = tracer if tracer is not None else tracing.get_tracer()
 
     def _metrics(request: Request) -> Response:
@@ -225,6 +234,8 @@ def install_metrics_routes(
         return Response(200, registry.to_dict())
 
     def _traces(request: Request) -> Response:
+        if server_config is not None:
+            server_config.check_key(request)
         # serialized here with default=str: span attributes are caller-
         # supplied, and Response.payload() runs outside the handler's
         # error boundary
@@ -237,9 +248,13 @@ def install_metrics_routes(
         )
 
     def _traces_json(request: Request) -> Response:
+        if server_config is not None:
+            server_config.check_key(request)
         return Response(200, json.dumps(tracer.to_dict(), default=str))
 
     def _timeline_json(request: Request) -> Response:
+        if server_config is not None:
+            server_config.check_key(request)
         return Response(200, json.dumps(timeline.to_dict(), default=str))
 
     router.route("GET", "/metrics", _metrics)
@@ -265,12 +280,24 @@ class HTTPServer:
         router: Router,
         host: str = "0.0.0.0",
         port: int = 0,
+        server_config=None,
+        enforce_key: bool = True,
         service: str = "http",
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
         slo=None,
     ):
-        """``registry`` turns on the telemetry wrapper: every request gets
+        """``server_config`` (a
+        :class:`~predictionio_tpu_torch.serving.config.ServerConfig`):
+        when its key auth is enforced every route requires the server
+        key (``X-PIO-Server-Key``, ``Authorization: Bearer`` or the
+        ``accessKey`` query param; reference
+        KeyAuthentication.scala:30-58), and when TLS is enabled every
+        connection is wrapped in its SSL context (TLS 1.2 or later).
+        ``enforce_key=False`` keeps TLS but leaves auth to the handlers
+        (the engine server key-auths only its admin routes).
+
+        ``registry`` turns on the telemetry wrapper: every request gets
         (or forwards) an ``X-Request-ID``, is timed into
         ``pio_http_request_seconds{service,route}``, counted into
         ``pio_http_requests_total{service,method,status}``, and emits a
@@ -288,6 +315,7 @@ class HTTPServer:
         environment), False turns scoring off, and a monitor passed in
         is shared."""
         router_ref = router
+        config_ref = server_config if enforce_key else None
         tracer_ref = tracer if tracer is not None else tracing.get_tracer()
         chaos_ref = router.chaos_middleware
         admission_ref = router.admission
@@ -343,6 +371,17 @@ class HTTPServer:
             # response header+body go out in one write; without NODELAY
             # Nagle + delayed ACK adds ~40 ms to every keep-alive request
             disable_nagle_algorithm = True
+
+            def setup(self):
+                # the TLS handshake runs here, in the connection's own
+                # thread, never in the accept loop, where a stalled
+                # client would hold every other connection
+                sock = self.request
+                if isinstance(sock, ssl.SSLSocket):
+                    sock.settimeout(10.0)
+                    sock.do_handshake()
+                    sock.settimeout(None)
+                super().setup()
 
             def log_message(self, fmt, *args):  # route through logging
                 line = redact_keys(fmt % args)
@@ -544,6 +583,13 @@ class HTTPServer:
                                         and not telemetry_path
                                     ):
                                         chaos_ref.apply(parsed.path)
+                                    if config_ref is not None:
+                                        # the route label first, so a 401
+                                        # counts against its real route
+                                        request.route = (
+                                            router_ref.match_route(request)
+                                        )
+                                        config_ref.check_key(request)
                                     response = router_ref.dispatch(request)
                                 except resilience.ChaosReset:
                                     raise  # handled below: slam the socket
@@ -680,6 +726,10 @@ class HTTPServer:
 
             do_GET = do_POST = do_DELETE = do_PUT = _handle
 
+        ssl_context = (
+            server_config.ssl_context() if server_config is not None else None
+        )
+
         class _Server(ThreadingHTTPServer):
             # the default backlog of 5 drops connections under concurrent
             # bursts — the exact load the batcher exists for
@@ -687,10 +737,23 @@ class HTTPServer:
             daemon_threads = True
 
             def handle_error(self, request, client_address):
+                # connection-level failures (an aborted TLS handshake
+                # among them) are expected noise
                 logger.debug(
                     "connection error from %s", client_address,
                     exc_info=True,
                 )
+
+            def get_request(self):
+                sock, addr = super().get_request()
+                if ssl_context is not None:
+                    # the handshake waits for the handler thread (setup)
+                    sock = ssl_context.wrap_socket(
+                        sock,
+                        server_side=True,
+                        do_handshake_on_connect=False,
+                    )
+                return sock, addr
 
         self._httpd = _Server((host, port), _Handler)
         self._thread: threading.Thread | None = None

@@ -6,10 +6,9 @@ Counterpart of ``predictionio_tpu/serving/plugins.py``:
   may reject an event (:class:`PluginRejection`); ``inputsniffer``
   plugins observe accepted events off the request thread and may serve
   REST under ``/plugins/...``;
-* engine-server plugins: ``outputblocker`` plugins fold over a
-  prediction, ``outputsniffer`` plugins observe (query, prediction)
-  pairs. The port's engine server does not take plugins yet (ROADMAP.md,
-  queue 1, item 5).
+* engine-server plugins: ``outputblocker`` plugins fold over each
+  answer on the query path, ``outputsniffer`` plugins observe (query,
+  answer) pairs off the request thread and may serve REST.
 
 Plugins are passed to :class:`PluginContext`, or named in ``PIO_PLUGINS``
 (comma-separated ``module:attr`` specs).

@@ -1,8 +1,9 @@
 """The fused top-k CUDA kernel against its plain version, ALS on the
 card against ALS on the CPU, the device-memory sampler on the card,
 ``POST /reload`` swapping a server on the card to a new generation
-served through the kernel, and one server's cache, deadline cut and
-canary promotion on the card.
+served through the kernel, one server's cache, deadline cut and
+canary promotion on the card, and tenants pooled on the card in each
+table form (f32, bf16, int8 + scale) answering through the kernel.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -801,3 +802,114 @@ def test_one_server_cache_deadline_and_canary_on_card(cuda_device,
             assert json.loads(r.read())["engineInstanceId"] == iid2
     finally:
         es.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", ["", "bf16", "int8"])
+def test_pooled_tenants_answer_through_the_kernel(cuda_device, tmp_path,
+                                                  quantize):
+    """Three tenants through a model pool on the card that holds one of
+    them at a time: every answer, after evictions and loads, equals the
+    plain top-k over that tenant's tables in the served form (the user
+    rows dequantized as serving dequantizes them), and the form's kernel
+    launched for them."""
+    import dataclasses
+    import datetime as dt
+    import json
+    import urllib.request
+
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.ops.quantize import dequantize
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+    from predictionio_tpu_torch.serving.modelpool import ModelPool
+
+    storage = Storage(env={
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    })
+    n_users, n_items, k = 64, 4_000, 32
+    models = {}
+    for t, variant in enumerate(("va", "vb", "vc")):
+        rng = np.random.default_rng(t)
+        model = als_model_from_numpy(
+            rng.standard_normal((n_users, k)).astype(np.float32),
+            rng.standard_normal((n_items, k)).astype(np.float32),
+            np.char.add("u", np.arange(n_users).astype(str)),
+            np.char.add("i", np.arange(n_items).astype(str)))
+        now = dt.datetime.now(dt.timezone.utc)
+        instances = storage.get_meta_data_engine_instances()
+        iid = instances.insert(EngineInstance(
+            id="", status="INIT", start_time=now, end_time=now,
+            engine_id="rec", engine_version="1", engine_variant=variant,
+            engine_factory="recommendation"))
+        publish_generation(storage.get_model_data_models(), iid,
+                           serialize_models(iid, [ALSAlgorithm()], [model]))
+        instances.update(dataclasses.replace(instances.get(iid),
+                                             status="COMPLETED"))
+        models[variant] = model
+    tenants = {"alice": "va", "bob": "vb", "carol": "vc"}
+    # one and a half tenants' tables in the served form: int8 rows are
+    # k bytes and a float32 scale, bf16 rows 2k bytes, f32 rows 4k
+    row_bytes = {"": 4 * k, "bf16": 2 * k, "int8": k + 4}[quantize]
+    pool = ModelPool(int(1.5 * (n_users + n_items) * row_bytes))
+    form = quantize or "f32"
+    before = fused_topk.LAUNCHES[form]
+    engine = recommendation_engine()
+    es, http = create_engine_server(
+        engine, engine.params_from_variant({}), "rec", host="127.0.0.1",
+        port=0, storage=storage, ctx=ComputeContext.create(
+            device=cuda_device), max_batch=8, tenants=tenants, pool=pool,
+        quantize=quantize)
+    http.start()
+    try:
+        base = f"http://127.0.0.1:{http.port}"
+        for i in range(12):
+            tenant = ("alice", "bob", "carol")[i % 3]
+            model = models[tenants[tenant]]
+            u = (i * 11) % n_users
+            req = urllib.request.Request(
+                f"{base}/queries.json?accessKey={tenant}",
+                data=json.dumps({"user": f"u{u}", "num": 10}).encode(),
+                method="POST", headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                ans = json.loads(resp.read())
+            users = torch.as_tensor(model.user_factors, device=cuda_device)
+            items = torch.as_tensor(model.item_factors, device=cuda_device)
+            scale = None
+            if quantize:
+                qi = quantize_factors(items, quantize)
+                items, scale = qi.data, qi.scale
+                users = dequantize(quantize_factors(users, quantize))
+            want_s, _ = fused_topk.fused_top_k_dot_reference(
+                users[u:u + 1], items, 10, None, scale)
+            got = [model.item_map(e["item"]) for e in ans["itemScores"]]
+            rows = items[got].float()
+            if scale is not None:
+                rows = rows * scale[got].unsqueeze(1)
+            # the same items up to a swap of two tied within tolerance
+            np.testing.assert_allclose(
+                (rows @ users[u]).cpu().numpy(),
+                want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose(
+                [e["score"] for e in ans["itemScores"]],
+                want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+        assert pool.stats()["evictions"] >= 8
+        assert fused_topk.LAUNCHES[form] >= before + 12
+    finally:
+        es.close()
+        pool.close()

@@ -81,7 +81,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "serving.dashboard", "serving.admin",
                 "serving.admission", "serving.resilience", "obs.slo",
                 "serving.querycache", "serving.canary",
-                "serving.batching", "serving.http"):
+                "serving.batching", "serving.http",
+                "serving.modelpool", "serving.plugins",
+                "serving.event_server"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(

@@ -26,10 +26,10 @@ and the outcomes are compared:
   router lost): outcomes, router calls and the state file equal;
 * ``POST /reload`` on the port's engine server: it swaps the served
   instance (the JAX server answers the same on the same store), keeps
-  the last good generation when the newest is corrupt, answers 400
-  naming ROADMAP item 5a to the per-tenant form, 200 "already serving"
-  to a canary of the generation it serves, and queries racing a reload
-  all succeed.
+  the last good generation when the newest is corrupt, reloads as
+  usual when a single-tenant server is named a tenant (the JAX server
+  ignores it too), answers 200 "already serving" to a canary of the
+  generation it serves, and queries racing a reload all succeed.
 
 The trainer's ``ComputeContext`` takes the CUDA device without one
 passed and raises without CUDA. The card-only checks (the device
@@ -909,7 +909,7 @@ def test_reload_keeps_the_last_good_generation(served):
 
 @pytest.mark.parametrize("body, raw, status, needle", [
     ({"canary": True}, None, 200, "already serving"),
-    ({"tenant": "acme"}, None, 400, "item 5a"),
+    ({"tenant": "acme"}, None, 200, "reloaded"),  # one tenant: ignored
     (None, b"{not json", 400, "JSON"),
     ([1, 2], None, 400, "JSON object"),
     ({"canary": False}, None, 200, "reloaded"),

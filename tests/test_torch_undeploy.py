@@ -15,9 +15,13 @@ deploy process that exits after it; ``ServerConfig`` read and refused.
   ``Retry-After``, and the child exits 0; ``eventserver --no-admission``
   serves without the admission families and drains on SIGTERM too;
 * ``ServerConfig.from_env`` reads what the JAX package reads (env over
-  ``$PIO_CONF_DIR/server.json``), and every verb that binds an HTTP
-  server, and ``undeploy``, refuses key auth and TLS, naming ROADMAP.md
-  item 5a.
+  ``$PIO_CONF_DIR/server.json``) and builds its SSL context alike, and
+  every verb that binds an HTTP server takes the environment's key auth
+  and TLS as the JAX console's does: ``deploy`` serves HTTPS and asks
+  the key of ``/reload`` and ``/debug``, ``eventserver`` of ``/debug``,
+  ``dashboard`` of every route, ``trainer --metrics-port`` of its
+  ``/debug`` routes, ``adminserver`` (like the reference AdminAPI)
+  reads neither, and ``undeploy`` stops a TLS server with the key.
 """
 
 from __future__ import annotations
@@ -352,27 +356,151 @@ def test_server_config_reads_what_the_jax_package_reads(tmp_path, env,
     want = JaxServerConfig.from_env(env)
     assert [getattr(got, f) for f in got.__dataclass_fields__] == [
         getattr(want, f) for f in got.__dataclass_fields__]
-    asked = want.key_auth_enforced or want.ssl_enabled
-    assert (got.refusal("deploy") is not None) == asked
+    outcomes = []
+    for config in (want, got):
+        try:
+            outcomes.append(config.ssl_context())
+        except (OSError, ValueError) as e:
+            outcomes.append(type(e))
+    assert outcomes[1] == outcomes[0]  # None, or the same refusal
 
 
-@pytest.mark.parametrize("guard", [
-    {"PIO_SERVER_KEY_AUTH_ENFORCED": "true"},
-    {"PIO_SERVER_SSL_ENABLED": "true"},
-])
-@pytest.mark.parametrize("argv", [
-    ["deploy", "--variant", "engine.json", "--device", "cpu"],
-    ["eventserver", "--port", "0"],
-    ["dashboard", "--port", "0"],
-    ["adminserver", "--port", "0"],
-    ["trainer", "--app", "shop", "--variant", "engine.json",
-     "--metrics-port", "9", "--once", "--device", "cpu"],
-    ["undeploy", "--ip", "127.0.0.1", "--port", "9"],
-])
-def test_binding_verbs_refuse_key_auth_and_tls(monkeypatch, capsys, guard,
-                                               argv):
-    for k, v in guard.items():
+@pytest.fixture(scope="module")
+def certs(tmp_path_factory):
+    from test_torch_server_config import _self_signed_cert
+
+    return _self_signed_cert(tmp_path_factory.mktemp("certs"))
+
+
+def _guard(certs, tls: bool) -> dict:
+    env = {"PIO_SERVER_KEY_AUTH_ENFORCED": "true",
+           "PIO_SERVER_ACCESS_KEY": "k"}
+    if tls:
+        env.update(PIO_SERVER_SSL_ENABLED="true",
+                   PIO_SERVER_SSL_CERTFILE=certs[0],
+                   PIO_SERVER_SSL_KEYFILE=certs[1])
+    return env
+
+
+def _probe(port: int, tls: bool, method: str, path: str, key: bool):
+    import ssl
+
+    ctx = None
+    if tls:
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+    req = urllib.request.Request(
+        f"{'https' if tls else 'http'}://127.0.0.1:{port}{path}",
+        data=b"{}" if method == "POST" else None, method=method,
+        headers={"X-PIO-Server-Key": "k"} if key else {})
+    try:
+        with urllib.request.urlopen(req, timeout=30, context=ctx) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+#: verb → (argv, [(method, path, with the key)], the statuses, TLS applies)
+_BINDING = {
+    "deploy": (["deploy", "--variant", "{base}/engine.json", "--device",
+                "cpu", "--ip", "127.0.0.1", "--port", "0"],
+               [("GET", "/", False), ("POST", "/reload", False),
+                ("POST", "/reload", True), ("GET", "/debug/traces", False),
+                ("GET", "/debug/traces", True)],
+               [200, 401, 200, 401, 200], True),
+    "eventserver": (["eventserver", "--ip", "127.0.0.1", "--port", "0"],
+                    [("GET", "/", False), ("GET", "/debug/traces.json",
+                                           False),
+                     ("GET", "/debug/traces.json", True)],
+                    [200, 401, 200], True),
+    "dashboard": (["dashboard", "--ip", "127.0.0.1", "--port", "0"],
+                  [("GET", "/", False), ("GET", "/", True)],
+                  [401, 200], True),
+    "adminserver": (["adminserver", "--ip", "127.0.0.1", "--port", "0"],
+                    [("GET", "/", False)], [200], False),
+}
+
+
+@pytest.mark.parametrize("tls", [False, True], ids=["key", "tls+key"])
+@pytest.mark.parametrize("verb", sorted(_BINDING))
+def test_binding_verbs_take_key_auth_and_tls(monkeypatch, capsys, store,
+                                             certs, verb, tls):
+    import predictionio_tpu_torch.cli.main as cli
+
+    base, storage = store
+    for k, v in _guard(certs, tls).items():
         monkeypatch.setenv(k, v)
-    assert main(argv) == 1
-    err = capsys.readouterr().err
-    assert "is not ported yet" in err and "item 5a" in err, err
+    argv, probes, want, tls_applies = _BINDING[verb]
+    seen = []
+
+    def probe(http):
+        http.start()
+        try:
+            seen.extend(_probe(http.port, tls and tls_applies, *p)
+                        for p in probes)
+        finally:
+            http.shutdown()
+        return 0
+
+    monkeypatch.setattr(cli, "_serve_foreground", probe)
+    set_storage(storage)
+    try:
+        assert main([a.format(base=base) for a in argv]) == 0
+    finally:
+        set_storage(None)
+    assert seen == want
+    assert "is listening on 127.0.0.1:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("tls", [False, True], ids=["key", "tls+key"])
+def test_trainer_metrics_port_takes_the_key(monkeypatch, store, certs, tls):
+    """``trainer --metrics-port``: the key guards its ``/debug`` routes
+    (its listener, as in the JAX console, stays plain HTTP)."""
+    import predictionio_tpu_torch.training as training
+
+    base, storage = store
+    for k, v in _guard(certs, tls).items():
+        monkeypatch.setenv(k, v)
+    port = _free_port()
+    seen = []
+
+    class _Trainer:
+        def __init__(self, *a, **kw):
+            pass
+
+        def poll_once(self):
+            seen.extend(_probe(port, False, "GET", path, key)
+                        for path, key in (("/metrics.json", False),
+                                          ("/debug/traces.json", False),
+                                          ("/debug/traces.json", True)))
+            return "noop"
+
+    monkeypatch.setattr(training, "ContinuousTrainer", _Trainer)
+    set_storage(storage)
+    try:
+        assert main(["trainer", "--app", "shop", "--variant",
+                     str(base / "engine.json"), "--metrics-port", str(port),
+                     "--once", "--device", "cpu", "--checkpoint-dir",
+                     str(base / f"trainer-{tls}")]) == 0
+    finally:
+        set_storage(None)
+    assert seen == [200, 401, 200]
+
+
+def test_undeploy_stops_a_tls_server_with_the_key(monkeypatch, capsys,
+                                                  store, certs):
+    for k, v in _guard(certs, True).items():
+        monkeypatch.setenv(k, v)
+    es = _server(store[1])  # the environment's ServerConfig
+    port = _free_port()
+    es.serve(host="127.0.0.1", port=port).start()
+    try:
+        assert _probe(port, True, "POST", "/stop", False) == 401
+        assert main(["undeploy", "--ip", "127.0.0.1",
+                     "--port", str(port)]) == 0
+        assert capsys.readouterr().out == (
+            f"Undeployed engine server at 127.0.0.1:{port}\n")
+        assert _wait(lambda: _refused(port))
+    finally:
+        es.close()
