@@ -203,8 +203,47 @@ and PyTorch built for CUDA. In order:
    ``memory_allocated``, tenants resident, cold-load seconds, hit and
    miss p50, evictions, answers/s, tenants per card as arithmetic) on a
    line beside the card;
-16. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-15) and, last, the device line.
+16. runs the serving fleet on one card (JAX ``scripts/router_smoke.py``,
+   ``scripts/fleet_smoke.py`` and ``scripts/serving_bench.py --ramp``,
+   over real processes): every worker and replica a process of the
+   port's console serving phase 4's width (a generation of random
+   factors from the seed) from one sqlite + localfs store, the replicas
+   under ``chip_smoke.py --cli-child DIR`` (their launches land in
+   ``DIR/<pid>.json``), the clients 4 processes of 16 closed-loop
+   threads that retry a transport error or a 503 with ``Retry-After``:
+   (a) ``deploy --workers N`` for N = 1, 2, 4 (5 s of traffic each):
+   every answer a 200 equal to the plain top-k, every worker pid
+   answered (read on the connection's ``GET /``) and its
+   ``pio_batches_total`` rose; goodput, p50/p99, answers by pid, each
+   worker's live tensor bytes and the card's used memory; (b) two
+   replicas, each a supervised slot, behind a ``router --admin-key
+   --fleet-gate --state-file`` process: ``/admin/*`` without the key
+   401, each replica admitted only once warm, the router hop's added
+   p50 against the same clients sent straight to the replicas, one
+   replica SIGKILLed mid-traffic and respawned on its port, readmitted
+   warm, ``pio_router_failovers_total`` > 0, no non-200, the card's
+   used memory back within 64 MiB; (f) federation: the router's
+   federated ``pio_batches_total`` equal to the sum of the replicas',
+   ``status --router-url`` lines, one trace id in the router's and a
+   replica's ``/debug/traces.json``; (c) a NaN generation vetoed by the
+   fleet gate, then a generation of new factors (seed + 1) promoted,
+   every answer after the promotion equal to the plain top-k on it;
+   (d) the router killed -9 during the regression watch and started
+   again on its state file: the swap resumes to ``done`` and the fleet
+   serves one generation; (e) ``router --spawn-replica <a --cli-child
+   deploy with {port} and {generation}> --min-replicas 1
+   --max-replicas 2`` grows to two replicas under a load that saturates
+   one (an admission ceiling of 8 in flight) and shrinks back through
+   the sticky drain with no request dropped; (g) phase 15's 8 tenants
+   in int8 on two pooled replicas behind a router, 128 queries with
+   tenants Zipf(1.0), each answer equal to the plain top-k in int8,
+   each tenant on one replica unless a failover moved it, evictions per
+   replica; no child process outlives the phase; each number on a line
+   beside the card;
+17. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-16; phase 16's ``--workers`` children, which the package
+   re-execs, by their ``pio_batches_total``) and, last, the device
+   line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -3184,7 +3223,8 @@ def cli_child(out_path: str, argv: list) -> int:
     """``predictionio_tpu_torch.cli.main.main(argv)`` in this process (run
     as ``chip_smoke.py --cli-child OUT <console argv>``): the fused
     kernel's launches by form and the devices of the compute contexts
-    made are written to ``OUT`` with the exit code when ``main`` returns."""
+    made are written to ``OUT`` with the exit code when ``main`` returns
+    (into ``OUT/<pid>.json`` where ``OUT`` is a directory)."""
     from predictionio_tpu_torch.cli.main import main as console
     from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel import mesh
@@ -3200,6 +3240,9 @@ def cli_child(out_path: str, argv: list) -> int:
     mesh.ComputeContext.create = staticmethod(create)
     fused_topk.reset_launch_counts()
     rc = console(argv)
+    if os.path.isdir(out_path):
+        # a directory holds one file a process (phase 16's replicas)
+        out_path = os.path.join(out_path, f"{os.getpid()}.json")
     with open(out_path, "w") as f:
         json.dump({"rc": rc, "launches": dict(fused_topk.LAUNCHES),
                    "devices": devices}, f)
@@ -4843,6 +4886,1170 @@ def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     return out
 
 
+# -- phase 16: the fleet on one card -----------------------------------------
+
+#: (a): worker counts, and the seconds of closed-loop traffic each takes
+FLEET_WORKERS = (1, 2, 4)
+FLEET_STAGE_S = 5.0
+#: the clients: processes of their own, closed-loop threads in each
+FLEET_PROCS = 4
+FLEET_THREADS = 16
+#: one request's retry budget (transport errors, 503 + Retry-After), s
+FLEET_BUDGET_S = 60.0
+#: (b): seconds of traffic through the router, then straight to the
+#: replicas, for the router hop's added p50
+FLEET_HOP_S = 3.0
+#: (b)-(d): the router's admin key
+FLEET_KEY = "chip-smoke-fleet-key"
+#: (g): queries through the router to the pooled replicas
+FLEET_POOL_REQUESTS = 128
+#: (b): the card's used memory after the respawn, against before the kill
+FLEET_MEM_SLACK = 64 * 1024 * 1024
+#: every child's bound to come up or to end, seconds
+FLEET_START_S = 300.0
+#: (b)-(d), the router: a replica's breaker half-opens 2 s after it
+#: tripped (a respawned replica serves again within the run); the fleet
+#: gate mirrors every live query and ten shadow scores decide: any
+#: divergence passes (a generation of new random factors ranks other
+#: items), a non-finite score vetoes; a 4 s regression watch whose
+#: latency bound the roll's halved capacity cannot trip
+FLEET_ROUTER_ENV = {
+    "PIO_BREAKER_RESET_S": "2.0",
+    "PIO_CANARY_SAMPLE": "1.0",
+    "PIO_CANARY_MIN_SHADOW": "10",
+    "PIO_CANARY_MAX_DIVERGENCE": "1.0",
+    "PIO_CANARY_WATCH_S": "4.0",
+    "PIO_CANARY_WATCH_MIN_REQUESTS": "20",
+    "PIO_CANARY_LATENCY_FACTOR": "10.0",
+    "PIO_CANARY_SHADOW_TIMEOUT_S": "10.0",
+}
+#: (e): the autoscaler's cadence (a shrink after 2 s below half a query
+#: in flight per replica), the fleet SLO's burn over the last 5 s (not
+#: 60: the sheds of the load would hold the pool up for a minute after
+#: it), and an admission ceiling of 8 in flight per replica, which 64
+#: clients saturate
+FLEET_SCALE_ENV = {
+    "PIO_AUTOSCALE_INTERVAL_S": "0.5",
+    "PIO_AUTOSCALE_SHRINK_TICKS": "4",
+    "PIO_SLO_SHORT_WINDOW_S": "5",
+    "PIO_ADMISSION_INITIAL": "8",
+    "PIO_ADMISSION_MAX": "8",
+}
+
+#: one client process: ``FLEET_THREADS``-style closed-loop threads on
+#: keep-alive connections, standard library only (no torch import), with
+#: the retry discipline of the JAX package's client: a transport error or
+#: a 503 with ``Retry-After`` is sent again inside the request's budget.
+#: Each final outcome is written as [user, tenant, status, sent, done,
+#: pid, tries, item indices or error, scores], times on the monotonic
+#: clock every process of the machine shares.
+FLEET_CLIENT = r"""
+import http.client, json, os, random, sys, threading, time
+
+a = json.loads(sys.argv[1])
+targets, tenants = a["targets"], a["tenants"]
+weights = ([(r + 1) ** -a["zipf"] for r in range(len(tenants))]
+           if tenants else None)
+lock = threading.Lock()
+state = {"left": a["requests"], "n": 0}
+out = []
+
+
+def finished():
+    if state["left"] is None:
+        return (time.monotonic() >= a["start_at"] + a["seconds"]
+                or os.path.exists(a["stop_file"]))
+    with lock:
+        if state["left"] <= 0:
+            return True
+        state["left"] -= 1
+        return False
+
+
+def connect(i):
+    host, port = targets[i % len(targets)]
+    conn = http.client.HTTPConnection(host, port, timeout=a["timeout_s"])
+    pid = None
+    if a["probe_pid"]:
+        conn.request("GET", "/")
+        resp = conn.getresponse()
+        pid = json.loads(resp.read()).get("pid")
+    return [conn, pid]
+
+
+def one(i, rng, link):
+    user = rng.randrange(a["n_users"])
+    tenant = rng.choices(tenants, weights)[0] if tenants else None
+    with lock:
+        n = state["n"]
+        state["n"] += 1
+    path = "/queries.json"
+    headers = {"Content-Type": "application/json"}
+    if tenant is not None and n % 2 == 0:
+        path += "?accessKey=" + tenant
+    elif tenant is not None:
+        headers["X-PIO-Tenant"] = tenant
+    body = json.dumps({"user": "u%d" % user, "num": a["num"]}).encode()
+    sent = time.monotonic()
+    tries = 0
+    while True:
+        tries += 1
+        try:
+            if link[0] is None:
+                link[:] = connect(i)
+            link[0].request("POST", path, body, headers)
+            resp = link[0].getresponse()
+            raw = resp.read()
+            status, retry = resp.status, resp.getheader("Retry-After")
+        except (OSError, http.client.HTTPException) as e:
+            if link[0] is not None:
+                link[0].close()
+            link[:] = [None, None]
+            if time.monotonic() - sent < a["budget_s"]:
+                time.sleep(0.05)
+                continue
+            return [user, tenant, -1, sent, time.monotonic(), None, tries,
+                    repr(e), None]
+        if (status == 503 and retry is not None
+                and time.monotonic() - sent < a["budget_s"]):
+            time.sleep(min(1.0, max(0.01, float(retry))))
+            continue
+        done = time.monotonic()
+        if status != 200:
+            return [user, tenant, status, sent, done, link[1], tries,
+                    raw[:300].decode("utf-8", "replace"), None]
+        ans = json.loads(raw)["itemScores"]
+        return [user, tenant, status, sent, done, link[1], tries,
+                [int(e["item"][1:]) for e in ans],
+                [e["score"] for e in ans]]
+
+
+def worker(i):
+    rng = random.Random(a["seed"] * 1000 + i)
+    link = [None, None]
+    local = []
+    while not finished():
+        local.append(one(i, rng, link))
+    if link[0] is not None:
+        link[0].close()
+    with lock:
+        out.extend(local)
+
+
+while time.monotonic() < a["start_at"]:
+    time.sleep(0.005)
+threads = [threading.Thread(target=worker, args=(i,))
+           for i in range(a["threads"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+with open(a["out"] + ".tmp", "w") as f:
+    json.dump(out, f)
+os.replace(a["out"] + ".tmp", a["out"])
+"""
+
+
+def fleet_env(workdir: str) -> dict:
+    """sqlite metadata and localfs models under ``workdir``: a store every
+    process of the fleet reads."""
+    return {
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": os.path.join(workdir, "pio.sqlite"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(workdir, "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    }
+
+
+def _fleet_variant(workdir: str, variant: str) -> str:
+    """An engine.json serving the newest ``chip-smoke`` generation of
+    engine variant ``variant``."""
+    path = os.path.join(workdir, f"engine-{variant}.json")
+    with open(path, "w") as f:
+        json.dump({"id": "chip-smoke", "variant": variant,
+                   "engineFactory": "recommendation",
+                   "algorithms": [{"name": "als",
+                                   "params": {"rank": RANK}}]}, f)
+    return path
+
+
+def _fleet_memory(device) -> dict:
+    """The card's used memory as ``nvidia-smi`` reads it (None without
+    it), with this process's cached blocks given back first (its checks
+    leave gigabytes in the caching allocator), and the bytes this process
+    still reserves."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    out = {"card_used": None, "parent_reserved": (
+        torch.cuda.memory_reserved(device) if device.type == "cuda" else 0)}
+    smi = shutil.which("nvidia-smi")
+    if smi is not None:
+        got = subprocess.run(
+            [smi, "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+        try:
+            out["card_used"] = int(got.stdout.split()[0]) * 2**20
+        except (IndexError, ValueError):
+            pass
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _proc_age_s(pid: int) -> float | None:
+    """Seconds since process ``pid`` started (``/proc``), or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+    except (OSError, IndexError, ValueError):
+        return None
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def _json_call(url: str, body=None, headers=None, method=None,
+               timeout: float = 30.0):
+    """(status, decoded JSON or None) of one HTTP call."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method=method or ("GET" if body is None else "POST"),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    try:
+        return status, json.loads(raw or b"null")
+    except ValueError:
+        return status, None
+
+
+def _fam_total(payload: dict, name: str, **labels) -> float:
+    """Sum of a ``/metrics.json`` family's samples matching ``labels``."""
+    fam = (payload or {}).get(name) or {}
+    return float(sum(
+        s.get("value", s.get("count")) or 0.0 for s in fam.get("samples", ())
+        if all(s.get("labels", {}).get(k) == v for k, v in labels.items())))
+
+
+def _fam_by(payload: dict, name: str, label: str) -> dict:
+    """{label value: sum} of a ``/metrics.json`` family."""
+    out: dict = {}
+    for s in ((payload or {}).get(name) or {}).get("samples", ()):
+        key = s.get("labels", {}).get(label)
+        out[key] = out.get(key, 0.0) + float(s.get("value") or 0.0)
+    return out
+
+
+class _Fleet:
+    """Every process phase 16 starts, each writing its output to files
+    in ``workdir``, and every pid it learns of (worker children,
+    autoscaled replicas), so that none outlives the phase."""
+
+    def __init__(self, workdir: str, env: dict, dev: list):
+        self.workdir = workdir
+        self.env = env
+        #: the console's device flag: none on the card, else --device
+        self.dev = dev
+        self.procs: dict = {}
+        self.pids: set = set()
+        self.counts_dir = os.path.join(workdir, "counts")
+        os.makedirs(self.counts_dir)
+        self.seq = 0
+        #: where the newest process of a name starts in its output file
+        self.offsets: dict = {}
+
+    def path(self, name: str, ext: str) -> str:
+        return os.path.join(self.workdir, f"{name}.{ext}")
+
+    def start(self, name: str, cmd: list, env: dict | None = None):
+        path = self.path(name, "out")
+        self.offsets[name] = (os.path.getsize(path)
+                              if os.path.exists(path) else 0)
+        with open(path, "a") as out, \
+                open(self.path(name, "err"), "a") as err:
+            proc = subprocess.Popen(cmd, env={**self.env, **(env or {})},
+                                    stdout=out, stderr=err, cwd=ROOT)
+        self.procs.setdefault(name, []).append(proc)
+        self.pids.add(proc.pid)
+        return proc
+
+    def replica_cmd(self, variant_path: str, port, extra=()) -> list:
+        """A ``--cli-child`` deploy whose launch counts land in a file
+        named by its pid."""
+        return CLI_CHILD + [self.counts_dir, "deploy", "--variant",
+                            variant_path, "--ip", "127.0.0.1", "--port",
+                            str(port), *self.dev, *extra]
+
+    def replica(self, name: str, variant_path: str, port: int, extra=(),
+                env: dict | None = None):
+        return self.start(name, self.replica_cmd(variant_path, port, extra),
+                          env)
+
+    def console(self, name: str, argv: list, env: dict | None = None):
+        return self.start(name, CONSOLE + list(argv), env)
+
+    def wait_line(self, name: str, proc, text: str,
+                  timeout: float = FLEET_START_S) -> float:
+        """Seconds until ``text`` appears in the output of the newest
+        process named ``name``."""
+        t0 = time.perf_counter()
+
+        def output() -> str:
+            with open(self.path(name, "out")) as f:
+                f.seek(self.offsets[name])
+                return f.read()
+
+        while text not in output():
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"{name} ended (rc {proc.returncode}) before "
+                    f"{text!r}: {_tail(self.path(name, 'err'))}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{name} never printed {text!r}")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def stop(self, name: str, proc, rc: int = 0,
+             timeout: float = FLEET_START_S, term: bool = True) -> None:
+        """SIGTERM (a drain; without ``term`` the process ends on its
+        own) and the exit code ``rc``."""
+        if term and proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(f"{name} never ended")
+        assert proc.returncode == rc, (
+            name, proc.returncode, _tail(self.path(name, "err")))
+
+    def counts(self) -> dict:
+        """The kernel's launches by form over every counted child that
+        ended through its console's return."""
+        launches = {form: 0 for form in FORMS}
+        for fn in os.listdir(self.counts_dir):
+            with open(os.path.join(self.counts_dir, fn)) as f:
+                c = json.load(f)
+            assert c["rc"] == 0, (fn, c)
+            for form in FORMS:
+                launches[form] += c["launches"].get(form, 0)
+        return launches
+
+    def clients(self, targets, n_users: int, seconds: float = 600.0,
+                requests: int | None = None, tenants=None,
+                probe_pid: bool = False, seed: int = 0) -> dict:
+        """Start FLEET_PROCS client processes of FLEET_THREADS threads
+        on ``targets`` ((host, port) pairs, a thread's connection going
+        to one of them in turn) for ``seconds``, or until the stop file
+        appears, or ``requests`` in all; returns a handle for
+        :meth:`finish`."""
+        self.seq += 1
+        tag = f"clients{self.seq}"
+        stop_file = self.path(tag, "stop")
+        start_at = time.monotonic() + 0.5
+        procs, outs = [], []
+        for p in range(FLEET_PROCS):
+            share = None if requests is None else (
+                requests // FLEET_PROCS + (p < requests % FLEET_PROCS))
+            out = self.path(f"{tag}-{p}", "json")
+            args = {
+                "targets": [list(t) for t in targets], "n_users": n_users,
+                "num": 10, "threads": FLEET_THREADS, "seconds": seconds,
+                "requests": share, "tenants": tenants, "zipf": POOL_ZIPF,
+                "probe_pid": probe_pid, "budget_s": FLEET_BUDGET_S,
+                "timeout_s": 120.0, "seed": seed * 100 + p,
+                "start_at": start_at, "stop_file": stop_file, "out": out,
+            }
+            procs.append(self.start(f"{tag}-{p}", [
+                sys.executable, "-c", FLEET_CLIENT, json.dumps(args)]))
+            outs.append(out)
+        return {"procs": procs, "outs": outs, "stop_file": stop_file,
+                "start_at": start_at}
+
+    def finish(self, handle: dict, stop: bool = False) -> list:
+        """Wait for a client set (stopping it first with ``stop``);
+        every final outcome, ordered by send time."""
+        if stop:
+            open(handle["stop_file"], "w").close()
+        rows = []
+        for proc, out in zip(handle["procs"], handle["outs"]):
+            try:
+                proc.wait(timeout=FLEET_START_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                raise AssertionError("a client process never ended")
+            assert proc.returncode == 0, _tail(out[:-5] + ".err")
+            with open(out) as f:
+                rows.extend(json.load(f))
+        rows.sort(key=lambda r: r[3])
+        return rows
+
+    def close(self) -> list:
+        """Kill whatever is still alive; the pids that were."""
+        left = []
+        for procs in self.procs.values():
+            for proc in procs:
+                if proc.poll() is None:
+                    left.append(proc.pid)
+                    proc.kill()
+                    proc.wait(timeout=60)
+        for pid in self.pids:
+            if _alive(pid):
+                left.append(pid)
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        return sorted(set(left))
+
+
+def _traffic_stats(rows: list, t0: float | None = None,
+                   t1: float | None = None) -> dict:
+    """Goodput and latency of the final outcomes ``rows`` (those ending
+    within [t0, t1] when given)."""
+    if t0 is not None:
+        rows = [r for r in rows if t0 <= r[4] <= t1]
+    ok = [r for r in rows if r[2] == 200]
+    lat = [r[4] - r[3] for r in ok]
+    span = ((t1 - t0) if t0 is not None else
+            (max(r[4] for r in rows) - min(r[3] for r in rows)
+             if rows else 0.0))
+    return {
+        "requests": len(rows), "ok": len(ok),
+        "non200": len(rows) - len(ok),
+        "retried": sum(1 for r in rows if r[6] > 1),
+        "goodput_rps": len(ok) / span if span > 0 else 0.0,
+        "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+    }
+
+
+def _classify(rows: list, gens: dict, device) -> dict:
+    """Hold every 200 of ``rows`` against the plain top-k of the
+    generations ``gens`` ({name: (users, items)} on the card): a row
+    belongs to the generation whose plain top-10 scores its scores equal
+    (position by position, within ATOL + RTOL·|s|), and is then held to
+    that generation's plain answer by :func:`compare`. Returns the
+    generation of each row (None for non-200s) and the checks; raises if
+    a row matches no generation."""
+    from predictionio_tpu_torch.ops import fused_topk
+
+    idx = [i for i, r in enumerate(rows) if r[2] == 200]
+    which: list = [None] * len(rows)
+    out = {"answers_checked": 0, "tied_mismatches": 0, "max_abs_err": 0.0,
+           "by_generation": {}}
+    for lo in range(0, len(idx), 512):
+        chunk = [rows[i] for i in idx[lo:lo + 512]]
+        for r in chunk:
+            assert len(r[7]) == 10, r
+        uids = torch.tensor([r[0] for r in chunk], device=device)
+        got_i = torch.tensor([r[7] for r in chunk], dtype=torch.int32,
+                             device=device)
+        got_s = torch.tensor([r[8] for r in chunk], device=device)
+        owner = torch.full((len(chunk),), -1, device=device)
+        wants = {}
+        for g, (name, (users, items)) in enumerate(gens.items()):
+            q = users[uids]
+            want = fused_topk.fused_top_k_dot_reference(q, items, 10)
+            wants[name] = (q, items, want)
+            close = ((got_s - want[0]).abs()
+                     <= ATOL + RTOL * want[0].abs()).all(dim=1)
+            owner = torch.where((owner < 0) & close,
+                                torch.full_like(owner, g), owner)
+        owner = owner.tolist()
+        names = list(gens)
+        bad = [chunk[j][:3] for j, o in enumerate(owner) if o < 0]
+        assert not bad, f"answers of no generation: {bad[:3]}"
+        for g, name in enumerate(names):
+            sel = [j for j, o in enumerate(owner) if o == g]
+            if not sel:
+                continue
+            q, items, want = wants[name]
+            s = torch.tensor(sel, device=device)
+            res = compare(q[s], items, None, None, 10,
+                          (got_s[s], got_i[s]), (want[0][s], want[1][s]))
+            out["tied_mismatches"] += res["tied_mismatches"]
+            out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+            out["by_generation"][name] = (
+                out["by_generation"].get(name, 0) + len(sel))
+        for j, o in enumerate(owner):
+            which[idx[lo + j]] = names[o]
+        out["answers_checked"] += len(chunk)
+    return which, out
+
+
+def _wait_for(cond, what: str, timeout: float = FLEET_START_S):
+    """Poll ``cond`` until it returns a true value; that value."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _worker_views(port: int) -> dict:
+    """{pid: /metrics.json} of the workers behind one SO_REUSEPORT
+    port, read on fresh keep-alive connections: ``GET /`` names the
+    worker that took the connection and ``GET /metrics.json`` on the same
+    connection reads that worker's registry. Stops after 400
+    connections, or once a run of 64 in a row brought no new pid."""
+    import http.client
+
+    seen: dict = {}
+    since_new = 0
+    for _ in range(400):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("GET", "/")
+            pid = json.loads(conn.getresponse().read())["pid"]
+            conn.request("GET", "/metrics.json")
+            payload = json.loads(conn.getresponse().read())
+        except OSError:
+            time.sleep(0.05)
+            continue
+        finally:
+            conn.close()
+        since_new = 0 if pid not in seen else since_new + 1
+        seen[pid] = payload
+        if since_new >= 64:
+            break
+    return seen
+
+
+def _router_status(base: str) -> dict:
+    status, body = _json_call(base + "/", timeout=10)
+    assert status == 200 and isinstance(body, dict), (status, body)
+    return body
+
+
+def _swap(base: str, body: dict) -> dict:
+    status, rec = _json_call(base + "/admin/swap", body,
+                             {"X-PIO-Server-Key": FLEET_KEY})
+    assert status == 202, (status, rec)
+    return rec
+
+
+def _swap_phase(base: str, sid: str, phases, timeout: float = 120.0,
+                seen: list | None = None) -> dict:
+    """Poll a swap record until its phase is one of ``phases``,
+    surviving a router that is down meanwhile; ``seen`` collects each
+    phase with the monotonic time it was first read."""
+    deadline = time.perf_counter() + timeout
+    rec: dict = {}
+    while time.perf_counter() < deadline:
+        try:
+            status, rec = _json_call(f"{base}/admin/swap/{sid}",
+                                     headers={"X-PIO-Server-Key": FLEET_KEY},
+                                     timeout=10)
+        except OSError:
+            time.sleep(0.05)
+            continue
+        if status == 200 and isinstance(rec, dict):
+            if seen is not None and (not seen or seen[-1][0] != rec["phase"]):
+                seen.append((rec["phase"], time.monotonic()))
+            if rec["phase"] in phases:
+                return rec
+        time.sleep(0.05)
+    raise AssertionError(f"swap {sid} never reached {phases}: {rec}")
+
+
+def _fleet_workers(fleet, variant, gen1, n_users: int, device,
+                   out: dict) -> None:
+    """(a) ``deploy --workers N`` for each N of FLEET_WORKERS: every
+    worker answers, launches, and every answer is the plain top-k."""
+    out["workers"] = []
+    for n in FLEET_WORKERS:
+        port = _free_port()
+        name = f"workers{n}"
+        t0 = time.perf_counter()
+        proc = fleet.replica(name, variant, port, ("--workers", str(n)))
+        fleet.wait_line(name, proc, f"listening on 127.0.0.1:{port}")
+
+        def warm_set():
+            views = _worker_views(port)
+            warm = {pid: v for pid, v in views.items()
+                    if _fam_total(v, "pio_warmup_complete") >= 1}
+            return warm if len(warm) == n else None
+
+        views0 = _wait_for(warm_set, f"{n} warm workers")
+        start_s = time.perf_counter() - t0
+        fleet.pids.update(views0)
+        mem = _fleet_memory(device)
+        handle = fleet.clients([("127.0.0.1", port)], n_users,
+                               seconds=FLEET_STAGE_S, probe_pid=True,
+                               seed=n)
+        rows = fleet.finish(handle)
+        views1 = {}
+        for _ in range(20):
+            views1.update(_worker_views(port))
+            if set(views1) >= set(views0):
+                break
+        assert set(views1) == set(views0), (sorted(views0), sorted(views1))
+        _gen, check = _classify(rows, {"g1": gen1}, device)
+        stats = _traffic_stats(rows)
+        by_pid: dict = {}
+        for r in rows:
+            by_pid[r[5]] = by_pid.get(r[5], 0) + 1
+        batches = {pid: _fam_total(views1[pid], "pio_batches_total")
+                   - _fam_total(views0[pid], "pio_batches_total")
+                   for pid in views0}
+        parent = proc.pid
+        fleet.stop(name, proc)
+        for pid in views0:
+            assert not _alive(pid), f"worker {pid} outlived its parent"
+        row = {
+            "n": n, "start_s": start_s, **stats, "check": check,
+            "answers_by_pid": {str(k): v for k, v in sorted(
+                by_pid.items(), key=lambda kv: str(kv[0]))},
+            "batches_by_pid": {str(k): v for k, v in batches.items()},
+            "child_batches": sum(v for pid, v in batches.items()
+                                 if pid != parent),
+            "live_bytes_by_pid": {
+                str(pid): _fam_total(v, "pio_device_live_array_bytes")
+                for pid, v in views0.items()},
+            "card_used_bytes": mem["card_used"],
+            "parent_reserved_bytes": mem["parent_reserved"],
+        }
+        assert stats["non200"] == 0, row
+        assert set(by_pid) == set(views0), (
+            f"workers that answered nothing: "
+            f"{sorted(set(views0) - set(by_pid))}")
+        assert all(b > 0 for b in batches.values()), batches
+        out["workers"].append(row)
+        log(f"fleet (a) workers={n}: {json.dumps(row)}")
+
+
+def _admitted_warm(base: str, rid: str, url: str) -> float:
+    """Seconds until the router admits replica ``rid``, holding that the
+    replica read warm whenever the router held it admitted: each poll
+    reads the replica's warmup gauge, then the router's state, and a
+    cold gauge beside an admission (or a cold gauge read just after the
+    admission) fails."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            _s, m = _json_call(url + "/metrics.json", timeout=5)
+            warm = _fam_total(m, "pio_warmup_complete") >= 1
+        except OSError:
+            warm = None  # not listening yet
+        try:
+            state = {r["id"]: r["state"]
+                     for r in _router_status(base)["replicas"]}
+        except OSError:
+            state = {}
+        if state.get(rid) == "healthy":
+            assert warm is not False, f"{rid} admitted while cold"
+            _s, m = _json_call(url + "/metrics.json", timeout=5)
+            assert _fam_total(m, "pio_warmup_complete") >= 1, (
+                f"{rid} admitted before warm")
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > FLEET_START_S:
+            raise AssertionError(f"{rid} never admitted: {state}")
+        time.sleep(0.02)
+
+
+def fleet_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
+                n_items: int = N_ITEMS) -> dict:
+    """Phase 16: the serving fleet on one card (JAX
+    scripts/router_smoke.py, scripts/fleet_smoke.py and
+    scripts/serving_bench.py --ramp, over real processes): every worker
+    and replica a process of the port's console serving phase 4's width
+    through the fused top-k kernel on the same card, its clients in
+    processes of their own."""
+    import concurrent.futures
+    import threading
+
+    from predictionio_tpu_torch.data.storage import Storage
+    from predictionio_tpu_torch.serving.workers import (
+        WorkerSlot,
+        supervise_children,
+        terminate_children,
+    )
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    base_dir = os.path.join(workdir, "base")
+    os.makedirs(base_dir)
+    env = dict(os.environ, PYTHONPATH=ROOT, PIO_FS_BASEDIR=base_dir,
+               PYTHONUNBUFFERED="1", **fleet_env(base_dir))
+    storage = Storage(env=fleet_env(base_dir))
+    fleet = _Fleet(workdir, env, [] if device.type == "cuda"
+                   else ["--device", device.type])
+
+    t0 = time.perf_counter()
+    model1 = make_model(n_users, n_items, RANK, seed)
+    _publish_next(storage, model1, "g1")
+    out["publish_g1_s"] = time.perf_counter() - t0
+    variants = {v: _fleet_variant(workdir, v)
+                for v in ("g1", "g2", "g3", "pool")}
+    gen1 = (torch.as_tensor(model1.user_factors).to(device),
+            torch.as_tensor(model1.item_factors).to(device))
+
+    # the rest is published while (a) runs: the NaN generation (every
+    # other user row and item row NaN: a query for such a user scores
+    # every item NaN, and answers -inf), the sound one (new random
+    # factors from seed + 1) and (g)'s tenants (phase 15's, seed + t)
+    def publish_rest():
+        nan = dataclasses.replace(
+            model1, user_factors=model1.user_factors.copy(),
+            item_factors=model1.item_factors.copy())
+        nan.user_factors[::2] = np.nan
+        nan.item_factors[::2] = np.nan
+        _publish_next(storage, nan, "g2")
+        del nan
+        model3 = make_model(n_users, n_items, RANK, seed + 1)
+        _publish_next(storage, model3, "g3")
+        tenants = {}
+        for t in range(POOL_TENANTS):
+            tenants[f"t{t}"] = make_model(n_users, n_items, RANK, seed + t)
+            _publish_next(storage, tenants[f"t{t}"], f"v{t}")
+        return model3, tenants
+
+    pool_ex = concurrent.futures.ThreadPoolExecutor(1)
+    rest = pool_ex.submit(publish_rest)
+    slots: list = []
+    stopping = threading.Event()
+    supervisor = None
+    try:
+        # (a) workers
+        _fleet_workers(fleet, variants["g1"], gen1, n_users, device, out)
+        t_pub = time.perf_counter()
+        model3, tenants = rest.result()
+        out["publish_wait_s"] = time.perf_counter() - t_pub
+        gen3 = (torch.as_tensor(model3.user_factors).to(device),
+                torch.as_tensor(model3.item_factors).to(device))
+        del model3
+
+        # (b) two replicas behind a router under replica chaos; each a
+        # supervised slot that respawns on its own port
+        ports = {"A": _free_port(), "B": _free_port()}
+        urls = {k: f"http://127.0.0.1:{p}" for k, p in ports.items()}
+
+        t0 = time.perf_counter()
+        slots = [WorkerSlot(lambda k=k: fleet.replica(
+            f"replica{k}", variants["g1"], ports[k])) for k in ("A", "B")]
+        supervisor = threading.Thread(
+            target=supervise_children, args=(slots, stopping),
+            kwargs={"poll_interval_s": 0.1}, daemon=True)
+        supervisor.start()
+        rport = _free_port()
+        router_argv = ["router", "--ip", "127.0.0.1", "--port", str(rport),
+                       "--admin-key", FLEET_KEY, "--fleet-gate",
+                       "--state-file", os.path.join(workdir, "router.json"),
+                       "--probe-interval", "0.2"]
+        router_env = dict(FLEET_ROUTER_ENV)
+        router = fleet.console("router", router_argv + [
+            "--replica", f"{urls['A']}#g1", "--replica", f"{urls['B']}#g1"],
+            router_env)
+        rbase = f"http://127.0.0.1:{rport}"
+        fleet.wait_line("router", router, f"listening on 127.0.0.1:{rport}")
+        b: dict = {"router_start_s": time.perf_counter() - t0}
+        status, _body = _json_call(rbase + "/admin/replicas")
+        b["admin_without_key"] = status
+        assert status == 401, status
+        status, _body = _json_call(rbase + "/admin/replicas",
+                                   headers={"X-PIO-Server-Key": FLEET_KEY})
+        assert status == 200, status
+        b["admitted_s"] = {
+            "r0": _admitted_warm(rbase, "r0", urls["A"]),
+            "r1": _admitted_warm(rbase, "r1", urls["B"])}
+        b["spawn_to_admitted_s"] = time.perf_counter() - t0
+
+        # the router hop: the same clients through the router, then
+        # straight to the two replicas
+        rows = fleet.finish(fleet.clients([("127.0.0.1", rport)], n_users,
+                                          seconds=FLEET_HOP_S, seed=20))
+        b["via_router"] = _traffic_stats(rows)
+        checks = [rows]
+        rows = fleet.finish(fleet.clients(
+            [("127.0.0.1", ports["A"]), ("127.0.0.1", ports["B"])],
+            n_users, seconds=FLEET_HOP_S, seed=21))
+        b["direct"] = _traffic_stats(rows)
+        checks.append(rows)
+        b["hop_p50_ms"] = b["via_router"]["p50_ms"] - b["direct"]["p50_ms"]
+
+        # SIGKILL replica B mid-traffic; its slot respawns it on its port
+        handle = fleet.clients([("127.0.0.1", rport)], n_users, seed=22)
+        time.sleep(2.0)
+        mem0 = _fleet_memory(device)["card_used"]
+        killed = slots[1].proc
+        killed.kill()
+        t_kill = time.perf_counter()
+        killed.wait(timeout=60)
+        _wait_for(lambda: {r["id"]: r["state"] for r in _router_status(
+            rbase)["replicas"]}["r1"] != "healthy", "the router to drop B")
+        _wait_for(lambda: slots[1].proc is not killed, "B's respawn")
+        b["readmit_wait_s"] = _admitted_warm(rbase, "r1", urls["B"])
+        b["kill_to_readmitted_s"] = time.perf_counter() - t_kill
+        time.sleep(3.0)  # past the breaker's half-open: B serves again
+        rows = fleet.finish(handle, stop=True)
+        checks.append(rows)
+        mem1 = _fleet_memory(device)["card_used"]
+        b["card_used_before_kill"], b["card_used_after_respawn"] = mem0, mem1
+        if mem0 is not None:
+            assert mem1 is not None and abs(mem1 - mem0) <= FLEET_MEM_SLACK, (
+                mem0, mem1)
+        b["chaos"] = _traffic_stats(rows)
+        _s, fed = _json_call(rbase + "/metrics.json")
+        b["failovers"] = _fam_total(fed["local"],
+                                    "pio_router_failovers_total")
+        assert b["failovers"] > 0, b
+        for r in checks:
+            assert all(x[2] == 200 for x in r), [
+                x[:8] for x in r if x[2] != 200][:3]
+        _gen, b["check"] = _classify(
+            [x for r in checks for x in r], {"g1": gen1}, device)
+        out["chaos"] = b
+        log(f"fleet (b) router under replica chaos: {json.dumps(b)}")
+
+        # (f) federation, with no traffic: the router's federated
+        # pio_batches_total is the sum of the replicas' own
+        f: dict = {}
+        _s, fed = _json_call(rbase + "/metrics.json")
+        own = {k: _fam_total(_json_call(u + "/metrics.json")[1],
+                             "pio_batches_total") for k, u in urls.items()}
+        f["federated_batches"] = _fam_total(fed["fleet"],
+                                            "pio_batches_total")
+        f["replica_batches"] = own
+        assert f["federated_batches"] == sum(own.values()) > 0, f
+        assert own["B"] > 0, f"the respawned replica never served: {f}"
+        assert sorted(fed["federation"]["replicas"]) == ["r0", "r1"], fed[
+            "federation"]
+        fleet.stop("status", fleet.console("status", [
+            "status", "--router-url", rbase, "--access-key", FLEET_KEY]),
+            term=False)
+        lines = open(fleet.path("status", "out")).read().splitlines()
+        f["status_lines"] = lines[:2]
+        assert lines[0].startswith("fleet: replicas=2 (healthy=2)"), lines
+        assert lines[1].startswith("health: goodput="), lines
+        assert lines[2].startswith("federation: replicas=r0,r1"), lines
+        trace_id = "chip-smoke-fleet-trace"
+        status, _ans = _json_call(rbase + "/queries.json",
+                                  {"user": "u1", "num": 10},
+                                  {"X-Request-ID": trace_id})
+        assert status == 200, status
+
+        def spans(base, headers=None):
+            _s, body = _json_call(base + "/debug/traces.json",
+                                  headers=headers)
+            return [s["name"] for t in body.get("traces", [])
+                    for s in t.get("spans", [])
+                    if s.get("traceId") == trace_id]
+
+        f["router_spans"] = spans(rbase, {"X-PIO-Server-Key": FLEET_KEY})
+        f["replica_spans"] = [n for u in urls.values() for n in spans(u)]
+        assert any(n.startswith("router/forward")
+                   for n in f["router_spans"]), f
+        assert f["replica_spans"], f
+        out["federation"] = f
+        log(f"fleet (f) federation: {json.dumps(f)}")
+
+        # (c) and (d): the NaN and the sound replica, then (e)'s first
+        # replica and (g)'s pooled ones, all starting now
+        side = {"N": _free_port(), "S": _free_port(), "E": _free_port(),
+                "P1": _free_port(), "P2": _free_port()}
+        t_side = time.perf_counter()
+        nan_proc = fleet.replica("replicaN", variants["g2"], side["N"])
+        sound = fleet.replica("replicaS", variants["g3"], side["S"])
+        scale0 = fleet.replica("replicaE", variants["g3"], side["E"],
+                               env=FLEET_SCALE_ENV)
+        budget = int(POOL_BUDGET_TENANTS * (n_users + n_items) * RANK * 4)
+        pool_args = ["--quantize", "int8", "--pool-budget-bytes",
+                     str(budget)]
+        for t in range(POOL_TENANTS):
+            pool_args += ["--tenant", f"t{t}=v{t}"]
+        pooled = [fleet.replica(f"replica{k}", variants["pool"], side[k],
+                                pool_args) for k in ("P1", "P2")]
+        for key, proc in (("N", nan_proc), ("S", sound)):
+            fleet.wait_line(f"replica{key}", proc,
+                            f"listening on 127.0.0.1:{side[key]}")
+        c: dict = {"side_start_s": time.perf_counter() - t_side}
+
+        handle = fleet.clients([("127.0.0.1", rport)], n_users, seed=30)
+        time.sleep(1.0)
+        phases_nan: list = []
+        rec = _swap(rbase, {"url": f"http://127.0.0.1:{side['N']}",
+                            "generation": "g2", "pid": nan_proc.pid})
+        t0 = time.perf_counter()
+        rec = _swap_phase(rbase, rec["id"], ("failed", "done", "rolled_back",
+                                             "watching"), seen=phases_nan)
+        c["nan_phases"] = [p for p, _t in phases_nan]
+        c["nan_error"] = rec["error"]
+        c["nan_veto_s"] = time.perf_counter() - t0
+        assert rec["phase"] == "failed" and "NaN" in (rec["error"] or ""), rec
+        # retired, the router SIGTERMs it: it drains and ends
+        fleet.stop("replicaN", nan_proc, term=False)
+
+        phases: list = []
+        rec = _swap(rbase, {"url": f"http://127.0.0.1:{side['S']}",
+                            "generation": "g3", "pid": sound.pid})
+        t0 = time.perf_counter()
+        rec = _swap_phase(rbase, rec["id"], ("watching", "done", "failed",
+                                             "rolled_back"), seen=phases)
+        assert rec["phase"] == "watching", rec
+        c["promote_s"] = time.perf_counter() - t0
+        t_watch = time.monotonic()
+        c["gate"] = {k: rec["gate"].get(k) for k in (
+            "shadowSamples", "meanDivergence", "reason")} if rec.get(
+            "gate") else None
+        # (d) the router killed -9 during the regression watch; a new one
+        # on the same port and state file resumes the swap
+        router.kill()
+        router.wait(timeout=60)
+        t_kill = time.perf_counter()
+        router = fleet.console("router", router_argv, router_env)
+        fleet.wait_line("router", router,
+                        f"listening on 127.0.0.1:{rport}")
+        d: dict = {"router_restart_s": time.perf_counter() - t_kill}
+        rec = _swap_phase(rbase, rec["id"], ("done", "failed",
+                                             "rolled_back"), seen=phases)
+        d["resume_to_done_s"] = time.perf_counter() - t_kill
+        assert rec["phase"] == "done", rec
+        c["phases"] = [p for p, _t in phases]
+        st = _router_status(rbase)
+        d["state_file"] = st.get("stateFile")
+        assert "adopted" in (st.get("stateFile") or ""), st
+        serving = {r["generation"] for r in st["replicas"]
+                   if r["state"] == "healthy" and not r["staged"]}
+        d["serving_generations"] = sorted(serving)
+        assert serving == {"g3"} and st["servingGeneration"] == "g3", st
+        time.sleep(1.0)
+        rows = fleet.finish(handle, stop=True)
+        c["traffic"] = _traffic_stats(rows)
+        assert c["traffic"]["non200"] == 0, [
+            x[:8] for x in rows if x[2] != 200][:3]
+        which, c["check"] = _classify(rows, {"g1": gen1, "g3": gen3},
+                                      device)
+        after = [w for r, w in zip(rows, which) if r[3] >= t_watch]
+        c["answers_after_promotion"] = len(after)
+        assert after and set(after) == {"g3"}, sorted(set(after))
+        out["swap"] = c
+        out["router_kill"] = d
+        log(f"fleet (c) rolling swap with the fleet gate: {json.dumps(c)}")
+        log(f"fleet (d) router killed -9 mid-watch: {json.dumps(d)}")
+        # A and B left the router's fleet; their slots end them
+        for slot in slots:
+            slot.retire()
+        stopping.set()
+        supervisor.join(timeout=5)
+        terminate_children(slots, FLEET_START_S)
+        for slot in slots:
+            assert slot.proc.returncode == 0, slot.proc.returncode
+        fleet.stop("router", router)
+        fleet.stop("replicaS", sound)
+
+        # (e) the autoscaler: a router over (e)'s first replica that
+        # spawns more from a template, under a load that saturates one
+        fleet.wait_line("replicaE", scale0,
+                        f"listening on 127.0.0.1:{side['E']}")
+        eport = _free_port()
+        ebase = f"http://127.0.0.1:{eport}"
+        template = " ".join(fleet.replica_cmd(
+            os.path.join(workdir, "engine-{generation}.json"), "{port}"))
+        scaler = fleet.console("scaler", [
+            "router", "--ip", "127.0.0.1", "--port", str(eport),
+            "--replica", f"http://127.0.0.1:{side['E']}#g3",
+            "--spawn-replica", template, "--min-replicas", "1",
+            "--max-replicas", "2", "--probe-interval", "0.2"],
+            FLEET_SCALE_ENV)
+        fleet.wait_line("scaler", scaler, f"listening on 127.0.0.1:{eport}")
+        _admitted_warm(ebase, "r0", f"http://127.0.0.1:{side['E']}")
+        e: dict = {}
+        handle = fleet.clients([("127.0.0.1", eport)], n_users, seed=40)
+        t_load = time.monotonic()
+
+        def grown():
+            st = _router_status(ebase)
+            new = [r for r in st["replicas"] if r["id"] != "r0"]
+            return new[0] if new else None
+
+        new = _wait_for(grown, "the autoscaler to spawn")
+        fleet.pids.add(new["pid"])
+        e["grow_s"] = time.monotonic() - t_load
+        e["spawned"] = new["id"]
+        e["admit_wait_s"] = _admitted_warm(ebase, new["id"], new["url"])
+        t_two = time.monotonic()
+        e["spawn_to_admitted_s"] = _proc_age_s(new["pid"])
+        time.sleep(4.0)
+        t_stop = time.monotonic()
+        rows = fleet.finish(handle, stop=True)
+        e["one_replica"] = _traffic_stats(rows, t_load, t_two)
+        e["two_replicas"] = _traffic_stats(rows, t_two, t_stop)
+        e["traffic"] = _traffic_stats(rows)
+        assert e["traffic"]["non200"] == 0, [
+            x[:8] for x in rows if x[2] != 200][:3]
+        _which, e["check"] = _classify(rows, {"g3": gen3}, device)
+
+        def shrunk():
+            st = _router_status(ebase)
+            ids = [r["id"] for r in st["replicas"]]
+            return st if ids == ["r0"] else None
+
+        st = _wait_for(shrunk, "the autoscaler to shrink")
+        e["shrink_s"] = time.monotonic() - t_stop
+        e["autoscaler"] = st.get("autoscaler")
+        _wait_for(lambda: not _alive(new["pid"]), "the retired replica")
+        _s, fed = _json_call(ebase + "/metrics.json")
+        e["actions"] = _fam_by(fed["local"], "pio_autoscaler_actions_total",
+                               "action")
+        assert e["actions"].get("grow", 0) >= 1, e
+        assert e["actions"].get("shrink", 0) >= 1, e
+        e["router_shed"] = _fam_total(fed["local"], "pio_router_shed_total")
+        out["autoscaler"] = e
+        log(f"fleet (e) autoscaler: {json.dumps(e)}")
+        fleet.stop("scaler", scaler)
+        fleet.stop("replicaE", scale0)
+
+        # (g) eight int8 tenants on two pooled replicas behind a router
+        gport = _free_port()
+        gbase = f"http://127.0.0.1:{gport}"
+        for k, proc in zip(("P1", "P2"), pooled):
+            fleet.wait_line(f"replica{k}", proc,
+                            f"listening on 127.0.0.1:{side[k]}")
+        purls = [f"http://127.0.0.1:{side[k]}" for k in ("P1", "P2")]
+        grouter = fleet.console("pooled", [
+            "router", "--ip", "127.0.0.1", "--port", str(gport),
+            "--replica", f"{purls[0]}#pool", "--replica", f"{purls[1]}#pool",
+            "--probe-interval", "0.2"])
+        fleet.wait_line("pooled", grouter, f"listening on 127.0.0.1:{gport}")
+        for rid, u in zip(("r0", "r1"), purls):
+            _admitted_warm(gbase, rid, u)
+        g: dict = {"side_start_s": time.perf_counter() - t_side}
+        before = [_json_call(u + "/metrics.json")[1] for u in purls]
+        rows = fleet.finish(fleet.clients(
+            [("127.0.0.1", gport)], n_users,
+            requests=FLEET_POOL_REQUESTS, tenants=sorted(tenants), seed=50))
+        after_m = [_json_call(u + "/metrics.json")[1] for u in purls]
+        g["traffic"] = _traffic_stats(rows)
+        assert g["traffic"]["non200"] == 0 and len(rows) == (
+            FLEET_POOL_REQUESTS), g
+        g["check"] = {"answers_checked": 0, "max_abs_err": 0.0,
+                      "tied_mismatches": 0}
+        for name, model in tenants.items():
+            mine = [(r[0], {"itemScores": [
+                {"item": f"i{i}", "score": s} for i, s in zip(r[7], r[8])]})
+                for r in rows if r[1] == name]
+            if mine:
+                res = _check_pooled(mine, model, "int8", device)
+                for key in ("answers_checked", "tied_mismatches"):
+                    g["check"][key] += res[key]
+                g["check"]["max_abs_err"] = max(g["check"]["max_abs_err"],
+                                                res["max_abs_err"])
+        assert g["check"]["answers_checked"] == FLEET_POOL_REQUESTS, g
+        per = []
+        for m0, m1 in zip(before, after_m):
+            r0 = _fam_by(m0, "pio_tenant_requests_total", "tenant")
+            r1 = _fam_by(m1, "pio_tenant_requests_total", "tenant")
+            per.append({t: r1.get(t, 0) - r0.get(t, 0) for t in r1
+                        if r1.get(t, 0) > r0.get(t, 0)})
+        g["tenants_by_replica"] = per
+        g["evictions_by_replica"] = [
+            _fam_total(m1, "pio_pool_evictions_total")
+            - _fam_total(m0, "pio_pool_evictions_total")
+            for m0, m1 in zip(before, after_m)]
+        _s, fed = _json_call(gbase + "/metrics.json")
+        g["failovers"] = _fam_total(fed["local"],
+                                    "pio_router_failovers_total")
+        if g["failovers"] == 0:
+            both = set(per[0]) & set(per[1])
+            assert not both, f"tenants on both replicas: {sorted(both)}"
+        out["tenants"] = g
+        log(f"fleet (g) tenants behind the router: {json.dumps(g)}")
+        fleet.stop("pooled", grouter)
+        for k, proc in zip(("P1", "P2"), pooled):
+            fleet.stop(f"replica{k}", proc)
+        out["launches"] = fleet.counts()
+    finally:
+        stopping.set()
+        if supervisor is not None:
+            supervisor.join(timeout=5)
+        for slot in slots:
+            slot.retire()
+        terminate_children(slots, 30.0)
+        pool_ex.shutdown(wait=True)
+        left = fleet.close()
+    assert not left, f"processes outlived the phase: {left}"
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def log_fleet(p: dict, smi: str) -> None:
+    """Each phase 16 number on a line of its own, beside the card."""
+    tag = f"fleet [{smi}]"
+    for w in p["workers"]:
+        log(f"{tag} (a) workers={w['n']} goodput_rps={w['goodput_rps']:.1f} "
+            f"p50_ms={w['p50_ms']:.3f} p99_ms={w['p99_ms']:.3f} "
+            f"requests={w['requests']} start_s={w['start_s']:.2f}")
+        log(f"{tag} (a) workers={w['n']} answers_by_pid="
+            f"{json.dumps(w['answers_by_pid'])} batches_by_pid="
+            f"{json.dumps(w['batches_by_pid'])}")
+        log(f"{tag} (a) workers={w['n']} live_tensor_bytes_by_pid="
+            f"{json.dumps(w['live_bytes_by_pid'])} card_used_bytes="
+            f"{w['card_used_bytes']} (this script's own reserved bytes "
+            f"{w['parent_reserved_bytes']})")
+    b = p["chaos"]
+    log(f"{tag} (b) router hop: p50_ms via router "
+        f"{b['via_router']['p50_ms']:.3f} direct {b['direct']['p50_ms']:.3f}"
+        f" added {b['hop_p50_ms']:.3f}; goodput_rps "
+        f"{b['via_router']['goodput_rps']:.1f} / "
+        f"{b['direct']['goodput_rps']:.1f}")
+    log(f"{tag} (b) replicas admitted warm in {json.dumps(b['admitted_s'])}"
+        f" s; spawn_to_admitted_s={b['spawn_to_admitted_s']:.2f}")
+    log(f"{tag} (b) SIGKILL of a replica: failovers={b['failovers']:.0f} "
+        f"non200={b['chaos']['non200']} retried={b['chaos']['retried']} "
+        f"kill_to_readmitted_s={b['kill_to_readmitted_s']:.2f} "
+        f"card_used_bytes before/after {b['card_used_before_kill']} / "
+        f"{b['card_used_after_respawn']}")
+    f = p["federation"]
+    log(f"{tag} (f) federated pio_batches_total={f['federated_batches']:.0f}"
+        f" = replicas {json.dumps(f['replica_batches'])}; status: "
+        f"{f['status_lines'][0]}")
+    c = p["swap"]
+    log(f"{tag} (c) NaN generation vetoed in {c['nan_veto_s']:.2f} s "
+        f"({c['nan_error']}); sound generation promoted in "
+        f"{c['promote_s']:.2f} s, phases {c['phases']}, "
+        f"{c['answers_after_promotion']} answers after promotion on g3, "
+        f"non200={c['traffic']['non200']}")
+    d = p["router_kill"]
+    log(f"{tag} (d) router killed -9 mid-watch: restarted in "
+        f"{d['router_restart_s']:.2f} s, swap done "
+        f"{d['resume_to_done_s']:.2f} s after the kill, serving "
+        f"{d['serving_generations']}")
+    e = p["autoscaler"]
+    log(f"{tag} (e) autoscaler grew to 2 in {e['grow_s']:.2f} s; "
+        f"spawn_to_admitted_s={e['spawn_to_admitted_s']}; shrank to 1 "
+        f"{e['shrink_s']:.2f} s after the load; non200="
+        f"{e['traffic']['non200']}")
+    log(f"{tag} (e) goodput_rps one replica "
+        f"{e['one_replica']['goodput_rps']:.1f} two replicas "
+        f"{e['two_replicas']['goodput_rps']:.1f}")
+    g = p["tenants"]
+    log(f"{tag} (g) tenants {json.dumps(g['tenants_by_replica'])}; "
+        f"evictions by replica {g['evictions_by_replica']}; "
+        f"answers_checked={g['check']['answers_checked']} "
+        f"failovers={g['failovers']:.0f}")
+    log(f"{tag} phase launches {json.dumps(p['launches'])}; "
+        f"{p['phase_s']:.1f} s")
+
+
 def log_pool(p: dict, smi: str) -> None:
     """Each phase 15 number on a line of its own, beside the card."""
     total = p.get("card_total_bytes")
@@ -5202,14 +6409,25 @@ def main() -> int:
     log(f"phase pool: ok ({pool['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as d:
+        fleet = fleet_phase(device, d, args.seed)
+    log("fleet " + json.dumps(fleet))
+    log_fleet(fleet, smi)
+    log(f"phase fleet: ok ({time.perf_counter() - t_phase:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
-    # 11, 12, the console's children in 13, the server of 14 and the
-    # tenants of 15
+    # 11, 12, the console's children in 13, the server of 14, the
+    # tenants of 15, and the fleet of 16 (its counted children, and the
+    # batches of the --workers children, which the package re-execs)
     for run in (dase, *ingest.values(), evaluation, similar,
-                templates["ecommerce"], trainer, cli, server, pool):
+                templates["ecommerce"], trainer, cli, server, pool, fleet):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
-    log(f"launches over phases 4 and 7-15: {json.dumps(launches)}")
+    launches["f32"] += int(sum(w["child_batches"] for w in fleet["workers"]))
+    log(f"launches over phases 4 and 7-16: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

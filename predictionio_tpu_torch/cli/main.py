@@ -19,9 +19,15 @@ without a card it exits 1 with the context's "no CUDA device" error and
 never drops to the CPU unasked. ``trace``, ``timeline``, ``profile`` and
 ``status --metrics-url`` are pure HTTP and never import torch.
 
+``router`` (the serving fleet's front tier, with ``--spawn-replica``
+its autoscaler) and ``status --router-url`` are pure HTTP too: they
+import no torch, and the replicas own the card. ``deploy --workers N``
+and ``eventserver --workers N`` serve N processes on one port through
+``SO_REUSEPORT``.
+
 A verb or option that needs a part of the system not ported yet exits 1
-naming its ROADMAP.md item before doing anything: the fleet (item 5b),
-the networked stores (3b) and more than one card (9).
+naming its ROADMAP.md item before doing anything: the networked stores
+(item 3b) and more than one card (9).
 """
 
 from __future__ import annotations
@@ -38,7 +44,6 @@ from predictionio_tpu_torch.version import __version__
 
 _ITEM = {
     "3b": "ROADMAP.md, queue 1, item 3b",
-    "5b": "ROADMAP.md, queue 1, item 5b",
     "9": "ROADMAP.md, queue 1, item 9",
 }
 
@@ -304,11 +309,102 @@ def _cache_summary_line(data: dict) -> str | None:
     return " ".join(parts)
 
 
+def _fleet_summary_line(status: dict) -> str:
+    """One-line fleet summary from a router's ``GET /`` status payload:
+    replica count and health bands, serving generation, in-flight swap
+    phase, and the autoscaler's target against the healthy count."""
+    replicas = status.get("replicas") or []
+    bands: dict[str, int] = {}
+    for r in replicas:
+        state = str(r.get("state", "?"))
+        bands[state] = bands.get(state, 0) + 1
+    band_str = " ".join(f"{k}={v}" for k, v in sorted(bands.items()))
+    parts = [
+        f"fleet: replicas={len(replicas)}"
+        + (f" ({band_str})" if band_str else "")
+    ]
+    generation = status.get("servingGeneration")
+    if generation:
+        parts.append(f"generation={generation}")
+    swaps = status.get("swaps") or {}
+    active = swaps.get("active") or []
+    if active:
+        parts.append(
+            "swap="
+            + ",".join(
+                f"{s.get('generation') or s.get('id')}:{s.get('phase')}"
+                for s in active
+            )
+        )
+    else:
+        parts.append("swap=none")
+    if isinstance(swaps.get("completedTotal"), int):
+        parts.append(f"swapsCompleted={swaps['completedTotal']}")
+    autoscaler = status.get("autoscaler")
+    if isinstance(autoscaler, dict):
+        healthy = bands.get("healthy", 0)
+        parts.append(
+            f"autoscaler={healthy}/{autoscaler.get('target')}"
+            f" [{autoscaler.get('min')}..{autoscaler.get('max')}]"
+        )
+    if status.get("stateFile"):
+        parts.append(f"stateFile=({status['stateFile']})")
+    return " ".join(parts)
+
+
 def _fmt_bytes(n: float) -> str:
     for unit, div in (("GiB", 2**30), ("MiB", 2**20), ("KiB", 2**10)):
         if n >= div:
             return f"{n / div:.2f}{unit}"
     return f"{n:.0f}B"
+
+
+def _fleet_health_line(health) -> str | None:
+    """One-line fleet-health summary from the router's ``fleetHealth``
+    status block: goodput, worst-class SLO burn, and each replica's
+    device-memory headroom (or RSS where it exports no device gauges)."""
+    if not isinstance(health, dict):
+        return None
+    parts = [
+        f"health: goodput={health.get('goodputQps', 0.0)}qps",
+        f"burn={health.get('burnRate', 0.0)}",
+    ]
+    for rid, entry in sorted((health.get("replicas") or {}).items()):
+        if not isinstance(entry, dict):
+            continue
+        bits = []
+        if "hbmHeadroomBytes" in entry:
+            bits.append(
+                f"hbmFree={_fmt_bytes(entry['hbmHeadroomBytes'])}"
+            )
+        elif "residentBytes" in entry:
+            bits.append(f"rss={_fmt_bytes(entry['residentBytes'])}")
+        if entry.get("stale"):
+            bits.append("stale")
+        if bits:
+            parts.append(f"{rid}[{' '.join(bits)}]")
+    return " ".join(parts)
+
+
+def _print_router_status(url: str, access_key: str = "") -> int:
+    """``status --router-url``: the fleet summary and fleet-health lines
+    from the router's own status route, then its federated metrics
+    scrape."""
+    status = _fetch_json(url.rstrip("/") + "/", access_key=access_key)
+    if status is None:
+        return 1
+    if not isinstance(status, dict) or status.get("service") != "router":
+        print(
+            f"[ERROR] {redact_keys(url)} is not a pio router "
+            "(GET / did not answer a router status payload)",
+            file=sys.stderr,
+        )
+        return 1
+    print(_fleet_summary_line(status))
+    health = _fleet_health_line(status.get("fleetHealth"))
+    if health:
+        print(health)
+    return _print_metrics(url, access_key=access_key)
 
 
 def _tenant_cost_line(data: dict, top_n: int = 3) -> str | None:
@@ -426,7 +522,10 @@ def cmd_status(args) -> int:
         return _refuse("status --store-url (the replicated store tier)",
                        "3b")
     if getattr(args, "router_url", ""):
-        return _refuse("status --router-url (the serving router)", "5b")
+        # fleet summary + metrics; pure HTTP like --metrics-url
+        return _print_router_status(
+            args.router_url, getattr(args, "access_key", "")
+        )
     if getattr(args, "metrics_url", ""):
         return _print_metrics(
             args.metrics_url, getattr(args, "access_key", "")
@@ -911,14 +1010,18 @@ def cmd_eval(args) -> int:
     return 0
 
 
-def _fleet_flags_refused(args, verb: str) -> int:
-    """1 (after printing why) for ``--workers > 1`` / ``--reuse-port``,
-    the SO_REUSEPORT worker fleet (item 5b); else 0."""
-    if args.workers > 1 or args.reuse_port:
-        return _refuse(
-            f"{verb} --workers/--reuse-port (SO_REUSEPORT workers)", "5b"
+def _reuseport_unsupported() -> str | None:
+    """A clean console error when ``--workers N`` cannot work here,
+    instead of a traceback (or, on the deploy path, three pointless bind
+    retries)."""
+    import socket
+
+    if not hasattr(socket, "SO_REUSEPORT"):
+        return (
+            "error: --workers needs SO_REUSEPORT, which this platform "
+            "does not support; run with --workers 1"
         )
-    return 0
+    return None
 
 
 def cmd_deploy(args) -> int:
@@ -946,8 +1049,6 @@ def cmd_deploy(args) -> int:
             f"got {args.pipeline_depth}",
             file=sys.stderr,
         )
-        return 1
-    if _fleet_flags_refused(args, "deploy"):
         return 1
 
     tenants = None
@@ -1008,9 +1109,31 @@ def cmd_deploy(args) -> int:
         tenants=tenants,
         quantize=args.quantize,
     )
-    http = server.serve(host=args.ip, port=args.port)
+    multi = args.workers > 1
+    if multi and (err := _reuseport_unsupported()):
+        print(err, file=sys.stderr)
+        return 1
+    http = server.serve(
+        host=args.ip, port=args.port,
+        reuse_port=multi or args.reuse_port,
+        # a re-exec'd worker must not "undeploy" its own parent
+        undeploy_first=not args.reuse_port,
+    )
     print(f"Engine server is listening on {args.ip}:{http.port}",
           flush=True)
+    if multi:
+        from predictionio_tpu_torch.serving import workers as _workers
+
+        print(
+            "note: every worker stages its own copy of the model on the "
+            "same card (one CUDA context and one copy of the tables per "
+            "worker); storage must be a shared backend",
+            file=sys.stderr,
+        )
+        return _workers.serve_with_workers(
+            http, args.workers,
+            _workers.rebuild_argv(args.raw_argv, http.port),
+        )
     return _serve_foreground(http)
 
 
@@ -1162,14 +1285,122 @@ def cmd_eventserver(args) -> int:
 
     if _store_urls_refused(args):
         return 1
-    if _fleet_flags_refused(args, "eventserver"):
+    multi = args.workers > 1
+    if multi and (err := _reuseport_unsupported()):
+        print(err, file=sys.stderr)
         return 1
     http = create_event_server(host=args.ip, port=args.port,
                                stats=args.stats,
+                               reuse_port=multi or args.reuse_port,
                                admission=not args.no_admission)
     print(f"Event server is listening on {args.ip}:{http.port}",
           flush=True)
+    if multi:
+        from predictionio_tpu_torch.serving import workers as _workers
+
+        print(
+            "note: each worker opens storage independently — use a "
+            "shared backend (sqlite/eventlog/...), not memory",
+            file=sys.stderr,
+        )
+        return _workers.serve_with_workers(
+            http, args.workers,
+            _workers.rebuild_argv(args.raw_argv, http.port),
+        )
     return _serve_foreground(http)
+
+
+def cmd_router(args) -> int:
+    """Scale-out front tier: least-inflight + consistent-hash dispatch
+    across N engine replicas, health-probed through their ``/healthz``
+    and warmup gauges, with breaker-guarded single-retry failover and
+    rolling generation swaps. With ``--state-file`` the replica set and
+    in-flight swaps survive a router crash; with ``--fleet-gate`` swaps
+    shadow-score live traffic before promoting; with
+    ``--spawn-replica`` an autoscaler grows and shrinks the pool from
+    overload signals. Pure HTTP: it never imports torch, and the
+    replicas own the card."""
+    import dataclasses
+
+    from predictionio_tpu_torch.serving import canary as canary_mod
+    from predictionio_tpu_torch.serving.config import ServerConfig
+    from predictionio_tpu_torch.serving.router import create_router
+
+    config = ServerConfig.from_env()
+    if args.admin_key:
+        config = dataclasses.replace(
+            config, key_auth_enforced=True, access_key=args.admin_key
+        )
+    if not config.key_auth_enforced:
+        print(
+            "WARNING: /admin/* routes are OPEN — anyone who can reach "
+            "the router can register or retire replicas. Pass "
+            "--admin-key (or set PIO_SERVER_ACCESS_KEY with "
+            "PIO_SERVER_KEY_AUTH_ENFORCED=true).",
+            file=sys.stderr,
+        )
+    _router, http = create_router(
+        args.replica or [],
+        host=args.ip,
+        port=args.port,
+        probe_interval_s=args.probe_interval,
+        failover_retries=args.failover_retries,
+        proxy_timeout_s=args.proxy_timeout,
+        server_config=config,
+        state_path=args.state_file,
+        state_max_age_s=args.state_max_age,
+        gate_config=(
+            canary_mod.CanaryConfig.from_env()
+            if args.fleet_gate
+            else None
+        ),
+    )
+    autoscaler = None
+    if args.spawn_replica:
+        import shlex
+
+        from predictionio_tpu_torch.serving.autoscaler import (
+            AutoscalerConfig,
+            ReplicaAutoscaler,
+            ReplicaSpawner,
+        )
+
+        scale_cfg = AutoscalerConfig.from_env()
+        if args.min_replicas:
+            scale_cfg = dataclasses.replace(
+                scale_cfg, min_replicas=args.min_replicas
+            )
+        if args.max_replicas:
+            scale_cfg = dataclasses.replace(
+                scale_cfg, max_replicas=args.max_replicas
+            )
+        if scale_cfg.max_replicas < scale_cfg.min_replicas:
+            # a floor above the ceiling would pin the pool below it
+            scale_cfg = dataclasses.replace(
+                scale_cfg, max_replicas=scale_cfg.min_replicas
+            )
+        autoscaler = ReplicaAutoscaler(
+            _router,
+            ReplicaSpawner(shlex.split(args.spawn_replica)),
+            config=scale_cfg,
+        ).start()
+        print(
+            f"Autoscaler reconciling {scale_cfg.min_replicas}.."
+            f"{scale_cfg.max_replicas} replicas via: "
+            f"{args.spawn_replica}",
+            flush=True,
+        )
+    print(f"Router is listening on {args.ip}:{http.port}", flush=True)
+    if args.replica:
+        print(f"Routing across {len(args.replica)} replica(s)")
+    if args.state_file:
+        print(f"Fleet state persisted to {args.state_file}")
+    sys.stdout.flush()
+    try:
+        return _serve_foreground(http)
+    finally:
+        if autoscaler is not None:
+            autoscaler.close()
 
 
 def cmd_dashboard(args) -> int:
@@ -1507,7 +1738,6 @@ def cmd_daemon(args) -> int:
 
 #: verbs of the JAX console that need an unported item: verb → (what, item)
 _REFUSED_VERBS = {
-    "router": ("router (the serving fleet's front tier)", "5b"),
     "storeserver": ("storeserver (the networked store)", "3b"),
     "minipg": ("minipg (the postgres-wire dev store)", "3b"),
     "launch": ("launch (the multi-process launcher)", "9"),
@@ -1553,8 +1783,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--router-url", dest="router_url", default="",
-        help="a router's fleet summary (not ported: ROADMAP.md, queue 1, "
-             "item 5b)",
+        help="summarize a running router's fleet (replica health "
+             "bands, serving generation, in-flight swap phase, "
+             "autoscaler target vs actual) and scrape its metrics",
     )
     p.add_argument(
         "--access-key", dest="access_key", default="",
@@ -1795,8 +2026,11 @@ def build_parser() -> argparse.ArgumentParser:
              "PIO_POOL_BUDGET_BYTES env, else PIO_POOL_HBM_FRACTION of "
              "the card's memory)",
     )
-    p.add_argument("--workers", type=int, default=1,
-                   help=argparse.SUPPRESS)
+    p.add_argument(
+        "--workers", type=int, default=1,
+        help="SO_REUSEPORT worker processes sharing the port, each with "
+             "its own copy of the model on the card (1 = single process)",
+    )
     p.add_argument("--reuse-port", action="store_true",
                    help=argparse.SUPPRESS)
     _store_url_args(p)
@@ -1876,11 +2110,79 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable the adaptive overload controller — equivalent to "
              "PIO_ADMISSION=0",
     )
-    p.add_argument("--workers", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--workers", type=int, default=1,
+        help="SO_REUSEPORT worker processes sharing the port",
+    )
     p.add_argument("--reuse-port", action="store_true",
                    help=argparse.SUPPRESS)
     _store_url_args(p)
     p.set_defaults(func=cmd_eventserver)
+
+    p = sub.add_parser("router")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8100)
+    p.add_argument(
+        "--replica", action="append", default=[],
+        help="replica base URL, optionally 'url#generation'; repeat "
+             "per replica (more can be registered live via "
+             "POST /admin/replicas)",
+    )
+    p.add_argument(
+        "--probe-interval", dest="probe_interval", type=float,
+        default=0.5, help="seconds between replica health probes",
+    )
+    p.add_argument(
+        "--failover-retries", dest="failover_retries", type=int,
+        default=1,
+        help="retries against a DIFFERENT replica after a transport "
+             "error or 5xx (inside the request's deadline budget)",
+    )
+    p.add_argument(
+        "--proxy-timeout", dest="proxy_timeout", type=float,
+        default=30.0, help="per-attempt upstream timeout in seconds",
+    )
+    p.add_argument(
+        "--admin-key", dest="admin_key", default="",
+        help="require this key on /admin/* (register/retire/swap)",
+    )
+    p.add_argument(
+        "--state-file", dest="state_file", default="",
+        help="persist the replica set + in-flight swap state here "
+             "(atomic write + checksum); re-adopted on restart so a "
+             "router killed mid-swap resumes or safely aborts",
+    )
+    p.add_argument(
+        "--state-max-age", dest="state_max_age", type=float,
+        default=300.0,
+        help="discard (loudly) a state file older than this many "
+             "seconds instead of trusting a stale fleet picture",
+    )
+    p.add_argument(
+        "--fleet-gate", dest="fleet_gate", action="store_true",
+        help="gate every swap behind fleet-level shadow scoring: "
+             "mirror sampled live traffic to the staged replica, "
+             "promote only on a clean divergence/NaN gate, watch for "
+             "post-promotion regressions and roll the fleet back "
+             "(PIO_CANARY_* tunes the gate)",
+    )
+    p.add_argument(
+        "--spawn-replica", dest="spawn_replica", default="",
+        help="replica launch command template with {port} and "
+             "{generation} placeholders; enables the autoscaler and "
+             "lets trainer-driven swaps stage candidates without a "
+             "url (e.g. 'pio-tpu-torch deploy --variant e.json --port "
+             "{port}')",
+    )
+    p.add_argument(
+        "--min-replicas", dest="min_replicas", type=int, default=0,
+        help="autoscaler floor (default PIO_AUTOSCALE_MIN or 1)",
+    )
+    p.add_argument(
+        "--max-replicas", dest="max_replicas", type=int, default=0,
+        help="autoscaler ceiling (default PIO_AUTOSCALE_MAX or 4)",
+    )
+    p.set_defaults(func=cmd_router)
 
     p = sub.add_parser("dashboard")
     p.add_argument("--ip", default="0.0.0.0")

@@ -10,8 +10,8 @@ Chrome trace-event JSON.
 
 Stdlib-only at import (the device sampler imports ``torch`` when it
 samples). SLO scoring (``obs/slo.py``) scores every served request in
-the HTTP tier. Fleet federation (``obs/federation.py``) belongs to the
-fleet and is not ported yet (ROADMAP.md, queue 1, item 5b).
+the HTTP tier. Fleet federation (``obs/federation.py``) merges the
+replicas' scrapes into the serving router's one scrape.
 """
 
 from predictionio_tpu_torch.obs.context import (

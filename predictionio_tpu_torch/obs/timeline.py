@@ -1,8 +1,8 @@
 """Bounded ring of structured lifecycle events — the incident timeline.
 
 Counterpart of ``predictionio_tpu/obs/timeline.py``, copied. The
-router that federates the rings is fleet work (ROADMAP.md, queue 1,
-item 5b); :func:`merge_timelines` is here already.
+serving router federates the replicas' rings with
+:func:`merge_timelines`.
 
 Metrics answer "how much"; the timeline answers "what happened, in what
 order". Control-plane transitions that explain a goodput dip — breaker

@@ -1788,17 +1788,19 @@ class EngineServer:
         host: str = "0.0.0.0",
         port: int = 8000,
         bind_retries: int = 3,
+        undeploy_first: bool = True,
+        reuse_port: bool = False,
     ) -> HTTPServer:
         """Bind the REST service: the undeploy-before-deploy handshake
         on a fixed port, then the bind with retries (reference
         MasterActor StartServer → undeploy() → BindServer with retry 3,
-        CreateServer.scala:280-378). The JAX package's
-        ``undeploy_first=False`` serves only ``--reuse-port`` (ROADMAP.md,
-        queue 1, item 5b). The caller starts it with ``start()`` or
+        CreateServer.scala:280-378). A re-exec'd ``--workers`` child
+        binds with ``reuse_port`` and ``undeploy_first=False``: it must
+        not stop its own parent. The caller starts it with ``start()`` or
         ``serve_forever()``; its shutdown (``POST /stop`` included)
         closes the batchers, and its ``drain()`` closes them after the
         in-flight requests have finished."""
-        if port:
+        if undeploy_first and port:
             undeploy_existing(host, port, self._server_config)
         last_exc: OSError | None = None
         for attempt in range(max(1, bind_retries)):
@@ -1809,6 +1811,7 @@ class EngineServer:
                 self._http = HTTPServer(
                     self.router, host=host, port=port,
                     server_config=self._server_config, enforce_key=False,
+                    reuse_port=reuse_port,
                     service="engine", registry=self._registry,
                     tracer=self._tracer,
                 )

@@ -33,9 +33,9 @@ the drain, ``PIO_CHAOS`` and SLO scoring.
 the server TLS and key-auths its ``/debug`` routes; the event API keeps
 its own per-app access keys, so the server key is never asked of it.
 
-Not ported yet (ROADMAP.md, queue 1): ``reuse_port`` workers (item 5b)
-and the ``/healthz`` extra, which is the replicated store's quorum view
-(item 3b). The constructor takes neither option.
+``reuse_port`` lets ``eventserver --workers N`` bind N processes to one
+port. Not ported yet: the ``/healthz`` extra, which is the replicated
+store's quorum view (ROADMAP.md, queue 1, item 3b).
 """
 
 from __future__ import annotations
@@ -439,13 +439,15 @@ def create_event_server(
     tracer: tracing.Tracer | None = None,
     admission: bool = True,
     server_config=None,
+    reuse_port: bool = False,
 ) -> HTTPServer:
     """An HTTP server on an :class:`EventServer` (default port 7070);
     ``start()`` it, and ``shutdown()`` (or ``drain()``) also releases
     the plugin dispatcher. ``registry`` and ``tracer`` default to the
     process's. TLS comes from ``server_config`` (default: the
     environment's ``ServerConfig``); the server key is never enforced on
-    the event API."""
+    the event API. ``reuse_port`` binds with ``SO_REUSEPORT`` (the
+    multi-worker front end)."""
     from predictionio_tpu_torch.serving.config import ServerConfig
 
     if server_config is None:
@@ -456,6 +458,7 @@ def create_event_server(
                          admission=admission)
     http = HTTPServer(server.router, host=host, port=port,
                       server_config=server_config, enforce_key=False,
+                      reuse_port=reuse_port,
                       service="eventserver", registry=server.registry,
                       tracer=server.tracer)
     http.add_shutdown_hook(server.close)

@@ -33,7 +33,9 @@ With a ``registry`` every request is counted and timed
 ``pio_server_draining``) and scored by an :class:`SLOMonitor`; every
 request outside the telemetry routes is one root span of the tracer.
 
-``reuse_port`` belongs to the fleet (ROADMAP.md, queue 1, item 5b).
+With ``reuse_port`` the listener sets ``SO_REUSEPORT``, so N worker
+processes bind one port and the kernel spreads connections over them
+(:mod:`~predictionio_tpu_torch.serving.workers`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import json
 import logging
 import os
 import re
+import socket
 import ssl
 import threading
 import time
@@ -91,6 +94,10 @@ class Request:
         #: criticality class from X-PIO-Criticality (set by the server
         #: wrapper; defaults to "default" for unlabeled requests)
         self.criticality: str = admission.DEFAULT
+        #: "host:port" of the connecting client (set by the server
+        #: wrapper): the serving router hashes it for affinity when a
+        #: request carries no affinity key, tenant or body
+        self.client_addr: str = ""
 
     def json(self) -> Any:
         if not self.body:
@@ -202,6 +209,7 @@ def install_metrics_routes(
     registry: MetricRegistry,
     tracer: tracing.Tracer | None = None,
     server_config=None,
+    federation=None,
     timeline=None,
 ) -> None:
     """The common telemetry surface: Prometheus text at ``GET
@@ -219,19 +227,34 @@ def install_metrics_routes(
     is enforced: traces and the timeline carry per-request data
     (request IDs, tenants, latencies) that a server whose other routes
     are open must not hand to anonymous clients. ``/metrics`` stays as
-    open as the server: aggregates only. The JAX package's
-    ``federation`` (the fleet view) is ROADMAP.md, queue 1, item 5b."""
+    open as the server: aggregates only.
+
+    ``federation`` (an object with ``render_text()`` / ``to_dict()``,
+    the serving router's fleet view) takes the place of the registry in
+    both metrics bodies: every replica's series labeled
+    ``replica=...`` beside exactly merged fleet counters and
+    histograms, so one scrape sees the whole fleet."""
     tracer = tracer if tracer is not None else tracing.get_tracer()
 
     def _metrics(request: Request) -> Response:
+        body = (
+            federation.render_text()
+            if federation is not None
+            else registry.render_prometheus()
+        )
         return Response(
             200,
-            registry.render_prometheus(),
+            body,
             content_type="text/plain; version=0.0.4; charset=utf-8",
         )
 
     def _metrics_json(request: Request) -> Response:
-        return Response(200, registry.to_dict())
+        body = (
+            federation.to_dict()
+            if federation is not None
+            else registry.to_dict()
+        )
+        return Response(200, body)
 
     def _traces(request: Request) -> Response:
         if server_config is not None:
@@ -282,6 +305,7 @@ class HTTPServer:
         port: int = 0,
         server_config=None,
         enforce_key: bool = True,
+        reuse_port: bool = False,
         service: str = "http",
         registry: MetricRegistry | None = None,
         tracer: tracing.Tracer | None = None,
@@ -296,6 +320,8 @@ class HTTPServer:
         connection is wrapped in its SSL context (TLS 1.2 or later).
         ``enforce_key=False`` keeps TLS but leaves auth to the handlers
         (the engine server key-auths only its admin routes).
+        ``reuse_port`` sets ``SO_REUSEPORT`` before the bind (an
+        ``OSError`` where the platform lacks it).
 
         ``registry`` turns on the telemetry wrapper: every request gets
         (or forwards) an ``X-Request-ID``, is timed into
@@ -462,6 +488,10 @@ class HTTPServer:
                     body=body,
                     path_params={},
                 )
+                try:
+                    request.client_addr = "%s:%s" % self.client_address[:2]
+                except (TypeError, IndexError):  # AF_UNIX and friends
+                    request.client_addr = str(self.client_address)
                 # forwarded or minted; installed in the thread context so
                 # the batcher and log lines downstream can read it
                 request.request_id = set_request_id(
@@ -735,6 +765,23 @@ class HTTPServer:
             # bursts — the exact load the batcher exists for
             request_queue_size = 128
             daemon_threads = True
+
+            def server_bind(self):
+                # SO_REUSEPORT: N worker processes bind the same port
+                # and the kernel spreads accepted connections over them.
+                # Set here rather than through socketserver's
+                # allow_reuse_port (3.11+ only), which would silently
+                # do nothing on an older runtime
+                if reuse_port:
+                    if not hasattr(socket, "SO_REUSEPORT"):
+                        raise OSError(
+                            "SO_REUSEPORT is not supported on this "
+                            "platform; run with --workers 1"
+                        )
+                    self.socket.setsockopt(
+                        socket.SOL_SOCKET, socket.SO_REUSEPORT, 1
+                    )
+                super().server_bind()
 
             def handle_error(self, request, client_address):
                 # connection-level failures (an aborted TLS handshake

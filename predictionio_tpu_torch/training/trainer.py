@@ -3,9 +3,10 @@
 Counterpart of ``predictionio_tpu/training/trainer.py``, with the same
 state file, triggers, outcomes and metrics; a retrain runs the port's
 ALS on the card, a fold-in the port's host-numpy ``fold_in_users``.
-The ``pio-tpu trainer`` CLI verb is the CLI's work (ROADMAP.md, queue
-1, item 4); its respawn loop and the router it promotes through are the
-fleet's (item 5b). The promotion client is here.
+The console's ``trainer`` verb supervises it with the respawn loop of
+:mod:`~predictionio_tpu_torch.serving.workers`, and it promotes each
+generation through the serving router
+(:mod:`~predictionio_tpu_torch.serving.router`, ``POST /admin/swap``).
 
 The Podracer shape (PAPERS.md): the learner is a *supervised,
 restartable service beside the serving path*, not a job inside it. The

@@ -23,6 +23,13 @@ equal once ids, keys and times are masked; so must the stored state
   one iteration-0 checkpoint per rank: metric values within 1e-6 and the
   same best candidate;
 * every refused verb and option exits 1 naming its ROADMAP.md item;
+* the fleet verbs run: both consoles' ``router`` processes (with and
+  without ``--admin-key``) print the same lines, serve the router's
+  status and exit 0 on SIGTERM; ``status --router-url`` prints the same
+  fleet summary, fleet-health and federation lines against a live
+  router and fails alike on a server that is not one (``deploy`` and
+  ``eventserver`` with ``--workers`` and ``--reuse-port``:
+  ``tests/test_torch_workers.py``);
 * without CUDA and without ``--device cpu`` every device verb exits 1
   with the no-device error and writes nothing.
 
@@ -47,6 +54,7 @@ import socket
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -800,12 +808,6 @@ def test_eval_matches_the_jax_grid(both, tmp_path, monkeypatch):
 # -- refusals --------------------------------------------------------------
 
 _REFUSALS = [
-    (["deploy", "--workers", "2"], "5b"),
-    (["deploy", "--reuse-port"], "5b"),
-    (["eventserver", "--workers", "4"], "5b"),
-    (["eventserver", "--reuse-port"], "5b"),
-    (["router", "--replica", "http://127.0.0.1:1"], "5b"),
-    (["status", "--router-url", "http://127.0.0.1:1"], "5b"),
     (["train", "--store-url", "http://127.0.0.1:1"], "3b"),
     (["deploy", "--store-url", "http://127.0.0.1:1"], "3b"),
     (["trainer", "--app", "a", "--store-url", "http://127.0.0.1:1"], "3b"),
@@ -836,6 +838,156 @@ def test_refusals_name_their_item(capsys, argv, item):
     else:
         assert f"(ROADMAP.md, queue 1, item {item})" in err, err
 
+
+
+# -- the fleet verbs -----------------------------------------------------------
+
+_CONSOLE_MODULES = {"jax": "predictionio_tpu.cli.main",
+                    "port": "predictionio_tpu_torch.cli.main"}
+
+
+@pytest.mark.parametrize("admin_key", ["", "k3y"])
+def test_router_runs_alike(tmp_path, admin_key):
+    """``router --replica URL#g1 [--admin-key K] --state-file F`` of each
+    console as a process: the same stdout and stderr lines, a router
+    status naming the replica, ``/admin/replicas`` key-gated alike, exit
+    0 after SIGTERM."""
+    import os
+    import signal
+    import subprocess
+
+    results = {}
+    for pkg, module in _CONSOLE_MODULES.items():
+        port = _free_port()
+        argv = [sys.executable, "-m", module, "router", "--ip", "127.0.0.1",
+                "--port", str(port), "--replica", "http://127.0.0.1:1#g1",
+                "--state-file", str(tmp_path / pkg / "state.json"),
+                "--probe-interval", "0.2"]
+        if admin_key:
+            argv += ["--admin-key", admin_key]
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+        (tmp_path / pkg).mkdir()
+        out_path, err_path = tmp_path / f"{pkg}.out", tmp_path / f"{pkg}.err"
+        with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+            proc = subprocess.Popen(argv, env=env, stdout=out_f,
+                                    stderr=err_f, text=True)
+        try:
+            deadline = time.monotonic() + 60
+            while "listening on" not in out_path.read_text():
+                assert proc.poll() is None, err_path.read_text()
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            base = f"http://127.0.0.1:{port}"
+            with urllib.request.urlopen(base + "/", timeout=10) as resp:
+                status = json.loads(resp.read())
+            try:
+                urllib.request.urlopen(base + "/admin/replicas", timeout=10)
+                gate = 200
+            except urllib.error.HTTPError as e:
+                gate = e.code
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        out, err = out_path.read_text(), err_path.read_text()
+        results[pkg] = (
+            proc.returncode,
+            [re.sub(r"\d{3,}", "<n>", ln)
+             for ln in out.replace(str(tmp_path / pkg), "<dir>")
+             .splitlines()],
+            [ln for ln in err.splitlines() if not _LOG_LINE.match(ln)],
+            (status["service"], [(r["id"], r["generation"])
+                                 for r in status["replicas"]],
+             status["stateFile"] if "stateFile" in status else None),
+            gate,
+        )
+    assert results["port"] == results["jax"]
+    rc, lines, err, status, gate = results["port"]
+    assert rc == 0 and lines[:2] == [
+        "Router is listening on <n>.0.0.1:<n>",
+        "Routing across 1 replica(s)"]
+    assert lines[2] == "Fleet state persisted to <dir>/state.json"
+    assert status[0] == "router" and status[1] == [("r0", "g1")]
+    assert gate == (401 if admin_key else 200)
+    assert bool(err) == (not admin_key)  # the open-admin warning
+
+
+class _Replica:
+    """A warm replica-shaped server of the port's HTTP layer."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.obs import MetricRegistry
+        from predictionio_tpu_torch.serving import http
+
+        self.registry = MetricRegistry()
+        self.registry.gauge("pio_warmup_complete", "h").set(1.0)
+        self.registry.counter("pio_batches_total", "h").inc(3)
+        r = http.Router()
+        r.route("GET", "/metrics.json",
+                lambda req: http.Response(200, self.registry.to_dict()))
+        self.server = http.HTTPServer(r, host="127.0.0.1", port=0)
+        self.server.start()
+        self.url = f"http://127.0.0.1:{self.server.port}"
+
+
+def _fresh_router(replica):
+    from predictionio_tpu_torch.obs import MetricRegistry
+    from predictionio_tpu_torch.serving.router import ServingRouter
+
+    router = ServingRouter(probe_interval_s=0.05, registry=MetricRegistry())
+    router.add_replica(replica.url, replica_id="r0", generation="g7")
+    server = router.serve(host="127.0.0.1", port=0)
+    server.start()
+    deadline = time.monotonic() + 30
+    while router.replica_states() != {"r0": "healthy"}:
+        assert time.monotonic() < deadline
+        time.sleep(0.02)
+    return router, server
+
+
+@pytest.mark.parametrize("target", ["router", "not_a_router", "unreachable"])
+def test_status_router_url_alike(both, target):
+    """``status --router-url``: the fleet summary, fleet-health and
+    federation lines (numbers masked) from a fresh router each console
+    scrapes alike; a server that is not a router and a closed port fail
+    alike with exit 1."""
+    replica = _Replica()
+    outs = {}
+    try:
+        for name, run in (("jax", both.jax_run), ("port", both.port_run)):
+            router = server = None
+            if target == "router":
+                router, server = _fresh_router(replica)
+                url = f"http://127.0.0.1:{server.port}"
+            elif target == "not_a_router":
+                url = replica.url
+            else:
+                url = f"http://127.0.0.1:{_free_port()}"
+            try:
+                code, out, err = run(("status", "--router-url", url))
+            finally:
+                if router is not None:
+                    router.close()
+                    server.shutdown()
+            outs[name] = (code, [re.sub(r"[\d.]+", "<n>", ln)
+                                 for ln in out.splitlines()],
+                          [re.sub(r"\d+", "<n>", ln)
+                           for ln in _errors(err)])
+    finally:
+        replica.server.shutdown()
+    assert outs["port"] == outs["jax"]
+    code, lines, err = outs["port"]
+    if target == "router":
+        assert code == 0
+        assert lines[0] == ("fleet: replicas=<n> (healthy=<n>) "
+                            "generation=g<n> swap=none swapsCompleted=<n>")
+        assert lines[1].startswith("health: goodput=")
+        assert lines[2] == "federation: replicas=r<n>"
+        assert "pio_batches_total <n>" in lines
+    else:
+        assert code == 1 and err
 
 def test_mesh_conf_of_the_variant_is_held_to_one_card(both, tmp_path):
     wide = _variant(tmp_path, "wide.json", {

@@ -2,8 +2,10 @@
 card against ALS on the CPU, the device-memory sampler on the card,
 ``POST /reload`` swapping a server on the card to a new generation
 served through the kernel, one server's cache, deadline cut and
-canary promotion on the card, and tenants pooled on the card in each
-table form (f32, bf16, int8 + scale) answering through the kernel.
+canary promotion on the card, tenants pooled on the card in each
+table form (f32, bf16, int8 + scale) answering through the kernel, and
+``deploy --workers 2``: two processes on the card behind one port, each
+answer equal to the plain top-k, from both pids.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -913,3 +915,114 @@ def test_pooled_tenants_answer_through_the_kernel(cuda_device, tmp_path,
     finally:
         es.close()
         pool.close()
+
+
+@pytest.mark.gpu
+def test_two_workers_on_the_card_answer_the_plain_top_k(cuda_device,
+                                                         tmp_path):
+    """``deploy --workers 2`` on the card: two processes on one port, each
+    with its own context and copy of the tables, answer through the
+    kernel, every answer equal to the plain top-k, from both pids."""
+    import dataclasses
+    import datetime as dt
+    import json
+    import os
+    import pathlib
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    env = {
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": str(tmp_path / "pio.sqlite"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path / "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    }
+    storage = Storage(env=env)
+    rng = np.random.default_rng(9)
+    n_users, n_items = 256, 20_000
+    model = als_model_from_numpy(
+        rng.standard_normal((n_users, 32)), rng.standard_normal((n_items, 32)),
+        np.char.add("u", np.arange(n_users).astype(str)),
+        np.char.add("i", np.arange(n_items).astype(str)))
+    now = dt.datetime.now(dt.timezone.utc)
+    instances = storage.get_meta_data_engine_instances()
+    iid = instances.insert(EngineInstance(
+        id="", status="INIT", start_time=now, end_time=now,
+        engine_id="rec", engine_version="1", engine_variant="default",
+        engine_factory="recommendation"))
+    publish_generation(storage.get_model_data_models(), iid,
+                       serialize_models(iid, [ALSAlgorithm()], [model]))
+    instances.update(dataclasses.replace(instances.get(iid),
+                                         status="COMPLETED"))
+    variant = tmp_path / "engine.json"
+    variant.write_text(json.dumps({"id": "rec",
+                                   "engineFactory": "recommendation"}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+         "--variant", str(variant), "--ip", "127.0.0.1", "--port", str(port),
+         "--workers", "2"],
+        env=dict(os.environ, PYTHONPATH=str(root), PYTHONUNBUFFERED="1",
+                 PIO_FS_BASEDIR=str(tmp_path), **env),
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    users = torch.as_tensor(model.user_factors, device=cuda_device)
+    items = torch.as_tensor(model.item_factors, device=cuda_device)
+    pids = set()
+    try:
+        assert "listening on" in proc.stdout.readline()
+        deadline = time.monotonic() + 300
+        while len(pids) < 2 and time.monotonic() < deadline:
+            for u in range(0, n_users, 7):
+                # a fresh connection each: SO_REUSEPORT spreads them
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/", timeout=30) as r:
+                        pid = json.loads(r.read())["pid"]
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{port}/queries.json",
+                        data=json.dumps({"user": f"u{u}", "num": 10})
+                        .encode(), method="POST",
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        ans = json.loads(r.read())
+                except OSError:
+                    time.sleep(0.1)
+                    continue
+                pids.add(pid)
+                want_s, _ = fused_topk.fused_top_k_dot_reference(
+                    users[u:u + 1], items, 10)
+                got = [model.item_map(e["item"]) for e in ans["itemScores"]]
+                np.testing.assert_allclose(
+                    (items[got] @ users[u]).cpu().numpy(),
+                    want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+                np.testing.assert_allclose(
+                    [e["score"] for e in ans["itemScores"]],
+                    want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+        assert len(pids) == 2, pids
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            assert proc.wait(timeout=120) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()

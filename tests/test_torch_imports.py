@@ -4,6 +4,10 @@
   ``jax`` and the package ``predictionio_tpu`` (but not
   ``predictionio_tpu_torch``, which shares its prefix) cannot be
   imported, and no port source (nor ``chip_smoke.py``) imports either.
+* the fleet's modules (the router, the autoscaler, federation, the
+  workers module) import where ``torch`` cannot be imported either, and
+  so does ``cli.main router --help``: a router process never pays the
+  torch import, and the replicas own the card;
 * ``ComputeContext.create()`` raises without CUDA instead of dropping to
   the CPU; ``device="cpu"`` is the explicit opt-in. The continuous
   trainer takes the same context and raises the same way.
@@ -83,7 +87,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "serving.querycache", "serving.canary",
                 "serving.batching", "serving.http",
                 "serving.modelpool", "serving.plugins",
-                "serving.event_server"):
+                "serving.event_server", "serving.router",
+                "serving.autoscaler", "obs.federation"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -127,6 +132,42 @@ def test_console_runs_with_jax_and_reference_blocked(tmp_path, argv, rc,
     assert got.returncode == rc, got.stderr[-3000:]
     assert got.stdout == out
 
+
+_NO_TORCH = _BLOCKER.replace('("jax", "jaxlib", "predictionio_tpu")',
+                             '("jax", "jaxlib", "predictionio_tpu", "torch")')
+
+
+@pytest.mark.parametrize("argv", [
+    ["-c", "import importlib; [importlib.import_module(m) for m in ("
+     "'predictionio_tpu_torch.serving.router', "
+     "'predictionio_tpu_torch.serving.autoscaler', "
+     "'predictionio_tpu_torch.obs.federation', "
+     "'predictionio_tpu_torch.serving.workers')]"],
+    ["-m", "predictionio_tpu_torch.cli.main", "router", "--help"],
+])
+def test_fleet_runs_with_torch_blocked(tmp_path, argv):
+    """The router, the autoscaler, federation and the workers module,
+    and the console's ``router --help``, in a process where ``torch``
+    (and ``jax`` and ``predictionio_tpu``) cannot be imported."""
+    assert '"torch")' in _NO_TORCH
+    prelude = _NO_TORCH.split("import importlib\nfor mod")[0]
+    if argv[0] == "-c":
+        code = prelude + argv[1] + "\nprint('imported')"
+    else:
+        code = prelude + (
+            "import runpy\nsys.argv = ['pio-tpu-torch'] + "
+            f"{argv[2:]!r}\n"
+            "runpy.run_module('predictionio_tpu_torch.cli.main', "
+            "run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PIO_FS_BASEDIR=str(tmp_path))
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert got.returncode == 0, got.stderr[-3000:]
+    if argv[0] == "-c":
+        assert got.stdout == "imported\n"
+    else:
+        assert "--spawn-replica" in got.stdout
+        assert "--fleet-gate" in got.stdout
 
 def test_no_source_names_jax_or_the_reference_package():
     bad = re.compile(
