@@ -10,19 +10,20 @@ long-running HTTP services:
 * dashboard     (default :9000)
 * admin server  (default :7071)
 
-The JAX module's optional minipg and store-server daemons
-(``--with-minipg``, ``--with-storeserver``) are ROADMAP.md, queue 1,
-item 3b; the console refuses them before this module is reached.
+plus, optionally, minipg when ``--with-minipg`` is given (the
+postgres-wire dev store for multi-host topologies) and the store server
+when ``--with-storeserver`` is given (metadata, model blobs and events
+over HTTP).
 
 Layout (under ``PIO_FS_BASEDIR``, default ``~/.piotpu``)::
 
     run/<name>.pid      pidfile (reference: $PIO_HOME/eventserver.pid)
     log/<name>.log      combined stdout+stderr of the daemon
 
-Each daemon is a fresh ``python -m predictionio_tpu_torch.cli.main
-<verb>`` in its own session (the reference's nohup+exec), so
-``stop-all`` can signal the whole process group. Stale pidfiles (machine
-rebooted, process gone) are detected and cleaned on both start and stop.
+Each daemon is a fresh ``python -m predictionio_tpu_torch.cli.main <verb>``
+in its own session (the reference's nohup+exec), so ``stop-all`` can
+signal the whole process group. Stale pidfiles (machine rebooted, process
+gone) are detected and cleaned on both start and stop.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ import socket
 import subprocess
 import sys
 import time
+
+#: optional daemons (verb == service name, --ip/--port only): default port
+OPTIONAL_SERVICES: dict[str, int] = {
+    "minipg": 5432,
+    "storeserver": 7072,
+}
 
 #: name -> (CLI verb, default port, extra args)
 SERVICES: dict[str, tuple[str, int, tuple[str, ...]]] = {
@@ -100,7 +107,9 @@ def service_status(name: str) -> tuple[str, int | None]:
     return "stale-pidfile", pid
 
 
-def spawn_daemon(name: str, argv: list[str]) -> int:
+def spawn_daemon(
+    name: str, argv: list[str], env: dict | None = None
+) -> int:
     """Start ``python -m predictionio_tpu_torch.cli.main <argv>`` detached in
     its own session, stdout+stderr to the log file; returns the pid
     (reference bin/pio-daemon: nohup + pidfile)."""
@@ -117,6 +126,7 @@ def spawn_daemon(name: str, argv: list[str]) -> int:
             stdout=log,
             stderr=subprocess.STDOUT,
             start_new_session=True,  # own process group → clean signaling
+            env={**os.environ, **(env or {})},
         )
     finally:
         log.close()
@@ -184,13 +194,22 @@ def stop_daemon(name: str, grace_s: float = 10.0) -> str:
 def start_all(
     ip: str = "0.0.0.0",
     ports: dict[str, int] | None = None,
+    with_minipg: bool = False,
+    with_storeserver: bool = False,
+    storeserver_access_key: str = "",
     out=print,
 ) -> int:
     """Bring up every service; refuses to double-start (the reference
     aborts when jps shows Elasticsearch already up). Returns exit code."""
     ports = ports or {}
     failures = 0
-    for name, (verb, default_port, extra) in SERVICES.items():
+    names = list(SERVICES)
+    if with_storeserver:
+        names.insert(0, "storeserver")
+    if with_minipg:
+        names.insert(0, "minipg")
+    # optional services share their verb name and take only --ip/--port
+    for name in names:
         state, pid = service_status(name)
         if state == "running":
             out(
@@ -201,10 +220,22 @@ def start_all(
         if state == "stale-pidfile":
             out(f"{name}: removing stale pidfile (pid {pid} is gone)")
             os.unlink(pidfile(name))
-        port = ports.get(name, default_port)
-        pid = spawn_daemon(
-            name, [verb, "--ip", ip, "--port", str(port), *extra]
-        )
+        env = None
+        if name in OPTIONAL_SERVICES:
+            port = ports.get(name, OPTIONAL_SERVICES[name])
+            argv = [name, "--ip", ip, "--port", str(port)]
+            if name == "storeserver" and storeserver_access_key:
+                # via the environment, not argv — a secret on the
+                # command line is readable by every local user in ps
+                env = {
+                    "PIO_SERVER_ACCESS_KEY": storeserver_access_key,
+                    "PIO_SERVER_KEY_AUTH_ENFORCED": "true",
+                }
+        else:
+            verb, default_port, extra = SERVICES[name]
+            port = ports.get(name, default_port)
+            argv = [verb, "--ip", ip, "--port", str(port), *extra]
+        pid = spawn_daemon(name, argv, env=env)
         if wait_port(ip, port, pid=pid):
             out(f"{name}: started (pid {pid}, port {port}, "
                 f"log {logfile(name)})")
@@ -219,7 +250,8 @@ def start_all(
 
 
 def stop_all(out=print) -> int:
-    for name in SERVICES:
+    names = list(SERVICES) + list(OPTIONAL_SERVICES)
+    for name in names:
         out(f"{name}: {stop_daemon(name)}")
     return 0
 
@@ -227,8 +259,11 @@ def stop_all(out=print) -> int:
 def status_all(out=print) -> int:
     """One line per service; exit 0 iff everything is running."""
     all_up = True
-    for name in SERVICES:
+    names = list(SERVICES) + list(OPTIONAL_SERVICES)
+    for name in names:
         state, pid = service_status(name)
+        if state == "stopped" and name in OPTIONAL_SERVICES:
+            continue  # optional service: shown only when up or crashed
         suffix = f" (pid {pid})" if pid else ""
         out(f"{name}: {state}{suffix}")
         all_up = all_up and state == "running"

@@ -11,7 +11,8 @@ Verbs: version, help, status, trace, timeline, profile, app
 (new/list/show/delete/data-delete/channel-new/channel-delete), accesskey
 (new/list/delete), build, unregister, upgrade, shell, train, eval,
 deploy, undeploy, trainer, eventserver, dashboard, adminserver, export,
-import, template (list/get), run, start-all, stop-all, daemons, daemon.
+import, template (list/get), run, start-all, stop-all, daemons, daemon,
+storeserver, minipg.
 
 Every verb that builds a ``ComputeContext`` (status, shell, run, train,
 eval, deploy, trainer) takes ``--device {cuda,cpu}``, default ``cuda``;
@@ -25,9 +26,15 @@ import no torch, and the replicas own the card. ``deploy --workers N``
 and ``eventserver --workers N`` serve N processes on one port through
 ``SO_REUSEPORT``.
 
+``minipg`` (the postgres-wire dev store over sqlite) and ``storeserver``
+(metadata, model blobs and events over HTTP, for the ``httpstore``
+storage type) serve the networked stores; ``start-all --with-minipg``
+and ``--with-storeserver`` run them as daemons.
+
 A verb or option that needs a part of the system not ported yet exits 1
-naming its ROADMAP.md item before doing anything: the networked stores
-(item 3b) and more than one card (9).
+naming its ROADMAP.md item before doing anything: the replicated store
+tier (item 3b: ``--store-url``, ``status --store-url``, ``storeserver
+--peer``) and more than one card (9).
 """
 
 from __future__ import annotations
@@ -1679,16 +1686,73 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_storeserver(args) -> int:
+    """Networked metadata, model and event store service; clients point
+    repositories at it with ``PIO_STORAGE_SOURCES_<NAME>_TYPE=httpstore``
+    + ``_URL``."""
+    import dataclasses
+
+    if args.peers:
+        return _refuse("storeserver --peer (the replicated store tier)",
+                       "3b")
+    from predictionio_tpu_torch.serving.config import ServerConfig
+    from predictionio_tpu_torch.serving.store_server import (
+        create_store_server,
+    )
+
+    config = ServerConfig.from_env()
+    if args.access_key:
+        config = dataclasses.replace(
+            config, key_auth_enforced=True, access_key=args.access_key
+        )
+    if not config.key_auth_enforced and args.ip not in (
+        "127.0.0.1", "localhost", "::1"
+    ):
+        print(
+            "WARNING: store server is starting WITHOUT an access key on "
+            f"non-loopback bind {args.ip} — it serves all event-server "
+            "credentials and model blobs. Pass --access-key, or set "
+            "PIO_SERVER_ACCESS_KEY together with "
+            "PIO_SERVER_KEY_AUTH_ENFORCED=true.",
+            file=sys.stderr,
+        )
+    http = create_store_server(
+        host=args.ip, port=args.port, server_config=config,
+    )
+    print(f"Store server is listening on {args.ip}:{http.port}", flush=True)
+    return _serve_foreground(http)
+
+
+def cmd_minipg(args) -> int:
+    """Foreground minipg server (the postgres-wire dev store); usually
+    run daemonized via ``start-all --with-minipg``."""
+    import signal as _signal
+
+    from predictionio_tpu_torch.cli import daemon
+    from predictionio_tpu_torch.data.storage.minipg import MiniPGServer
+
+    path = args.path or os.path.join(daemon.base_dir(), "minipg.db")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    server = MiniPGServer(
+        path=path,
+        host=args.ip,
+        port=args.port,
+        password=args.password,
+    )
+    port = server.start()
+    print(f"minipg is listening on {args.ip}:{port}", flush=True)
+    try:
+        _signal.pause()
+    except (KeyboardInterrupt, AttributeError):
+        pass
+    server.stop()
+    return 0
+
+
 def cmd_start_all(args) -> int:
     """Reference bin/pio-start-all: bring up the serving daemons."""
     from predictionio_tpu_torch.cli import daemon
 
-    if (args.with_minipg or args.minipg_port or args.with_storeserver
-            or args.storeserver_port or args.storeserver_access_key):
-        return _refuse(
-            "start-all with minipg or the store server (the networked "
-            "stores)", "3b",
-        )
     ports = {}
     if args.eventserver_port:
         ports["eventserver"] = args.eventserver_port
@@ -1696,7 +1760,22 @@ def cmd_start_all(args) -> int:
         ports["dashboard"] = args.dashboard_port
     if args.adminserver_port:
         ports["adminserver"] = args.adminserver_port
-    return daemon.start_all(ip=args.ip, ports=ports)
+    if args.minipg_port:
+        ports["minipg"] = args.minipg_port
+    if args.storeserver_port:
+        ports["storeserver"] = args.storeserver_port
+    return daemon.start_all(
+        ip=args.ip,
+        ports=ports,
+        # an explicit port is an explicit ask for the optional service
+        with_minipg=args.with_minipg or bool(args.minipg_port),
+        with_storeserver=(
+            args.with_storeserver
+            or bool(args.storeserver_port)
+            or bool(args.storeserver_access_key)
+        ),
+        storeserver_access_key=args.storeserver_access_key,
+    )
 
 
 def cmd_stop_all(args) -> int:
@@ -1738,8 +1817,6 @@ def cmd_daemon(args) -> int:
 
 #: verbs of the JAX console that need an unported item: verb → (what, item)
 _REFUSED_VERBS = {
-    "storeserver": ("storeserver (the networked store)", "3b"),
-    "minipg": ("minipg (the postgres-wire dev store)", "3b"),
     "launch": ("launch (the multi-process launcher)", "9"),
 }
 
@@ -2242,22 +2319,45 @@ def build_parser() -> argparse.ArgumentParser:
     _device_arg(p)
     p.set_defaults(func=cmd_run)
 
+    p = sub.add_parser("minipg")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=5432)
+    p.add_argument("--path", default="")
+    p.add_argument("--password", default=None)
+    p.set_defaults(func=cmd_minipg)
+
+    p = sub.add_parser("storeserver")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7072)
+    p.add_argument(
+        "--access-key", dest="access_key", default="",
+        help="require this key on every request (Bearer/accessKey)",
+    )
+    p.add_argument(
+        "--peer", dest="peers", action="append", default=None,
+        help="replica-set sibling base URL (not ported: ROADMAP.md, "
+             "queue 1, item 3b)",
+    )
+    p.add_argument(
+        "--role", default="replica", choices=("primary", "replica"),
+        help="the replica-set role (reported with --peer only)",
+    )
+    p.set_defaults(func=cmd_storeserver)
+
     p = sub.add_parser("start-all")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--eventserver-port", type=int, default=0)
     p.add_argument("--dashboard-port", type=int, default=0)
     p.add_argument("--adminserver-port", type=int, default=0)
-    p.add_argument("--with-minipg", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--minipg-port", type=int, default=0,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--with-storeserver", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--storeserver-port", type=int, default=0,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--storeserver-access-key",
-                   dest="storeserver_access_key", default="",
-                   help=argparse.SUPPRESS)
+    p.add_argument("--with-minipg", action="store_true")
+    p.add_argument("--minipg-port", type=int, default=0)
+    p.add_argument("--with-storeserver", action="store_true")
+    p.add_argument("--storeserver-port", type=int, default=0)
+    p.add_argument(
+        "--storeserver-access-key", dest="storeserver_access_key",
+        default="",
+        help="require this key on every store-server request",
+    )
     p.set_defaults(func=cmd_start_all)
 
     sub.add_parser("stop-all").set_defaults(func=cmd_stop_all)

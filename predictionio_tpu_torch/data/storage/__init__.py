@@ -7,9 +7,14 @@ and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA
 (apps, access keys, channels, engine manifests, engine and evaluation
 instances), EVENTDATA (events) and MODELDATA (model blobs). Backend
 types come from a registry (``register_backend`` with a
-:class:`BackendSpec`, as in the JAX package); four are built in:
-``memory`` and ``sqlite`` (every DAO), ``localfs`` (models only) and
-``eventlog``, the native event log (events only). With no source
+:class:`BackendSpec`, as in the JAX package); seven are built in:
+``memory`` and ``sqlite`` (every DAO), ``localfs`` (models only),
+``eventlog``, the native event log (events only), and the networked
+ones, each serving every DAO: ``postgres`` (``URL`` or ``HOST``/``PORT``/
+``DATABASE``/``USERNAME``/``PASSWORD``; a PostgreSQL server or the
+:mod:`.minipg` dev server), ``mysql`` (the same keys; MySQL or
+:mod:`.minimysql`) and ``httpstore`` (``URL``, ``KEY``, ``TIMEOUT``,
+``CACERT``/``VERIFY``; a store server, ``storeserver``). With no source
 declared, the wiring is the JAX package's: metadata and events in
 ``$PIO_FS_BASEDIR/pio.sqlite``, models under ``$PIO_FS_BASEDIR/models``
 (default base ``~/.piotpu``).
@@ -126,8 +131,53 @@ register_backend("eventlog", BackendSpec(
     client=eventlog.EventLogEvents, events=lambda client: client,
 ))
 
-#: the JAX package's networked backends, not ported yet
-_NOT_PORTED = ("postgres", "mysql", "httpstore", "replicated")
+
+# the networked clients import lazily, so building the registry never
+# probes for a driver
+def _postgres_client(config: dict):
+    from predictionio_tpu_torch.data.storage import postgres
+
+    return postgres.PostgresClient(config)
+
+
+def _mysql_client(config: dict):
+    from predictionio_tpu_torch.data.storage import mysql
+
+    return mysql.MySQLClient(config)
+
+
+def _httpstore_client(config: dict):
+    from predictionio_tpu_torch.data.storage import httpstore
+
+    return httpstore.HTTPStoreClient(config)
+
+
+def _http_dao(name: str):
+    def factory(client):
+        from predictionio_tpu_torch.data.storage import httpstore
+
+        return getattr(httpstore, name)(client)
+
+    return factory
+
+
+register_backend("postgres", BackendSpec(client=_postgres_client,
+                                         **_SQL_DAOS))
+register_backend("mysql", BackendSpec(client=_mysql_client, **_SQL_DAOS))
+register_backend("httpstore", BackendSpec(
+    client=_httpstore_client,
+    apps=_http_dao("HTTPApps"),
+    access_keys=_http_dao("HTTPAccessKeys"),
+    channels=_http_dao("HTTPChannels"),
+    engine_instances=_http_dao("HTTPEngineInstances"),
+    engine_manifests=_http_dao("HTTPEngineManifests"),
+    evaluation_instances=_http_dao("HTTPEvaluationInstances"),
+    models=_http_dao("HTTPModels"),
+    events=_http_dao("HTTPEvents"),
+))
+
+#: the JAX package's replicated tier over N store servers, not ported yet
+_NOT_PORTED = ("replicated",)
 
 _REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 

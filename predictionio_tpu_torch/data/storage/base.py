@@ -265,6 +265,12 @@ class ModelsBackend(abc.ABC):
     @abc.abstractmethod
     def delete(self, model_id: str) -> bool: ...
 
+    def list_ids(self) -> list[str] | None:
+        """Enumerate stored blob ids, or ``None`` when the backend
+        cannot (a plain KV store with no scan). The store server's
+        ``GET /models`` lists them."""
+        return None
+
     def quarantine(self, model_id: str) -> bool:
         """Move a corrupt blob aside so no later read can pick it up,
         keeping the bytes. Default: re-insert under a ``quarantined/``

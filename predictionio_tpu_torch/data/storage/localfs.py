@@ -84,6 +84,16 @@ class LocalFSModels(ModelsBackend):
         except FileNotFoundError:
             return False
 
+    def list_ids(self) -> list[str] | None:
+        # `/` in an id is mangled to `_` by `_path`, so a slash-bearing
+        # id round-trips lossy; generation ids never contain slashes,
+        # and quarantined blobs (suffixed filenames) are excluded.
+        ids = []
+        for name in os.listdir(self._base):
+            if name.startswith("pio_model_") and name.endswith(".bin"):
+                ids.append(name[len("pio_model_"):-len(".bin")])
+        return sorted(ids)
+
     def quarantine(self, model_id: str) -> bool:
         """Atomic move-aside of a corrupt blob; the bytes survive under
         ``.quarantined.<token>``."""

@@ -269,6 +269,9 @@ class MemoryModels(ModelsBackend):
     def delete(self, model_id: str) -> bool:
         return self._models.pop(model_id, None) is not None
 
+    def list_ids(self) -> list[str] | None:
+        return sorted(self._models)
+
 
 class MemoryEvents(EventsBackend):
     """Per-(app, channel) event tables behind one lock."""

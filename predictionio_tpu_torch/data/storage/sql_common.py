@@ -4,9 +4,10 @@ Counterpart of ``predictionio_tpu/data/storage/sql_common.py``. Every
 DAO is written against :class:`SQLDialect` (placeholder style, upsert
 syntax, autoincrement column, blob type, driver error classes) and
 :class:`SQLClient` (one connection per thread, ``tx``, the schema and
-the ``access_keys`` column migration). The port ships the sqlite
-dialect (:mod:`.sqlite`); the networked dialects come later (ROADMAP,
-queue 1, item 3b).
+the ``access_keys`` column migration). The dialects are sqlite's
+(:mod:`.sqlite`), postgres's (:mod:`.postgres`, over a TCP socket to a
+PostgreSQL server or the :mod:`.minipg` dev server) and MySQL's
+(:mod:`.mysql`, likewise with :mod:`.minimysql`).
 
 The schema is the JAX package's, byte for byte: one event table per
 (app, channel) named ``events_<appId>[_<channelId>]``, timestamps as UTC
@@ -92,7 +93,9 @@ class SQLDialect(abc.ABC):
         raise NotImplementedError
 
     def create_index(self, name: str, table: str, cols: str) -> str:
-        """Idempotent index creation."""
+        """Idempotent index creation. MySQL has no IF NOT EXISTS for
+        CREATE INDEX: its dialect emits the plain statement and
+        ``SQLEvents.init`` passes over the duplicate-index error."""
         return f"CREATE INDEX IF NOT EXISTS {name} ON {table} ({cols})"
 
 
@@ -657,6 +660,10 @@ class SQLModels(ModelsBackend):
             "DELETE FROM models WHERE id=?", (model_id,)
         ) > 0
 
+    def list_ids(self) -> list[str] | None:
+        rows = self._c.query("SELECT id FROM models ORDER BY id")
+        return [r[0] for r in rows]
+
 
 EVENT_COLS = (
     "id event entity_type entity_id target_entity_type target_entity_id "
@@ -674,7 +681,21 @@ class SQLEvents(EventsBackend):
     def init(self, app_id: int, channel_id: int | None = None) -> bool:
         t = self._c.event_table(app_id, channel_id)
         for stmt in self._c.event_schema_statements(t):
-            self._c.execute(stmt)
+            try:
+                self._c.execute(stmt)
+            except Exception as exc:
+                # Only the non-idempotent CREATE INDEX form (MySQL has
+                # no IF NOT EXISTS) may fail on re-init, and only with
+                # the duplicate-key-name error (errno 1061); anything
+                # else — on any statement — is a real problem.
+                upper = stmt.lstrip().upper()
+                duplicate = "1061" in str(exc) or "uplicate" in str(exc)
+                if not (
+                    upper.startswith("CREATE INDEX")
+                    and "IF NOT EXISTS" not in upper
+                    and duplicate
+                ):
+                    raise
         return True
 
     def remove(self, app_id: int, channel_id: int | None = None) -> bool:

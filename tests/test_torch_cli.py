@@ -813,13 +813,80 @@ _REFUSALS = [
     (["trainer", "--app", "a", "--store-url", "http://127.0.0.1:1"], "3b"),
     (["eventserver", "--store-url", "http://127.0.0.1:1"], "3b"),
     (["status", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["storeserver", "--port", "0"], "3b"),
-    (["minipg", "--port", "0"], "3b"),
+    (["storeserver", "--peer", "http://127.0.0.1:1"], "3b"),
     (["launch", "-n", "2", "--", "python", "x.py"], "9"),
     (["train", "--variant", str(REC_VARIANT), "--mesh-shape", "4,2"], "9"),
     (["shell", "--mesh-shape", "2"], "9"),
     (["lint", "predictionio_tpu"], None),
 ]
+
+
+@pytest.mark.parametrize("verb", ["storeserver", "minipg"])
+def test_store_verbs_serve(tmp_path, verb):
+    """``storeserver`` and ``minipg`` of each console as a process: the
+    same stdout line, the store answering (the store server its status
+    and a key-gated route, minipg a query over the postgres wire from
+    the other package's driver), and the same exit after SIGINT."""
+    import os
+    import signal
+    import subprocess
+
+    from predictionio_tpu.data.storage import pgwire as jax_pgwire
+    from predictionio_tpu_torch.data.storage import pgwire
+
+    results = {}
+    for pkg, module in _CONSOLE_MODULES.items():
+        port = _free_port()
+        argv = [sys.executable, "-m", module, verb, "--ip", "127.0.0.1",
+                "--port", str(port)]
+        argv += (["--access-key", "k"] if verb == "storeserver" else
+                 ["--path", str(tmp_path / f"{pkg}.db"), "--password", "pw"])
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+                   PIO_FS_BASEDIR=str(tmp_path / pkg))
+        out_path, err_path = tmp_path / f"{pkg}.out", tmp_path / f"{pkg}.err"
+        with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+            proc = subprocess.Popen(argv, env=env, stdout=out_f,
+                                    stderr=err_f, text=True)
+        try:
+            deadline = time.monotonic() + 60
+            while "listening on" not in out_path.read_text():
+                assert proc.poll() is None, err_path.read_text()
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            if verb == "storeserver":
+                base = f"http://127.0.0.1:{port}"
+                try:
+                    urllib.request.urlopen(base + "/meta/apps", timeout=10)
+                    answered = 200
+                except urllib.error.HTTPError as e:
+                    answered = e.code
+                req = urllib.request.Request(
+                    base + "/", headers={"Authorization": "Bearer k"})
+                with urllib.request.urlopen(req, timeout=10) as resp:
+                    answered = (answered, json.loads(resp.read()))
+            else:
+                driver = pgwire if pkg == "jax" else jax_pgwire
+                conn = driver.connect(host="127.0.0.1", port=port,
+                                      user="pio", database="pio",
+                                      password="pw")
+                cur = conn.cursor()
+                cur.execute("SELECT 1")
+                answered = cur.fetchall()
+                conn.close()
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        results[pkg] = (proc.returncode, answered, [
+            ln.replace(str(port), "<port>")
+            for ln in out_path.read_text().splitlines()])
+    assert results["port"] == results["jax"], results
+    assert results["port"][0] == 0
+    assert results["port"][2] == [
+        {"storeserver": "Store server", "minipg": "minipg"}[verb]
+        + " is listening on 127.0.0.1:<port>"]
 
 
 @pytest.mark.parametrize("argv, item", _REFUSALS,

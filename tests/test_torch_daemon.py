@@ -2,9 +2,9 @@
 daemons / daemon): pidfiles, stale and garbage pidfiles, and real
 background servers through ``python -m predictionio_tpu_torch.cli.main``.
 
-Counterparts of ``tests/test_daemon.py`` (minipg and the store server,
-ROADMAP.md item 3b, are refused instead), plus ``start-all`` bringing up
-the event server, the dashboard and the admin server together.
+Counterparts of ``tests/test_daemon.py``, plus ``start-all`` bringing up
+the event server, the dashboard and the admin server together, and with
+each of its store flags minipg or the store server beside them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import os
 import pathlib
 import socket
 import subprocess
+import urllib.error
 import urllib.request
 
 import pytest
@@ -191,11 +192,68 @@ class TestStatusAll:
         assert lines == [f"{name}: stopped" for name in daemon.SERVICES]
 
 
+def _pg_select_one(port: int) -> list:
+    from predictionio_tpu_torch.data.storage import pgwire
+
+    conn = pgwire.connect(host="127.0.0.1", port=port, user="pio",
+                          database="pio", password=None)
+    try:
+        cur = conn.cursor()
+        cur.execute("SELECT 1")
+        return cur.fetchall()
+    finally:
+        conn.close()
+
+
 @pytest.mark.parametrize("flag", [
-    ["--with-minipg"], ["--minipg-port", "5999"], ["--with-storeserver"],
-    ["--storeserver-port", "7999"], ["--storeserver-access-key", "k"],
+    ["--with-minipg"], ["--minipg-port"], ["--with-storeserver"],
+    ["--storeserver-port"], ["--storeserver-access-key", "k"],
 ])
-def test_networked_store_daemons_refused(piodir, capsys, flag):
-    assert main(["start-all", *flag]) == 1
-    assert "item 3b" in capsys.readouterr().err
-    assert not os.path.exists(piodir / "run")
+def test_start_all_brings_up_the_networked_stores(piodir, capsys,
+                                                  monkeypatch, flag):
+    """Each of ``start-all``'s store flags brings up its daemon (minipg
+    answering a query over the postgres wire, the store server its
+    status, behind the key when one is given) beside the three
+    services; ``stop-all`` ends every one and removes every pidfile."""
+    ports = {name: _free_port() for name in (
+        *daemon.SERVICES, *daemon.OPTIONAL_SERVICES)}
+    # the stores' default ports, where the flag names none
+    monkeypatch.setattr(daemon, "OPTIONAL_SERVICES", {
+        name: ports[name] for name in daemon.OPTIONAL_SERVICES})
+    store = "minipg" if "minipg" in flag[0] else "storeserver"
+    argv = ["start-all", "--ip", "127.0.0.1", *flag]
+    if flag[0].endswith("-port"):
+        argv.append(str(ports[store]))
+    for name in daemon.SERVICES:
+        argv += [f"--{name}-port", str(ports[name])]
+    pids = {}
+    try:
+        assert main(argv) == 0, capsys.readouterr()
+        assert main(["daemons"]) == 0
+        out = capsys.readouterr().out
+        for name in (*daemon.SERVICES, store):
+            assert f"{name}: running (pid" in out, out
+            pids[name] = daemon.read_pid(name)
+        other = ({"minipg", "storeserver"} - {store}).pop()
+        assert other not in out and daemon.read_pid(other) is None
+        if store == "minipg":
+            assert _pg_select_one(ports["minipg"]) == [(1,)]
+        elif "--storeserver-access-key" in flag:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _get(ports["storeserver"], "/meta/apps")
+            assert e.value.code == 401
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{ports['storeserver']}/meta/apps",
+                headers={"Authorization": "Bearer k"})
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                assert json.loads(resp.read()) == []
+        else:
+            assert json.loads(_get(ports["storeserver"])) == {
+                "status": "alive", "service": "storeserver"}
+    finally:
+        assert main(["stop-all"]) == 0
+    out = capsys.readouterr().out
+    for name in (*daemon.SERVICES, store):
+        assert f"{name}: stopped (pid {pids[name]})" in out, out
+    assert not os.listdir(piodir / "run")
+    assert not any(daemon.pid_alive(pid) for pid in pids.values())

@@ -49,6 +49,7 @@ from predictionio_tpu.serving.event_server import (
 from predictionio_tpu.utils.bimap import BiMap as JaxBiMap
 from predictionio_tpu_torch.data import storage as storage_mod
 from predictionio_tpu_torch.data.storage import (
+    App,
     BackendSpec,
     Storage,
     StorageError,
@@ -265,8 +266,52 @@ def test_backend_spec_has_the_jax_fields_and_builtins():
     assert "BackendSpec" in storage_mod.__all__
 
 
-@pytest.mark.parametrize("kind", ["postgres", "mysql", "httpstore",
-                                  "replicated"])
+@pytest.mark.parametrize("kind", ["replicated"])
 def test_networked_types_still_refused(kind):
     with pytest.raises(StorageError, match="item 3b"):
         Storage(env={"PIO_STORAGE_SOURCES_X_TYPE": kind})
+
+
+@pytest.mark.parametrize("kind", ["postgres", "mysql", "httpstore"])
+def test_networked_types_resolve_and_round_trip_an_app(tmp_path, kind):
+    """Each networked type the JAX package registers is a registered
+    ``BackendSpec`` with every DAO, and an app goes through it (its dev
+    server running) and back, as through the JAX package's own."""
+    from predictionio_tpu.data.storage import _BACKENDS as JAX_BACKENDS
+    from predictionio_tpu_torch.data.storage.minimysql import MiniMySQLServer
+    from predictionio_tpu_torch.data.storage.minipg import MiniPGServer
+    from predictionio_tpu_torch.serving.store_server import (
+        create_store_server,
+    )
+
+    spec = storage_mod._BACKENDS[kind]
+    assert isinstance(spec, BackendSpec)
+    assert {f.name for f in dataclasses.fields(spec)
+            if getattr(spec, f.name) is None} == {
+        f.name for f in dataclasses.fields(JAX_BACKENDS[kind])
+        if getattr(JAX_BACKENDS[kind], f.name) is None} == set()
+    env = {"PIO_STORAGE_SOURCES_X_TYPE": kind}
+    if kind == "httpstore":
+        server = create_store_server(host="127.0.0.1", port=0,
+                                     storage=Storage(env={
+                                         "PIO_STORAGE_SOURCES_M_TYPE":
+                                             "memory"}))
+        server.start()
+        env["PIO_STORAGE_SOURCES_X_URL"] = f"http://127.0.0.1:{server.port}"
+        stop = server.shutdown
+    else:
+        cls, scheme = ((MiniPGServer, "postgresql") if kind == "postgres"
+                       else (MiniMySQLServer, "mysql"))
+        server = cls(path=str(tmp_path / "dev.db"), password="pio")
+        port = server.start()
+        env["PIO_STORAGE_SOURCES_X_URL"] = (
+            f"{scheme}://pio:pio@127.0.0.1:{port}/pio")
+        stop = server.stop
+    try:
+        apps = Storage(env=env).get_meta_data_apps()
+        app_id = apps.insert(App(0, "shop", "first"))
+        assert Storage(env=env).get_meta_data_apps().get(app_id) == App(
+            app_id, "shop", "first")
+        assert [a.name for a in apps.get_all()] == ["shop"]
+    finally:
+        stop()

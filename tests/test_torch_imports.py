@@ -88,7 +88,12 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "serving.batching", "serving.http",
                 "serving.modelpool", "serving.plugins",
                 "serving.event_server", "serving.router",
-                "serving.autoscaler", "obs.federation"):
+                "serving.autoscaler", "obs.federation",
+                "data.storage.pgwire", "data.storage.postgres",
+                "data.storage.minipg", "data.storage.mywire",
+                "data.storage.mysql", "data.storage.minimysql",
+                "data.storage.httpstore", "serving.store_server",
+                "client"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(

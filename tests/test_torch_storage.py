@@ -559,11 +559,67 @@ def test_default_wiring_matches_jax(tmp_path, env):
         assert (tmp_path / "pio.sqlite").exists()
 
 
-@pytest.mark.parametrize("kind", ["postgres", "mysql", "httpstore",
-                                  "replicated"])
+@pytest.mark.parametrize("kind", ["replicated"])
 def test_networked_backends_are_not_ported(kind):
     with pytest.raises(StorageError, match="item 3b"):
         Storage(env={"PIO_STORAGE_SOURCES_X_TYPE": kind})
+
+
+@pytest.fixture()
+def networked_env(request, tmp_path):
+    """``PIO_STORAGE_*`` naming one networked store for every repository,
+    its server (the port's minipg, minimysql or store server) running."""
+    from predictionio_tpu_torch.data.storage.minimysql import MiniMySQLServer
+    from predictionio_tpu_torch.data.storage.minipg import MiniPGServer
+    from predictionio_tpu_torch.serving.store_server import (
+        create_store_server,
+    )
+
+    kind = request.param
+    env = {"PIO_STORAGE_SOURCES_X_TYPE": kind}
+    if kind == "httpstore":
+        server = create_store_server(
+            host="127.0.0.1", port=0, storage=Storage(env={
+                **_env("sqlite", tmp_path),
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL"}))
+        server.start()
+        env["PIO_STORAGE_SOURCES_X_URL"] = f"http://127.0.0.1:{server.port}"
+        stop = server.shutdown
+    else:
+        cls, scheme = ((MiniPGServer, "postgresql") if kind == "postgres"
+                       else (MiniMySQLServer, "mysql"))
+        server = cls(path=str(tmp_path / "dev.db"), password="pio")
+        port = server.start()
+        env["PIO_STORAGE_SOURCES_X_URL"] = (
+            f"{scheme}://pio:pio@127.0.0.1:{port}/pio")
+        stop = server.stop
+    yield kind, env
+    stop()
+
+
+@pytest.mark.parametrize("networked_env", ["postgres", "mysql", "httpstore"],
+                         indirect=True)
+def test_networked_backends_resolve_and_round_trip_an_app(networked_env):
+    """``Storage(env=...)`` resolves each networked type for every
+    repository, and an app, its events and a model go there and back."""
+    kind, env = networked_env
+    storage = Storage(env=env)
+    app_id = storage.get_meta_data_apps().insert(App(0, "shop", "d"))
+    assert storage.get_meta_data_apps().get_by_name("shop") == App(
+        app_id, "shop", "d")
+    rows = _event_rows(20, seed=5)
+    events = storage.get_events()
+    events.init(app_id)
+    events.insert_batch([Event(**r) for r in rows], app_id)
+    jax_made = [JaxEvent(**r) for r in rows]
+    _assert_same_events(list(events.find(app_id)), jax_made)
+    from predictionio_tpu_torch.data.storage import Model
+
+    storage.get_model_data_models().insert(Model("m", b"\x00\xffblob"))
+    assert storage.get_model_data_models().get("m").models == (
+        b"\x00\xffblob")
+    assert storage.verify_all_data_objects() == []
+    assert storage.backend_for_source("X") is storage.get_events()
 
 
 @pytest.mark.parametrize("kind", ["sqlite", "eventlog", "memory"])
