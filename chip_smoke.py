@@ -39,8 +39,8 @@ and PyTorch built for CUDA. In order:
    must be identical), the epoch time (median of epochs 2-5, CUDA
    events), each half-step's device split from the profiler (gather +
    Gramian, Cholesky solve, heavy ``index_add_``), the peak device
-   memory and the epoch's bound; holds every heavy item row, 512
-   sampled items and (after one more user half-step) 512 sampled users
+   memory and the epoch's bound; holds every heavy item row, 256
+   sampled items and (after one more user half-step) 256 sampled users
    to a relative residual of 1e-4 against their normal equations
    rebuilt in float64 on the host;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
@@ -151,7 +151,7 @@ and PyTorch built for CUDA. In order:
    4's width (a new generation of random factors from the seed),
    through ``create_engine_server`` with admission, the query cache and
    the canary on, ``max_batch`` 64, pipeline depth 2, over HTTP: (a)
-   closed-loop clients (64, 128, 256, 384 threads, 4 s a stage, until
+   closed-loop clients (64, 128, 256, 384 threads, 3 s a stage, until
    p50 passes twice its unloaded value beyond the admission floor) post
    single queries, 20 % ``critical``, 50 % ``default``, 30 %
    ``sheddable`` (half of them with ``X-PIO-Deadline: 50``); per class
@@ -255,7 +255,7 @@ and PyTorch built for CUDA. In order:
    against the plain top-k on the factors read back from the store, a
    second ``train`` and ``POST /reload`` with the new generation
    answering; (b) the same store on the port's ``MiniMySQLServer`` in
-   this process: 10,000 events, ``run_train``, ``create_engine_server``,
+   this process: 5,000 events, ``run_train``, ``create_engine_server``,
    164 answers; (c) ``start-all --with-storeserver
    --storeserver-access-key`` over TLS (a certificate made here), the
    store server's own storage sqlite, the event log and localfs, and
@@ -270,8 +270,32 @@ and PyTorch built for CUDA. In order:
    store server's file) quarantined on ``/reload`` with the old one
    answering; ``stop-all`` ending every daemon, and no process of the
    phase left; each number on a line beside the card;
-18. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-17; phase 16's ``--workers`` children, which the package
+18. runs the replicated store tier (JAX ``scripts/store_ha_smoke.py``
+   and ``docs/storage.md`` "Replication & failover") at phase 4's width,
+   every server a process of the port's console: (a) three
+   ``storeserver --peer ×2`` nodes (``--role primary`` on node 0), each
+   with its own sqlite, fsynced event log and localfs, node 2 under
+   ``PIO_CHAOS=partition:p=0.05,ms=50``, and the event server with three
+   ``--store-url``; (b) phase 7's first 50,000 events from 8 threads in
+   batches of 50, the primary SIGKILLed a third of the way, ingest
+   acking through W = 2 of 3 (events/s and batch p50/p99 before and
+   after the kill); (c) ``train`` (under ``--cli-child``, on the card)
+   and ``deploy`` with three ``--store-url`` while the primary is down,
+   64 answers held against the plain top-k, the trainer's hints for the
+   dead node on disk; (d) phase 4's generation (358,609,573 bytes)
+   through the quorum with one node down, read back checksum-verified
+   by a reader of one surviving node, loaded by ``create_engine_server``
+   and answering 128 queries against the plain top-k, then a byte
+   flipped at rest on node 2, detected by the manifest's SHA-256 and
+   repaired from node 1; (e) the killed node restarted on its own port,
+   level through hinted handoff and anti-entropy (event watermarks equal
+   on all three, the outage's generations there with equal bytes),
+   every acked event read back from each node (ids unique, triples the
+   generator's); (f) ``status --store-url ×3``, the event server's
+   ``/healthz`` replication view, the merged ``/debug/timeline.json``;
+   no child left; a time limit of its own (600 s);
+19. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-18; phase 16's ``--workers`` children, which the package
    re-execs, by their ``pio_batches_total``) and, last, the device
    line.
 
@@ -326,7 +350,7 @@ TRAIN_REG, TRAIN_ALPHA = 0.01, 1.0
 #: a row's solve against its normal equations rebuilt in float64; true
 #: fp32 products and sums stay near 1e-6, TF32 products near 1e-3
 RESIDUAL_TOL = 1e-4
-RESIDUAL_SAMPLE = 512
+RESIDUAL_SAMPLE = 256
 #: the DASE phase: users, items, rate events
 DASE = (20_000, 5_000, 200_000)
 #: the ingest phase: events a batch request, client threads, and the
@@ -3355,9 +3379,39 @@ class _Console:
                 proc.wait(timeout=60)
 
 
+def _ephemeral_range() -> tuple[int, int]:
+    """The kernel's range for the source ports of outgoing
+    connections."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
 def _free_port() -> int:
+    """A port for a server of the script to listen on, below the
+    ephemeral range where there is room for one. A port inside that
+    range can be taken, while its server is down, as the source port of
+    any outgoing connection, and one such socket, established or in
+    TIME_WAIT for a minute, blocks the server's next bind with
+    SO_REUSEADDR or without: what made phase 16 (b)'s respawns exit 1
+    on "Address already in use" (PERF.md §7)."""
+    import random
     import socket
 
+    lo, _hi = _ephemeral_range()
+    if lo - 4096 >= 1024:
+        pick = random.SystemRandom()
+        for _ in range(256):
+            port = pick.randrange(max(1024, lo - 16384), lo)
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+                return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -3654,7 +3708,7 @@ def cli_phase(device, workdir: str, seed: int) -> dict:
 #: pass the admission floor (max_batch × (pipeline depth + 1) = 192),
 #: below which nothing is shed by design
 SERVER_STAGES = (64, 128, 256, 384)
-SERVER_STAGE_S = 4.0
+SERVER_STAGE_S = 3.0
 SERVER_FLOOR = 64 * 3
 SERVER_MIX = (("critical", 0.2), ("default", 0.5), ("sheddable", 0.3))
 #: the budget half the sheddable requests carry (milliseconds)
@@ -4944,7 +4998,7 @@ FLEET_THREADS = 16
 FLEET_BUDGET_S = 60.0
 #: (b): seconds of traffic through the router, then straight to the
 #: replicas, for the router hop's added p50
-FLEET_HOP_S = 3.0
+FLEET_HOP_S = 2.0
 #: (b)-(d): the router's admin key
 FLEET_KEY = "chip-smoke-fleet-key"
 #: (g): queries through the router to the pooled replicas
@@ -5218,6 +5272,9 @@ class _Fleet:
         self.seq = 0
         #: where the newest process of a name starts in its output file
         self.offsets: dict = {}
+        #: pid -> (name, start on the phase clock, where its stderr
+        #: starts in the name's .err file)
+        self.started: dict = {}
 
     def path(self, name: str, ext: str) -> str:
         return os.path.join(self.workdir, f"{name}.{ext}")
@@ -5226,13 +5283,46 @@ class _Fleet:
         path = self.path(name, "out")
         self.offsets[name] = (os.path.getsize(path)
                               if os.path.exists(path) else 0)
-        with open(path, "a") as out, \
-                open(self.path(name, "err"), "a") as err:
+        err_path = self.path(name, "err")
+        err_at = os.path.getsize(err_path) if os.path.exists(err_path) else 0
+        with open(path, "a") as out, open(err_path, "a") as err:
             proc = subprocess.Popen(cmd, env={**self.env, **(env or {})},
                                     stdout=out, stderr=err, cwd=ROOT)
         self.procs.setdefault(name, []).append(proc)
         self.pids.add(proc.pid)
+        self.started[proc.pid] = (name, time.perf_counter(), err_at)
         return proc
+
+    def failed_exits(self, lines: int = 40, tails: int = 8) -> list:
+        """A line for each process that exited with a code above 0 (a
+        respawned replica or worker that failed, say) — its name, pid,
+        code and how long it lived at most — and for the first ``tails``
+        of them the last ``lines`` lines of their own stderr. A process
+        killed by a signal (the phase's SIGKILLs) is not one."""
+        out, shown = [], 0
+        for name, procs in self.procs.items():
+            for i, proc in enumerate(procs):
+                rc = proc.poll()
+                if rc is None or rc <= 0:
+                    continue
+                _name, t0, err_at = self.started[proc.pid]
+                later = procs[i + 1] if i + 1 < len(procs) else None
+                t1, err_end = ((self.started[later.pid][1],
+                                self.started[later.pid][2])
+                               if later is not None
+                               else (time.perf_counter(), None))
+                out.append(f"failed exit: {name} pid {proc.pid} rc {rc}, "
+                           f"lived at most {t1 - t0:.1f} s")
+                if shown == tails:
+                    continue
+                shown += 1
+                with open(self.path(name, "err"), "rb") as f:
+                    f.seek(err_at)
+                    text = f.read(None if err_end is None
+                                  else err_end - err_at)
+                out += [f"  | {ln}" for ln in text.decode(
+                    "utf-8", "replace").splitlines()[-lines:]]
+        return out
 
     def replica_cmd(self, variant_path: str, port, extra=()) -> list:
         """A ``--cli-child`` deploy whose launch counts land in a file
@@ -6032,6 +6122,10 @@ def fleet_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         terminate_children(slots, 30.0)
         pool_ex.shutdown(wait=True)
         left = fleet.close()
+        # every respawn or worker that failed, with its own stderr,
+        # before the workdir goes
+        for line in fleet.failed_exits():
+            log(f"fleet {line}")
     assert not left, f"processes outlived the phase: {left}"
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -6042,7 +6136,7 @@ def fleet_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 #: (a) and (c): the first of phase 7's events, ingested over HTTP
 STORE_EVENTS = 50_000
 #: (b): the first of phase 7's events, written through the MySQL wire
-STORE_MYSQL_EVENTS = 10_000
+STORE_MYSQL_EVENTS = 5_000
 #: answers held against the plain top-k in each of (a), (c) and (d)
 STORE_QUERIES = 64
 STORE_PASSWORD = "pio"
@@ -6656,6 +6750,570 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     return out
 
 
+# -- phase 18: the replicated store tier -------------------------------------
+
+#: (b): the first of phase 7's events, each acked through a W = 2 of 3
+#: quorum
+REPL_EVENTS = 50_000
+#: (b): the primary is SIGKILLed once this many events are acked
+REPL_KILL_AT = REPL_EVENTS // 3
+REPL_KEY = "chip-smoke-repl-key"
+#: JAX scripts/store_ha_smoke.py's cadences, in every process of the phase
+REPL_ENV = {"PIO_BREAKER_FAILURES": "3", "PIO_BREAKER_RESET_S": "0.8",
+            "PIO_STORE_SYNC_INTERVAL": "0.5",
+            "PIO_STORE_HINT_INTERVAL": "0.5"}
+#: node 2 runs under it throughout
+REPL_CHAOS = "partition:p=0.05,ms=50"
+#: (c): singles and one batch of as many, held against the plain top-k
+REPL_QUERIES = 32
+#: (e): the restarted node must be level within this
+REPL_CONVERGE_S = 300.0
+#: past this the phase fails with a message and its processes ended, so
+#: that a hang cannot run the script into its own time limit
+REPL_LIMIT_S = 600.0
+
+
+def repl_env(urls: list, hint_dir: str) -> dict:
+    """Every repository on a ``replicated`` source over ``urls`` (W the
+    majority, JAX's default; the other settings JAX's defaults too)."""
+    env = {"PIO_STORAGE_SOURCES_REPL_TYPE": "replicated",
+           "PIO_STORAGE_SOURCES_REPL_URLS": ",".join(urls),
+           "PIO_STORAGE_SOURCES_REPL_HINT_DIR": hint_dir}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "REPL"
+    return env
+
+
+def _repl_ingest(url: str, events: list, on_acked) -> dict:
+    """``events`` (each with its ``eventId``) through the port's
+    ``EventClient`` in batches of ``INGEST_BATCH`` from
+    ``INGEST_THREADS`` threads; a shed batch is sent again (nothing
+    ran), an event answered with another status than 201 is counted and
+    not sent again (it may have landed below the quorum: sending it
+    again could double it). ``on_acked(n)`` sees the running count."""
+    import threading
+
+    from predictionio_tpu_torch.client import EventClient, PIOClientError
+
+    batches = [events[lo:lo + INGEST_BATCH]
+               for lo in range(0, len(events), INGEST_BATCH)]
+    client = EventClient(REPL_KEY, url=url)
+    rows = [None] * len(batches)  # (sent at, ms, acked ids, others)
+    lock = threading.Lock()
+    acked_n = [0]
+
+    def worker(part: int):
+        for b in range(part, len(batches), INGEST_THREADS):
+            t0 = time.perf_counter()
+            for attempt in range(STORE_RESENDS + 1):
+                try:
+                    statuses = client.create_events(batches[b])
+                    break
+                except PIOClientError as e:
+                    if e.status not in (429, 503) or attempt == STORE_RESENDS:
+                        raise
+                    time.sleep(0.05)
+            ok = [r["eventId"] for r in statuses if r["status"] == 201]
+            rows[b] = (t0, (time.perf_counter() - t0) * 1e3, ok,
+                       [r["status"] for r in statuses if r["status"] != 201])
+            with lock:
+                acked_n[0] += len(ok)
+                n = acked_n[0]
+            on_acked(n)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(INGEST_THREADS) as pool:
+        for f in [pool.submit(worker, p) for p in range(INGEST_THREADS)]:
+            f.result()
+    return {"rows": rows, "t0": t0, "t1": time.perf_counter()}
+
+
+def _ingest_split(rows: list, t_lo: float, t_hi: float) -> dict:
+    """events/s and batch p50/p99 of the batches sent in [t_lo, t_hi)."""
+    mine = [r for r in rows if t_lo <= r[0] < t_hi]
+    if not mine:
+        return {"batches": 0}
+    lat = [r[1] for r in mine]
+    return {"batches": len(mine),
+            "events_acked": sum(len(r[2]) for r in mine),
+            "events_per_s": sum(len(r[2]) for r in mine) / (t_hi - t_lo),
+            "batch_p50_ms": float(np.percentile(lat, 50)),
+            "batch_p99_ms": float(np.percentile(lat, 99))}
+
+
+def _node_events(url: str, app_id: int) -> list:
+    from predictionio_tpu_torch.data.storage.httpstore import (
+        HTTPEvents,
+        HTTPStoreClient,
+    )
+
+    dao = HTTPEvents(HTTPStoreClient({"URL": url, "TIMEOUT": "120"}))
+    return list(dao.find(app_id))
+
+
+def _check_node_events(held: list, acked: set, want: np.ndarray) -> dict:
+    """One node's events against the generator: every acked id there,
+    no id twice, each event's (user, item, rating) the generator's for
+    its id (the id is the event's index), nothing the generator did not
+    make."""
+    ids = [e.event_id for e in held]
+    assert len(set(ids)) == len(ids), "an event id twice on one node"
+    idx = np.array([int(i, 16) for i in ids], dtype=np.int64)
+    assert idx.size == 0 or (0 <= idx.min() and idx.max() < want.shape[1])
+    got = np.array([[int(e.entity_id[1:]), int(e.target_entity_id[1:]),
+                     int(e.properties["rating"])] for e in held],
+                   dtype=np.int64).T.reshape(3, -1)
+    assert np.array_equal(got, want[:, idx]), "a triple differs"
+    lost = acked - set(ids)
+    assert not lost, f"{len(lost)} acked events missing"
+    return {"held": len(ids), "extra_unacked": len(set(ids) - acked)}
+
+
+def replicated_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
+                     n_items: int = N_ITEMS) -> dict:
+    """Phase 18: the replicated store tier (JAX
+    scripts/store_ha_smoke.py and docs/storage.md "Replication &
+    failover") at phase 4's width, every server a process of the port's
+    console: three store servers peering with each other, the event
+    server, ``train`` and ``deploy`` with three ``--store-url``."""
+    import hashlib
+    import threading
+
+    from predictionio_tpu_torch.core.persistence import (
+        load_generation,
+        manifest_id,
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import (
+        AccessKey,
+        App,
+        Storage,
+        StorageError,
+    )
+    from predictionio_tpu_torch.data.storage.httpstore import (
+        HTTPEvents,
+        HTTPModels,
+        HTTPStoreClient,
+    )
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.obs import timeline as timeline_mod
+    from predictionio_tpu_torch.obs.timeline import merge_timelines
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+
+    t_phase = time.perf_counter()
+    dev = [] if device.type == "cuda" else ["--device", device.type]
+    want_device = str(torch.device(device.type, 0) if device.type == "cuda"
+                      else device)
+    launches = {form: 0 for form in FORMS}
+    out: dict = {}
+    # rings big enough to keep the phase's story (a hint event a missed
+    # batch would push the first failover out of the default 512)
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+               PIO_TIMELINE_CAPACITY="8192", **REPL_ENV)
+    fleet = _Fleet(workdir, env, dev)
+    # train and deploy: their hint queues under workdir/replication_hints
+    console = _Console(workdir, dict(env, PIO_FS_BASEDIR=workdir))
+    clients: list = []
+    es = None
+
+    def expired():
+        log(f"phase 18 ran past its {REPL_LIMIT_S:.0f} s: ending its "
+            "processes and the script")
+        import faulthandler
+
+        faulthandler.dump_traceback(all_threads=True)
+        console.close()
+        fleet.close()
+        os._exit(3)
+
+    watchdog = threading.Timer(REPL_LIMIT_S, expired)
+    watchdog.daemon = True
+    watchdog.start()
+
+    def node_env(i: int) -> dict:
+        d = os.path.join(workdir, f"node{i}")
+        e = dict(trainer_env(d), PIO_EVENTLOG_FSYNC="1", PIO_FS_BASEDIR=d)
+        if i == 2:
+            e["PIO_CHAOS"] = REPL_CHAOS
+        return e
+
+    ports = [_free_port() for _ in range(3)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+
+    def start_node(i: int):
+        proc = fleet.console(f"node{i}", [
+            "storeserver", "--ip", "127.0.0.1", "--port", str(ports[i]),
+            "--role", "primary" if i == 0 else "replica",
+            *[a for j, u in enumerate(urls) if j != i
+              for a in ("--peer", u)]], node_env(i))
+        fleet.wait_line(f"node{i}", proc, "Replication: role=",
+                        CLI_TIMEOUT_S)
+        return proc
+
+    def node_dao(i: int, kind: str):
+        client = HTTPStoreClient({"URL": urls[i], "TIMEOUT": "120"})
+        return (HTTPEvents if kind == "events" else HTTPModels)(client)
+
+    node_rss = {f"node{i}": 0.0 for i in range(3)}
+
+    def note_rss(rss, procs):
+        """Each node's peak resident MB over every sampled block."""
+        for i, proc in enumerate(procs):
+            mb = rss.peaks.get(proc.pid, 0.0)
+            node_rss[f"node{i}"] = max(node_rss[f"node{i}"], mb)
+
+    def counted(name):
+        c = console.counts(name)
+        assert c["rc"] == 0, c
+        assert c["devices"] and set(c["devices"]) == {want_device}, c
+        for form in FORMS:
+            launches[form] += c["launches"].get(form, 0)
+
+    events, want = _store_events(REPL_EVENTS)
+    for i, e in enumerate(events):
+        e["eventId"] = f"{i:032x}"
+    # this process's clients too (breakers, the hint drain), as JAX
+    # scripts/store_ha_smoke.py sets them for its own
+    saved_env = {k: os.environ.get(k) for k in REPL_ENV}
+    os.environ.update(REPL_ENV)
+    try:
+        # (a) three store servers, each peering with the other two; the
+        # app and its key through a replicated client; the event server
+        nodes = [start_node(i) for i in range(3)]
+        storage = Storage(env=repl_env(urls, os.path.join(workdir, "hints")))
+        clients.append(storage._client("REPL"))
+        app_id = storage.get_meta_data_apps().insert(App(0, CLI_APP))
+        storage.get_meta_data_access_keys().insert(AccessKey(REPL_KEY,
+                                                             app_id))
+        storage.get_events().init(app_id)
+        es_port = _free_port()
+        es_url = f"http://127.0.0.1:{es_port}"
+        store_urls = [a for u in urls for a in ("--store-url", u)]
+        es = fleet.console("eventserver", [
+            "eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+            *store_urls], {"PIO_FS_BASEDIR": os.path.join(workdir, "es")})
+        fleet.wait_line("eventserver", es, f"127.0.0.1:{es_port}",
+                        CLI_TIMEOUT_S)
+
+        # (b) ingest; the primary SIGKILLed a third of the way
+        killed = {}
+
+        def on_acked(n: int):
+            if n >= REPL_KILL_AT and not killed:
+                killed["t"] = time.perf_counter()
+                nodes[0].kill()
+
+        with _RssPeak([p.pid for p in nodes]) as rss_b:
+            run = _repl_ingest(es_url, events, on_acked)
+        note_rss(rss_b, nodes)
+        nodes[0].wait(timeout=60)
+        rows = run["rows"]
+        acked = {i for r in rows for i in r[2]}
+        b = {"events": len(events), "acked": len(acked),
+             "not_acked": [s for r in rows for s in r[3]],
+             "seconds": run["t1"] - run["t0"],
+             "before_kill": _ingest_split(rows, run["t0"], killed["t"]),
+             "after_kill": _ingest_split(rows, killed["t"], run["t1"])}
+        assert b["after_kill"]["events_acked"] > 0, b
+        out["ingest"] = b
+        log(f"replicated (b) {json.dumps(b)}")
+
+        # (c) train and deploy on the card through the quorum while the
+        # primary is down
+        t0 = time.perf_counter()
+        for attempt in range(1, 4):
+            name = f"repl_train{attempt}"
+            proc = console.start(name, ["train", "--variant", CLI_VARIANT,
+                                        *store_urls, *dev], counted=True)
+            try:
+                proc.wait(timeout=CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name} ran past {CLI_TIMEOUT_S} s")
+            err = _tail(console.path(name, "err"))
+            if proc.returncode == 0 or "peers acked" not in err:
+                break
+            # node 0 down and node 2 partitioned for this one metadata
+            # POST: the write is below its quorum; run the step again
+            log(f"replicated (c) {name}: a metadata write missed its "
+                "quorum (node 2 partitioned); running train again")
+        text = console.wait(name, proc)
+        console.steps["repl_train"] = time.perf_counter() - t0
+        counted(name)
+        iid, model, timing = _trained(storage, text)
+        hint_dir = os.path.join(workdir, "replication_hints",
+                                f"127.0.0.1_{ports[0]}")
+        c = {"train_attempts": attempt,
+             "train_read_s": timing["train/read"]["total_s"],
+             "train_s": timing["train/algorithm"]["total_s"],
+             "persist_s": timing["train/persist"]["total_s"],
+             "trainer_hints": len(os.listdir(hint_dir))}
+        assert c["trainer_hints"] > 0, "no hint for the dead primary"
+        port = _free_port()
+        deploy = console.start("repl_deploy", [
+            "deploy", "--variant", CLI_VARIANT, "--ip", "127.0.0.1",
+            "--port", str(port), *store_urls, *dev], counted=True)
+        console.listening("repl_deploy", deploy, port)
+        url = f"http://127.0.0.1:{port}"
+        assert _json_call(url + "/")[1]["engineInstanceId"] == iid
+        c["answers"] = _engine_answers(url, model, seed + 21, device,
+                                       n=REPL_QUERIES)
+        console.run("repl_undeploy", ["undeploy", "--port", str(port)])
+        console.wait("repl_deploy", deploy, timeout=120)
+        counted("repl_deploy")
+        out["train_deploy"] = c
+        log(f"replicated (c) {json.dumps(c)}")
+
+        # (d) phase 4's generation through the quorum with one node
+        # down, read back checksum-verified by a replica-only reader
+        wide_model = make_model(n_users, n_items, RANK, seed)
+        for attempt in range(1, 4):
+            try:
+                wide_iid = _wide_instance(storage,
+                                          dt.datetime.now(dt.timezone.utc))
+                break
+            except StorageError as err:
+                # the same quorum miss as (c)'s: try the write again
+                if attempt == 3 or "peers acked" not in str(err):
+                    raise
+        blob = serialize_models(wide_iid, [ALSAlgorithm()], [wide_model])
+        digest = hashlib.sha256(blob).hexdigest()
+        reader = Storage(env=repl_env(urls[1:2],
+                                      os.path.join(workdir, "hints-r")))
+        clients.append(reader._client("REPL"))
+        mb = len(blob) / 1e6
+        with _RssPeak([nodes[1].pid, nodes[2].pid]) as rss_d:
+            t0 = time.perf_counter()
+            publish_generation(storage.get_model_data_models(), wide_iid,
+                               blob)
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load_generation(reader.get_model_data_models(), wide_iid)
+            get_s = time.perf_counter() - t0
+            assert back == blob
+            del back
+            engine = recommendation_engine()
+            params = engine.params_from_variant({
+                "datasource": {"params": {"app_name": "unused"}},
+                "algorithms": [{"name": "als", "params": {}}]})
+            fused_topk.reset_launch_counts()
+            t0 = time.perf_counter()
+            wide_es, wide_http = create_engine_server(
+                engine, params, STORE_WIDE_ENGINE, host="127.0.0.1", port=0,
+                storage=reader, ctx=ComputeContext.create(device=device),
+                max_batch=64, max_wait_ms=2.0)
+            load_s = time.perf_counter() - t0
+        try:
+            wide_http.start()
+            wurl = f"http://127.0.0.1:{wide_http.port}"
+            assert _json_call(wurl + "/")[1]["engineInstanceId"] == wide_iid
+            d = {"blob_bytes": len(blob), "table_bytes":
+                 wide_model.user_factors.nbytes
+                 + wide_model.item_factors.nbytes,
+                 "put_s": put_s, "get_s": get_s, "load_s": load_s,
+                 "put_mb_s": mb / put_s, "get_mb_s": mb / get_s,
+                 "answers": _engine_answers(wurl, wide_model, seed + 22,
+                                            device)}
+        finally:
+            wide_es.close()
+        for form in FORMS:
+            launches[form] += fused_topk.LAUNCHES[form]
+        hints0 = clients[0].hints[clients[0].peers[0].name]
+        d["hinted_for_the_dead_node"] = hints0.pending()
+        assert d["hinted_for_the_dead_node"] >= 3, d  # instance, blob, manifest
+        # one byte flipped at rest on node 2: the next read through a
+        # client that asks node 2 first detects it by the manifest's
+        # SHA-256 and repairs it from node 1
+        path = os.path.join(workdir, "node2", "models",
+                            f"pio_model_{wide_iid}.bin")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        assert hashlib.sha256(node_dao(2, "models").get(wide_iid).models
+                              ).hexdigest() != digest
+        fixer = Storage(env=repl_env([urls[2], urls[1]],
+                                     os.path.join(workdir, "hints-f")))
+        clients.append(fixer._client("REPL"))
+        repairs = clients[-1]._repairs
+        before = {o: repairs.labels(o).value
+                  for o in ("corrupt_detected", "read_repair")}
+        got = fixer.get_model_data_models().get(wide_iid)
+        assert hashlib.sha256(got.models).hexdigest() == digest
+        del got
+        d["corrupt_detected"] = (repairs.labels("corrupt_detected").value
+                                 - before["corrupt_detected"])
+        d["read_repaired"] = (repairs.labels("read_repair").value
+                              - before["read_repair"])
+        assert d["corrupt_detected"] == 1 and d["read_repaired"] == 1, d
+        assert hashlib.sha256(node_dao(2, "models").get(wide_iid).models
+                              ).hexdigest() == digest
+        note_rss(rss_d, nodes)
+        out["wide"] = d
+        log(f"replicated (d) {json.dumps(d)}")
+
+        # (e) the killed node restarts on its own port; hinted handoff
+        # and anti-entropy bring it level
+        status, health = _json_call(es_url + "/healthz")
+        dead_view = health["replication"]["peers"][0]
+        e = {"es_hints_pending_at_restart": dead_view["hintsPending"],
+             "es_hints_dropped": dead_view["hintsDropped"]}
+        t_restart = time.perf_counter()
+        nodes[0] = start_node(0)
+        e["restart_s"] = time.perf_counter() - t_restart
+        wanted_models = {iid, manifest_id(iid), wide_iid,
+                         manifest_id(wide_iid)}
+
+        def level():
+            try:
+                marks = [node_dao(i, "events").watermark(app_id)
+                         for i in range(3)]
+                ids = set(node_dao(0, "models").list_ids() or ())
+            except StorageError:
+                return None  # node 2's partitions; ask again
+            if len({m["checksum"] for m in marks}) != 1:
+                return None
+            return marks[0] if wanted_models <= ids else None
+
+        def quiet():
+            _s, h = _json_call(es_url + "/healthz")
+            return h["replication"]["peers"][0]["hintsPending"] == 0
+
+        with _RssPeak([p.pid for p in nodes]) as rss_e:
+            mark = _wait_for(level, "the restarted node to converge",
+                             REPL_CONVERGE_S)
+            e["converge_s"] = time.perf_counter() - t_restart
+            _wait_for(quiet, "the event server's hints to drain",
+                      REPL_CONVERGE_S)
+            e["hints_drained_s"] = time.perf_counter() - t_restart
+            back = node_dao(0, "models").get(wide_iid).models
+            assert hashlib.sha256(back).hexdigest() == digest
+            del back
+        assert mark["count"] >= len(acked), mark
+        e["held"] = [_check_node_events(_node_events(u, app_id), acked,
+                                        want) for u in urls]
+        _s, metrics = _json_call(es_url + "/metrics.json")
+        e["es_hints_replayed"] = _fam_total(metrics, "pio_store_repair_total",
+                                            outcome="hinted_handoff")
+        e["this_process_hints_replayed"] = clients[0]._repairs.labels(
+            "hinted_handoff").value
+        note_rss(rss_e, nodes)
+        e["node_peak_rss_mb"] = node_rss
+        out["converge"] = e
+        log(f"replicated (e) {json.dumps(e)}")
+
+        # (f) what an operator sees
+        text = console.run("repl_status", ["status", *store_urls])
+        lines = text.splitlines()
+        assert len(lines) == 3 and all("role=" in ln for ln in lines), text
+        f = {"status_lines": lines}
+        assert "replication" in _json_call(es_url + "/healthz")[1]
+        payloads = [(f"store-{i}", _json_call(u + "/debug/timeline.json")[1])
+                    for i, u in enumerate(urls)]
+        payloads.append(("events",
+                         _json_call(es_url + "/debug/timeline.json")[1]))
+        payloads.append(("chip-smoke", timeline_mod.get_timeline().to_dict()))
+        merged = merge_timelines(payloads)
+        kinds = [ev.get("kind") for ev in merged.get("events", [])]
+        f["timeline_kinds"] = {k: kinds.count(k) for k in sorted(
+            set(kinds) - {None}) if k.startswith("store_")}
+        assert "store_antientropy" in kinds, f
+        assert {"store_hint_enqueued", "store_failover"} & set(kinds), f
+        f["failovers"] = kinds.count("store_failover")
+        out["operator"] = f
+        log(f"replicated (f) {json.dumps(f)}")
+
+        fleet.stop("eventserver", es)
+        es = None
+        for i, proc in enumerate(nodes):
+            fleet.stop(f"node{i}", proc)
+    finally:
+        for rc_ in clients:
+            rc_.close()
+        console.close()
+        left = fleet.close()
+        for line in fleet.failed_exits():
+            log(f"replicated {line}")
+        watchdog.cancel()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    pids = set(fleet.pids) | {p.pid for p in console.procs}
+    left = sorted(set(left) | {p for p in pids if _alive(p)})
+    assert not left, f"phase 18 left processes behind: {left}"
+    out["processes"] = len(pids)
+    out["launches"] = launches
+    out["steps_s"] = dict(console.steps)
+    out["phase_s"] = time.perf_counter() - t_phase
+    assert launches["f32"] > 0, launches
+    return out
+
+
+
+def log_repl(r: dict, store: dict, smi: str) -> None:
+    """Each phase 18 number on a line of its own, beside the card."""
+    tag = f"replicated [{smi}]"
+    b = r["ingest"]
+    for part in ("before_kill", "after_kill"):
+        x = b[part]
+        log(f"{tag} (b) ingest {part.replace('_', ' ')}: {x['events_acked']} "
+            f"events acked in {x['batches']} batches, "
+            f"{x['events_per_s']:.1f} events/s, batch p50_ms="
+            f"{x['batch_p50_ms']:.3f} p99_ms={x['batch_p99_ms']:.3f}")
+    log(f"{tag} (b) {b['acked']} of {b['events']} events acked in "
+        f"{b['seconds']:.3f} s; not acked: {len(b['not_acked'])} "
+        f"(statuses {sorted(set(b['not_acked']))})")
+    c = r["train_deploy"]
+    log(f"{tag} (c) primary down: train (attempts {c['train_attempts']}) "
+        f"read {c['train_read_s']:.3f} s, train {c['train_s']:.3f} s, "
+        f"persist {c['persist_s']:.3f} s, {c['trainer_hints']} hints "
+        f"queued for the dead node; deploy: "
+        f"{c['answers']['answers_checked']} answers equal to the plain "
+        f"top-k, p50_ms={c['answers']['p50_ms']:.3f}")
+    d = r["wide"]
+    single = store.get("d", {}).get("http") if store else None
+    beside = (f" (phase 17 (d), one store server: PUT {single['put_s']:.3f}"
+              f" s, GET {single['get_s']:.3f} s, load {single['load_s']:.3f}"
+              f" s)" if single else "")
+    log(f"{tag} (d) {d['blob_bytes']} bytes (of which {d['table_bytes']} "
+        f"the factor tables) through W=2 of 3 with one node down: PUT "
+        f"{d['put_s']:.3f} s ({d['put_mb_s']:.1f} MB/s), GET from a "
+        f"replica {d['get_s']:.3f} s ({d['get_mb_s']:.1f} MB/s), load "
+        f"{d['load_s']:.3f} s{beside}; answers "
+        f"{d['answers']['answers_checked']} equal, p50_ms="
+        f"{d['answers']['p50_ms']:.3f}; a byte flipped at rest: detected "
+        f"{d['corrupt_detected']:.0f}, repaired {d['read_repaired']:.0f}")
+    e = r["converge"]
+    log(f"{tag} (e) restart {e['restart_s']:.3f} s; converged "
+        f"{e['converge_s']:.3f} s after the restart (watermarks equal, "
+        f"the outage's generations there); the event server's hints: "
+        f"{e['es_hints_pending_at_restart']} pending and "
+        f"{e['es_hints_dropped']} dropped at the restart, "
+        f"{e['es_hints_replayed']:.0f} replayed, drained "
+        f"{e['hints_drained_s']:.3f} s after the restart; this process's "
+        f"{e['this_process_hints_replayed']:.0f} replayed; events held by "
+        f"each node {[h['held'] for h in e['held']]}, every acked one "
+        f"there once, of them not acked {[h['extra_unacked'] for h in e['held']]}"
+        f" (a batch answered 500 after both its sends to node 2 failed, "
+        f"its events on node 1 and spread from there)")
+    log(f"{tag} (e) peak RSS MB by store node: "
+        f"{json.dumps({k: round(v) for k, v in e['node_peak_rss_mb'].items()})}")
+    f = r["operator"]
+    log(f"{tag} (f) failovers {f['failovers']}; store timeline kinds "
+        f"{json.dumps(f['timeline_kinds'])}; status: {f['status_lines']}")
+    log(f"{tag} phase launches {json.dumps(r['launches'])}; "
+        f"{r['phase_s']:.1f} s; {r['processes']} processes, none left")
+
 
 def log_fleet(p: dict, smi: str) -> None:
     """Each phase 16 number on a line of its own, beside the card."""
@@ -6976,6 +7634,7 @@ def main() -> int:
     log(nvidia_smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    log(f"ephemeral ports {_ephemeral_range()}; servers listen below them")
 
     t0 = time.perf_counter()
     _build.library("fused_topk")
@@ -7137,18 +7796,29 @@ def main() -> int:
     log(f"phase store: ok ({store['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-repl-") as d:
+        repl = replicated_phase(device, d, args.seed)
+    log("replicated " + json.dumps(repl))
+    log_repl(repl, store, smi)
+    log(f"phase replicated: ok ({time.perf_counter() - t_phase:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
     # 11, 12, the console's children in 13, the server of 14, the
     # tenants of 15, the fleet of 16 (its counted children, and the
     # batches of the --workers children, which the package re-execs),
-    # and the networked stores of 17 (console children and servers)
+    # the networked stores of 17 (console children and servers), and
+    # the replicated tier of 18 (its deploy child and the full-width
+    # server)
     for run in (dase, *ingest.values(), evaluation, similar,
                 templates["ecommerce"], trainer, cli, server, pool, fleet,
-                store):
+                store, repl):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
     launches["f32"] += int(sum(w["child_batches"] for w in fleet["workers"]))
-    log(f"launches over phases 4 and 7-17: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-18: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

@@ -31,10 +31,16 @@ and ``eventserver --workers N`` serve N processes on one port through
 storage type) serve the networked stores; ``start-all --with-minipg``
 and ``--with-storeserver`` run them as daemons.
 
+``--store-url`` (repeated) on ``train``, ``deploy``, ``trainer`` and
+``eventserver`` points every repository at a replicated set of store
+servers (quorum writes, failover reads, hinted handoff); ``storeserver
+--peer URL --role primary|replica`` runs a node of such a set with its
+anti-entropy loop, and ``status --store-url`` prints one health line per
+node.
+
 A verb or option that needs a part of the system not ported yet exits 1
-naming its ROADMAP.md item before doing anything: the replicated store
-tier (item 3b: ``--store-url``, ``status --store-url``, ``storeserver
---peer``) and more than one card (9).
+naming its ROADMAP.md item before doing anything: more than one card
+(9).
 """
 
 from __future__ import annotations
@@ -50,7 +56,6 @@ from predictionio_tpu_torch.obs.context import redact_keys
 from predictionio_tpu_torch.version import __version__
 
 _ITEM = {
-    "3b": "ROADMAP.md, queue 1, item 3b",
     "9": "ROADMAP.md, queue 1, item 9",
 }
 
@@ -89,11 +94,32 @@ def _resolve(args) -> tuple:
     return engine, params, engine_id, variant.get("variant", "default"), variant
 
 
-def _store_urls_refused(args) -> int:
-    """1 (after printing why) when ``--store-url`` was given, else 0."""
-    if getattr(args, "store_urls", None):
-        return _refuse("--store-url (the replicated store tier)", "3b")
-    return 0
+def _apply_store_urls(urls: list[str], access_key: str = "") -> None:
+    """Point every repository at a replicated store-server set
+    (repeated ``--store-url``): quorum writes, failover reads, hinted
+    handoff. One URL is the degenerate W=1 case and behaves like a plain
+    httpstore source."""
+    from predictionio_tpu_torch.data.storage import Storage, set_storage
+
+    env = dict(os.environ)
+    env.update(
+        {
+            "PIO_STORAGE_SOURCES_REPLSET_TYPE": "replicated",
+            "PIO_STORAGE_SOURCES_REPLSET_URLS": ",".join(urls),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "REPLSET",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "REPLSET",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "REPLSET",
+        }
+    )
+    if access_key:
+        env["PIO_STORAGE_SOURCES_REPLSET_KEY"] = access_key
+    set_storage(Storage(env))
+
+
+def _store_urls_from_args(args) -> None:
+    urls = getattr(args, "store_urls", None)
+    if urls:
+        _apply_store_urls(urls, getattr(args, "store_access_key", ""))
 
 
 def _batched_insert(events_iter, backend, app_id, channel_id) -> int:
@@ -520,14 +546,67 @@ def _print_metrics(url: str, access_key: str = "") -> int:
     return 0
 
 
+def _print_store_status(urls: list[str], access_key: str = "") -> int:
+    """``status --store-url`` (repeatable): one health line per store
+    node from its /healthz — role, peer count, replication lag, hint
+    queue depth, last anti-entropy sync. Pure HTTP, never imports torch
+    (as ``status --metrics-url``)."""
+    import time as _time
+
+    failed = 0
+    for url in urls:
+        base = url.rstrip("/")
+        payload = _fetch_json(f"{base}/healthz", access_key=access_key)
+        if payload is None:
+            failed += 1
+            continue
+        state = payload.get("status", "?")
+        repl = payload.get("replication")
+        if not isinstance(repl, dict):
+            print(f"Store {base}: {state}, standalone (no replication)")
+            continue
+        peers = repl.get("peers") or []
+        parts = [
+            f"Store {base}: {state}",
+            f"role={repl.get('role', '?')}",
+            f"peers={len(peers)}",
+        ]
+        lags = [
+            p.get("lagSeconds")
+            for p in peers
+            if p.get("lagSeconds") is not None
+        ]
+        if lags:
+            parts.append(f"lag={max(lags):.1f}s")
+        hints = [p.get("hintsPending") for p in peers
+                 if p.get("hintsPending") is not None]
+        if hints:
+            parts.append(f"hints-pending={sum(hints)}")
+        last = repl.get("lastSync")
+        if last:
+            parts.append(f"last-sync={max(0.0, _time.time() - last):.1f}s ago")
+        down = [
+            p.get("url", "?") for p in peers
+            if p.get("error") or p.get("breaker") == "open"
+        ]
+        if down:
+            parts.append(f"unreachable={','.join(down)}")
+        print(" ".join(parts))
+        if state != "ok":
+            failed += 1
+    return 1 if failed else 0
+
+
 def cmd_status(args) -> int:
     """Reference Console.status:1035-1107: verify storage + compute.
     With ``--metrics-url`` it instead scrapes a running server's
     telemetry registry (pure HTTP: it returns before torch is
     imported)."""
     if getattr(args, "store_urls", None):
-        return _refuse("status --store-url (the replicated store tier)",
-                       "3b")
+        # replicated-store health; pure HTTP like --metrics-url
+        return _print_store_status(
+            args.store_urls, getattr(args, "access_key", "")
+        )
     if getattr(args, "router_url", ""):
         # fleet summary + metrics; pure HTTP like --metrics-url
         return _print_router_status(
@@ -977,8 +1056,7 @@ def cmd_train(args) -> int:
     from predictionio_tpu_torch.core.engine import WorkflowParams
     from predictionio_tpu_torch.core.workflow import run_train
 
-    if _store_urls_refused(args):
-        return 1
+    _store_urls_from_args(args)
     engine, params, engine_id, variant, variant_dict = _resolve(args)
     workflow = WorkflowParams(
         batch=_variant_batch(args, variant_dict),
@@ -1034,8 +1112,7 @@ def _reuseport_unsupported() -> str | None:
 def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.serving.engine_server import EngineServer
 
-    if _store_urls_refused(args):
-        return 1
+    _store_urls_from_args(args)
     if args.max_batch < 1:
         # 0 would also zero the derived queue bound
         print(
@@ -1155,8 +1232,7 @@ def cmd_trainer(args) -> int:
     import signal as _signal
     import threading
 
-    if _store_urls_refused(args):
-        return 1
+    _store_urls_from_args(args)
     base_dir = args.checkpoint_dir or os.path.join(
         os.environ.get(
             "PIO_FS_BASEDIR",
@@ -1290,8 +1366,7 @@ def cmd_eventserver(args) -> int:
         create_event_server,
     )
 
-    if _store_urls_refused(args):
-        return 1
+    _store_urls_from_args(args)
     multi = args.workers > 1
     if multi and (err := _reuseport_unsupported()):
         print(err, file=sys.stderr)
@@ -1692,9 +1767,6 @@ def cmd_storeserver(args) -> int:
     + ``_URL``."""
     import dataclasses
 
-    if args.peers:
-        return _refuse("storeserver --peer (the replicated store tier)",
-                       "3b")
     from predictionio_tpu_torch.serving.config import ServerConfig
     from predictionio_tpu_torch.serving.store_server import (
         create_store_server,
@@ -1718,8 +1790,15 @@ def cmd_storeserver(args) -> int:
         )
     http = create_store_server(
         host=args.ip, port=args.port, server_config=config,
+        peers=getattr(args, "peers", None) or None,
+        role=getattr(args, "role", "replica"),
     )
     print(f"Store server is listening on {args.ip}:{http.port}", flush=True)
+    if getattr(args, "peers", None):
+        print(
+            f"Replication: role={args.role}, anti-entropy against "
+            f"{len(args.peers)} peer(s)", flush=True
+        )
     return _serve_foreground(http)
 
 
@@ -1824,8 +1903,9 @@ _REFUSED_VERBS = {
 def _store_url_args(p) -> None:
     p.add_argument(
         "--store-url", dest="store_urls", action="append", default=None,
-        help="replicated store-server base URL (not ported: ROADMAP.md, "
-             "queue 1, item 3b)",
+        help="replicated store-server base URL (repeat once per peer): "
+             "writes need a W-of-N quorum, reads fail over between "
+             "peers",
     )
     p.add_argument(
         "--store-access-key", dest="store_access_key", default="",
@@ -1871,8 +1951,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--store-url", dest="store_urls", action="append", default=None,
-        help="store-node health (not ported: ROADMAP.md, queue 1, "
-             "item 3b)",
+        help="print one store-health line per URL (role, peer count, "
+             "replication lag, hint-queue depth, last anti-entropy "
+             "sync) instead of checking local storage/compute",
     )
     _device_arg(p)
     p.set_defaults(func=cmd_status)
@@ -2335,12 +2416,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--peer", dest="peers", action="append", default=None,
-        help="replica-set sibling base URL (not ported: ROADMAP.md, "
-             "queue 1, item 3b)",
+        help="replica-set sibling base URL (repeat once per peer): "
+             "turns on the background anti-entropy loop that pulls "
+             "missed events/models/metadata from the named peers",
     )
     p.add_argument(
         "--role", default="replica", choices=("primary", "replica"),
-        help="the replica-set role (reported with --peer only)",
+        help="reported in /healthz and `status --store-url` "
+             "(informational; every node accepts writes)",
     )
     p.set_defaults(func=cmd_storeserver)
 

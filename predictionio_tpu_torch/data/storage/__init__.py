@@ -7,14 +7,18 @@ and bound with ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE`` for METADATA
 (apps, access keys, channels, engine manifests, engine and evaluation
 instances), EVENTDATA (events) and MODELDATA (model blobs). Backend
 types come from a registry (``register_backend`` with a
-:class:`BackendSpec`, as in the JAX package); seven are built in:
+:class:`BackendSpec`, as in the JAX package); eight are built in:
 ``memory`` and ``sqlite`` (every DAO), ``localfs`` (models only),
 ``eventlog``, the native event log (events only), and the networked
 ones, each serving every DAO: ``postgres`` (``URL`` or ``HOST``/``PORT``/
 ``DATABASE``/``USERNAME``/``PASSWORD``; a PostgreSQL server or the
 :mod:`.minipg` dev server), ``mysql`` (the same keys; MySQL or
 :mod:`.minimysql`) and ``httpstore`` (``URL``, ``KEY``, ``TIMEOUT``,
-``CACERT``/``VERIFY``; a store server, ``storeserver``). With no source
+``CACERT``/``VERIFY``; a store server, ``storeserver``), and
+``replicated`` over N store servers (``URLS``, ``W``, ``KEY``,
+``TIMEOUT``, ``CACERT``, ``VERIFY``, ``HINT_DIR``, ``HINT_LIMIT``:
+quorum writes, failover reads, hinted handoff; see :mod:`.replicated`).
+With no source
 declared, the wiring is the JAX package's: metadata and events in
 ``$PIO_FS_BASEDIR/pio.sqlite``, models under ``$PIO_FS_BASEDIR/models``
 (default base ``~/.piotpu``).
@@ -176,8 +180,31 @@ register_backend("httpstore", BackendSpec(
     events=_http_dao("HTTPEvents"),
 ))
 
-#: the JAX package's replicated tier over N store servers, not ported yet
-_NOT_PORTED = ("replicated",)
+
+# the replicated tier over N store servers: quorum writes, failover reads
+# with read-repair, hinted handoff; one client owns the peer pool, every
+# DAO is a fan-out wrapper
+def _replicated_client(config: dict):
+    from predictionio_tpu_torch.data.storage import replicated
+
+    return replicated.ReplicatedStoreClient(config)
+
+
+def _repl_dao(name: str):
+    return lambda client: client.dao(name)
+
+
+register_backend("replicated", BackendSpec(
+    client=_replicated_client,
+    apps=_repl_dao("apps"),
+    access_keys=_repl_dao("access_keys"),
+    channels=_repl_dao("channels"),
+    engine_instances=_repl_dao("engine_instances"),
+    engine_manifests=_repl_dao("engine_manifests"),
+    evaluation_instances=_repl_dao("evaluation_instances"),
+    models=_repl_dao("models"),
+    events=_repl_dao("events"),
+))
 
 _REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -206,11 +233,6 @@ class Storage:
             type_name = conf.get("TYPE")
             if type_name is None:
                 continue
-            if type_name in _NOT_PORTED and type_name not in _BACKENDS:
-                raise StorageError(
-                    f"storage source {name}: backend type {type_name!r} is "
-                    "not ported yet (ROADMAP.md, queue 1, item 3b)"
-                )
             if type_name not in _BACKENDS:
                 raise StorageError(
                     f"storage source {name}: unknown backend type "

@@ -1054,6 +1054,32 @@ class HTTPEvents(EventsBackend):
         for d in out or []:
             yield Event.from_json_dict(d)
 
+    def ids(
+        self, app_id: int, channel_id: int | None = None
+    ) -> list[tuple[str, float | None]] | None:
+        """``(event id, creation epoch seconds)`` of every event the
+        server holds for the coordinate, or None from a server without
+        the route (the JAX store server's peers pull whole logs)."""
+        out = self._c.json(
+            "GET",
+            f"/events/{_q(app_id)}/ids",
+            params=self._chan(channel_id),
+            not_found_ok=True,
+        )
+        return None if out is None else [(i, t) for i, t in out["ids"]]
+
+    def pull(
+        self, event_ids, app_id: int, channel_id: int | None = None
+    ) -> list[Event]:
+        """The server's events among ``event_ids``."""
+        out = self._c.json(
+            "POST",
+            f"/events/{_q(app_id)}/pull",
+            params=self._chan(channel_id),
+            json_body={"ids": list(event_ids)},
+        )
+        return [Event.from_json_dict(d) for d in out or []]
+
     def watermark(
         self, app_id: int, channel_id: int | None = None
     ) -> dict:

@@ -34,8 +34,8 @@ the server TLS and key-auths its ``/debug`` routes; the event API keeps
 its own per-app access keys, so the server key is never asked of it.
 
 ``reuse_port`` lets ``eventserver --workers N`` bind N processes to one
-port. Not ported yet: the ``/healthz`` extra, which is the replicated
-store's quorum view (ROADMAP.md, queue 1, item 3b).
+port. When the storage has a ``replicated`` source, ``/healthz`` carries
+its client's quorum view under ``replication``.
 """
 
 from __future__ import annotations
@@ -116,8 +116,13 @@ class EventServer:
         r = self.router
         install_metrics_routes(
             r, self.registry, self.tracer, server_config=server_config,
+            # the process-global ring (not a private one): the
+            # replicated-store client emits failover / hinted-handoff
+            # events there, and /debug/timeline.json is where operators
+            # go to see them
             timeline=timeline_mod.get_timeline(),
         )
+        r.healthz_extra = self._healthz_extra
         r.route("GET", "/", self._status)
         r.route("POST", "/events.json", self._create_event)
         r.route("GET", "/events.json", self._find_events)
@@ -183,6 +188,17 @@ class EventServer:
         # pid: which process answered (the JAX package's multi-worker
         # servers need it; kept so both packages answer alike)
         return Response(200, {"status": "alive", "pid": os.getpid()})
+
+    def _healthz_extra(self) -> dict:
+        """When ingest goes through a replicated store set, surface the
+        client-side quorum view (per-peer breaker state, hint depth) in
+        /healthz beside the admission fields."""
+        from predictionio_tpu_torch.data.storage.replicated import (
+            replication_status,
+        )
+
+        status = replication_status(self._storage)
+        return {"replication": status} if status else {}
 
     def _validate(
         self, event: Event, app_id: int, channel_id, whitelist

@@ -10,7 +10,8 @@ blanked out of the access log. Before any handler runs a request meets,
 in this order, as in the JAX package:
 
 * ``GET /healthz``, answered before routing (``draining`` and 503 while
-  the server drains);
+  the server drains), with ``Router.healthz_extra``'s dict merged in
+  (``extra_error`` when the reporter raises);
 * the drain: once :meth:`HTTPServer.begin_drain` ran, every request
   outside the telemetry routes gets 503 with ``Retry-After``;
 * ``X-PIO-Deadline`` (milliseconds of budget): an expired budget is a
@@ -160,6 +161,12 @@ class Router:
         #: by the owning server BEFORE HTTPServer construction;
         #: docs/robustness.md "Overload & backpressure")
         self.admission: admission.AdmissionController | None = None
+        #: optional zero-arg callable whose dict is merged into the
+        #: ``/healthz`` payload (the store server reports replication
+        #: role + peer lag here, the event server its client's quorum
+        #: view). Must be cheap and non-blocking: health probes run on
+        #: the admission path.
+        self.healthz_extra: Callable[[], dict] | None = None
 
     def route(self, method: str, pattern: str, handler: Handler) -> None:
         # escape literal segments so '.' in '.json' doesn't match anything
@@ -429,6 +436,13 @@ class HTTPServer:
                         "service": service,
                         "pid": os.getpid(),
                     }
+                    extra = router_ref.healthz_extra
+                    if extra is not None:
+                        try:
+                            payload.update(extra() or {})
+                        except Exception as e:  # noqa: BLE001
+                            # a broken reporter must not fail the probe
+                            payload["extra_error"] = str(e)
                     return Response(503 if draining else 200, payload)
                 if self._draining_at_entry and not telemetry_path:
                     request.route = "(draining)"

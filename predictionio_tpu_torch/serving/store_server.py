@@ -33,9 +33,10 @@ Routes::
     DELETE /events/<app_id>/one/<event_id>      -> {"ok": bool}
 
 (``?channel_id=`` selects a channel on every /events route.) Event
-inserts honor ``X-PIO-Store-Seq`` replay dedupe. The replicated tier's
-peers (``--peer``, the anti-entropy loop) are ROADMAP.md, queue 1, item
-3b: ``create_store_server(peers=...)`` refuses them.
+inserts honor ``X-PIO-Store-Seq`` replay dedupe, and the replicated
+tier's peers join via ``--peer``: ``/healthz`` then reports the
+replication role and per-peer lag, and failover/repair transitions land
+in ``/debug/timeline.json``.
 
 Auth: optional — start with an access key (``--access-key`` or
 ``PIO_SERVER_ACCESS_KEY``) and every request must carry it
@@ -105,6 +106,10 @@ def event_set_checksum(ids) -> str:
     return f"{n}:{acc:016x}"
 
 
+def _epoch(t: _dt.datetime | None) -> float | None:
+    return None if t is None else t.timestamp()
+
+
 class EventWatermarkCache:
     """Incrementally-maintained per-(app, channel) event-set summary.
 
@@ -123,6 +128,13 @@ class EventWatermarkCache:
     is not reentrant); :meth:`summary` and :meth:`invalidate` acquire
     it. Deletes and log drops invalidate the coordinate — they are
     rare, and the next :meth:`summary` rescans once.
+
+    The entry also keeps the coordinate's ids, each with its creation
+    time (:meth:`ids_locked`), so an existence check — a replay's, or
+    anti-entropy's — is a lookup, and ``GET /events/<app>/ids`` hands a
+    peer the list to diff against its own. The JAX package makes a point
+    read there, and on the event log each point read is a scan of the
+    whole log (ROADMAP.md §3).
     """
 
     def __init__(self, ingest_lock: threading.Lock):
@@ -146,6 +158,7 @@ class EventWatermarkCache:
         entry["acc"] ^= self._fold(event.event_id)
         entry["count"] += 1
         ct = event.creation_time
+        entry["ids"][event.event_id] = _epoch(ct)
         if ct is not None and (
             entry["latest"] is None or ct > entry["latest"]
         ):
@@ -154,7 +167,39 @@ class EventWatermarkCache:
 
     def invalidate(self, app_id: int, channel_id: int | None) -> None:
         with self._lock:
-            self._entries.pop((app_id, channel_id), None)
+            self.invalidate_locked(app_id, channel_id)
+
+    def invalidate_locked(
+        self, app_id: int, channel_id: int | None
+    ) -> None:
+        """:meth:`invalidate` for a caller that holds the ingest lock."""
+        self._entries.pop((app_id, channel_id), None)
+
+    def _entry_locked(self, app_id: int, channel_id: int | None, dao):
+        entry = self._entries.get((app_id, channel_id))
+        if entry is None:
+            entry = {
+                "acc": 0, "count": 0, "latest": None, "latest_id": None,
+                "ids": {},
+            }
+            for e in dao.find(app_id, channel_id):
+                entry["acc"] ^= self._fold(e.event_id)
+                entry["count"] += 1
+                entry["ids"][e.event_id] = _epoch(e.creation_time)
+                if (
+                    entry["latest"] is None
+                    or e.creation_time > entry["latest"]
+                ):
+                    entry["latest"] = e.creation_time
+                    entry["latest_id"] = e.event_id
+            self._entries[(app_id, channel_id)] = entry
+        return entry
+
+    def ids_locked(self, app_id: int, channel_id: int | None, dao) -> dict:
+        """The coordinate's event ids, each mapped to its creation time
+        (epoch seconds); the caller holds the ingest lock (and must not
+        change the dict). A cold coordinate is scanned once."""
+        return self._entry_locked(app_id, channel_id, dao)["ids"]
 
     def summary(self, app_id: int, channel_id: int | None, dao) -> dict:
         """The coordinate's summary: ``count``, ``checksum``,
@@ -162,21 +207,7 @@ class EventWatermarkCache:
         Rebuilds from a full scan only when the coordinate is cold or
         was invalidated."""
         with self._lock:
-            entry = self._entries.get((app_id, channel_id))
-            if entry is None:
-                entry = {
-                    "acc": 0, "count": 0, "latest": None, "latest_id": None
-                }
-                for e in dao.find(app_id, channel_id):
-                    entry["acc"] ^= self._fold(e.event_id)
-                    entry["count"] += 1
-                    if (
-                        entry["latest"] is None
-                        or e.creation_time > entry["latest"]
-                    ):
-                        entry["latest"] = e.creation_time
-                        entry["latest_id"] = e.event_id
-                self._entries[(app_id, channel_id)] = entry
+            entry = self._entry_locked(app_id, channel_id, dao)
             return {
                 "count": entry["count"],
                 "checksum": f"{entry['count']}:{entry['acc']:016x}",
@@ -224,6 +255,9 @@ class StoreServer:
         #: with the anti-entropy loop so steady-state sync rounds stay
         #: O(delta) instead of O(total events)
         self.watermarks = EventWatermarkCache(self.ingest_lock)
+        #: set by create_store_server when --peer URLs are given; the
+        #: /healthz payload and anti-entropy loop hang off it
+        self.replication = None
         s = self._storage
         #: <kind> -> (dao getter, to_json, from_json, id parser);
         #: getters defer DAO construction to request time
@@ -267,11 +301,14 @@ class StoreServer:
         install_metrics_routes(
             r, self.registry, self.tracer, timeline=self.timeline
         )
+        r.healthz_extra = self._healthz_extra
         r.route("GET", "/", self._status)
         # events: fixed-tail routes before the parameterized ones so
         # ".../batch" and ".../watermark" never bind as an id
         r.route("POST", "/events/<app_id>/batch", self._event_batch)
         r.route("GET", "/events/<app_id>/watermark", self._event_watermark)
+        r.route("GET", "/events/<app_id>/ids", self._event_ids)
+        r.route("POST", "/events/<app_id>/pull", self._event_pull)
         r.route("GET", "/events/<app_id>/one/<event_id>", self._event_get)
         r.route("DELETE", "/events/<app_id>/one/<event_id>",
                 self._event_delete)
@@ -329,6 +366,11 @@ class StoreServer:
                 "engine_manifests is keyed by (id, version); use "
                 "/meta/engine_manifests/<id>/<version>",
             )
+
+    def _healthz_extra(self) -> dict:
+        if self.replication is None:
+            return {}
+        return {"replication": self.replication.status()}
 
     # -- X-PIO-Store-Seq replay dedupe ------------------------------------
 
@@ -648,9 +690,9 @@ class StoreServer:
         event = self._parse_event(request.json())
         dao = self._events()
         with self.ingest_lock:
-            if not writer_known and dao.get(
-                event.event_id, app_id, channel_id
-            ) is not None:
+            if not writer_known and event.event_id in (
+                self.watermarks.ids_locked(app_id, channel_id, dao)
+            ):
                 # cold-cache replay (writer's first contact since this
                 # server started): the id is already durable here
                 self._seq_commit(token, 201, {"id": event.event_id})
@@ -679,11 +721,10 @@ class StoreServer:
                     # durable so the append-only eventlog never records
                     # one twice (the response still acks the FULL batch
                     # — they are all here)
-                    events = [
-                        e
-                        for e in events
-                        if dao.get(e.event_id, app_id, channel_id) is None
-                    ]
+                    have = self.watermarks.ids_locked(
+                        app_id, channel_id, dao
+                    )
+                    events = [e for e in events if e.event_id not in have]
                 with tracing.span(
                     "dao/events.insert_batch", n=len(events)
                 ):
@@ -771,6 +812,34 @@ class StoreServer:
         summary["latest"] = latest.isoformat() if latest else None
         return Response(200, summary)
 
+    def _event_ids(self, request: Request) -> Response:
+        """``[[event id, creation epoch seconds], ...]`` of the
+        coordinate, from the watermark cache: what a peer's
+        anti-entropy diffs against its own ids before it asks for
+        events with ``POST .../pull``. The port's addition: a JAX store
+        server has neither route, and its peers pull whole logs."""
+        app_id, channel_id = self._event_coords(request)
+        with tracing.span("dao/events.ids"), self.ingest_lock:
+            ids = list(self.watermarks.ids_locked(
+                app_id, channel_id, self._events()
+            ).items())
+        return Response(200, {"ids": ids})
+
+    def _event_pull(self, request: Request) -> Response:
+        """The events of the coordinate whose ids the body names
+        (``{"ids": [...]}``), in one scan of the log."""
+        app_id, channel_id = self._event_coords(request)
+        body = request.json()
+        wanted = body.get("ids") if isinstance(body, dict) else None
+        if not isinstance(wanted, list):
+            raise HTTPError(400, "JSON object with an ids list required")
+        wanted = {str(i) for i in wanted}
+        with tracing.span("dao/events.pull", n=len(wanted)):
+            out = [e.to_json_dict()
+                   for e in self._events().find(app_id, channel_id)
+                   if e.event_id in wanted]
+        return Response(200, out)
+
     def _event_get(self, request: Request) -> Response:
         app_id, channel_id = self._event_coords(request)
         event_id = urllib.parse.unquote(request.path_params["event_id"])
@@ -798,16 +867,16 @@ def create_store_server(
     registry: MetricRegistry | None = None,
     tracer: tracing.Tracer | None = None,
     peers: list[str] | None = None,
+    role: str = "replica",
 ) -> HTTPServer:
     """The store server on the HTTP tier, key auth and TLS from
-    ``server_config``. ``peers`` (replica-set siblings and their
-    anti-entropy loop) raises: the replicated tier is ROADMAP.md, queue
-    1, item 3b."""
-    if peers:
-        raise StorageError(
-            "store-server peers (the replicated store tier) are not "
-            "ported yet (ROADMAP.md, queue 1, item 3b)"
-        )
+    ``server_config``. ``peers`` (replica-set siblings, base URLs) turns
+    on the anti-entropy loop: this node periodically compares event
+    watermarks, model sets and metadata against each peer and pulls what
+    it is missing, so a restarted node converges without operator
+    action. ``role`` is reporting only — every node repairs itself;
+    quorum placement is the client's job
+    (:mod:`predictionio_tpu_torch.data.storage.replicated`)."""
     server = StoreServer(storage, registry=registry, tracer=tracer)
     http = HTTPServer(
         server.router,
@@ -818,7 +887,25 @@ def create_store_server(
         registry=server.registry,
         tracer=server.tracer,
     )
+    if peers:
+        from predictionio_tpu_torch.data.storage.replicated import (
+            AntiEntropyLoop,
+        )
+
+        loop = AntiEntropyLoop(
+            storage=server._storage,
+            peers=peers,
+            role=role,
+            registry=server.registry,
+            timeline=server.timeline,
+            key=(server_config.access_key if server_config else "") or None,
+            insert_lock=server.ingest_lock,
+            watermarks=server.watermarks,
+        )
+        server.replication = loop
+        loop.start()
+        http.add_drain_hook(loop.close)
     #: the app object, reachable from the HTTPServer handle (tests and
-    #: the console reuse it)
+    #: the console reuse it for replication status)
     http.store_app = server
     return http

@@ -23,6 +23,11 @@ equal once ids, keys and times are masked; so must the stored state
   one iteration-0 checkpoint per rank: metric values within 1e-6 and the
   same best candidate;
 * every refused verb and option exits 1 naming its ROADMAP.md item;
+* the replicated store tier's verbs run alike over each package's two
+  store servers: ``train``, ``deploy`` (answers held as below),
+  ``trainer --once`` and ``eventserver`` (a process) with ``--store-url``
+  twice, ``status --store-url``, and ``storeserver --peer --role``
+  (a process);
 * the fleet verbs run: both consoles' ``router`` processes (with and
   without ``--admin-key``) print the same lines, serve the router's
   status and exit 0 on SIGTERM; ``status --router-url`` prints the same
@@ -808,12 +813,6 @@ def test_eval_matches_the_jax_grid(both, tmp_path, monkeypatch):
 # -- refusals --------------------------------------------------------------
 
 _REFUSALS = [
-    (["train", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["deploy", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["trainer", "--app", "a", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["eventserver", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["status", "--store-url", "http://127.0.0.1:1"], "3b"),
-    (["storeserver", "--peer", "http://127.0.0.1:1"], "3b"),
     (["launch", "-n", "2", "--", "python", "x.py"], "9"),
     (["train", "--variant", str(REC_VARIANT), "--mesh-shape", "4,2"], "9"),
     (["shell", "--mesh-shape", "2"], "9"),
@@ -904,6 +903,310 @@ def test_refusals_name_their_item(capsys, argv, item):
                "tooling (ROADMAP.md, not queued)" in err
     else:
         assert f"(ROADMAP.md, queue 1, item {item})" in err, err
+
+
+# -- the replicated store tier's verbs ----------------------------------------
+
+_STORE_MODULES = {
+    "jax": ("predictionio_tpu.serving.store_server",
+            "predictionio_tpu.data.storage"),
+    "port": ("predictionio_tpu_torch.serving.store_server",
+             "predictionio_tpu_torch.data.storage"),
+}
+
+
+class _ReplSet:
+    """Two in-process store servers of one package (memory storage), the
+    example's app, its access key and ``_rate_events`` on both, and
+    every replicated storage the console makes recorded so it can be
+    closed."""
+
+    def __init__(self, pkg, monkeypatch, tmp_path, peers=False):
+        import importlib
+
+        server_mod, storage_mod = (importlib.import_module(m)
+                                   for m in _STORE_MODULES[pkg])
+        self.pkg, self.storage_mod = pkg, storage_mod
+        self.servers = []
+        for i in range(2):
+            peer = ([f"http://127.0.0.1:{self.servers[0].port}"]
+                    if peers and i else None)
+            http = server_mod.create_store_server(
+                host="127.0.0.1", port=0,
+                storage=storage_mod.Storage(MEMORY), peers=peer,
+                role="primary" if i == 0 else "replica")
+            http.start()
+            self.servers.append(http)
+        self.urls = [f"http://127.0.0.1:{s.port}" for s in self.servers]
+        self.made = []
+        real = storage_mod.set_storage
+
+        def recording(storage):
+            if storage is not None and "REPLSET" in storage._specs:
+                self.made.append(storage)
+            return real(storage)
+
+        monkeypatch.setattr(storage_mod, "set_storage", recording)
+        event_cls = JaxEvent if pkg == "jax" else Event
+        for http in self.servers:
+            local = http.store_app._storage
+            app_id = local.get_meta_data_apps().insert(
+                storage_mod.App(0, "MyRecApp"))
+            local.get_meta_data_access_keys().insert(
+                storage_mod.AccessKey(key="repl-key", appid=app_id))
+            local.get_events().init(app_id)
+            local.get_events().insert_batch(_rate_events(event_cls), app_id)
+
+    def args(self) -> list:
+        return [a for u in self.urls for a in ("--store-url", u)]
+
+    def close(self):
+        for storage in self.made:
+            storage._client("REPLSET").close()
+        for http in self.servers:
+            if http.store_app.replication is not None:
+                http.store_app.replication.close()
+            http.shutdown()
+
+
+def _in_process(pkg, argv):
+    if pkg == "jax":
+        return jax_main(list(argv))
+    return main(list(argv) + (["--device", "cpu"] if argv[0] in (
+        "train", "deploy", "trainer") else []))
+
+
+def _train_through(sets, tmp_path, capsys):
+    """``train --store-url ×2`` of each console over its own set, from
+    one iteration-0 checkpoint (a copy each); (rc, stdout) by package."""
+    events = _rate_events(Event)
+    _start_checkpoint(tmp_path / "start",
+                      len({e.entity_id for e in events}),
+                      len({e.target_entity_id for e in events}), 32, 12)
+    out = {}
+    for pkg, repl in sets.items():
+        shutil.copytree(tmp_path / "start", tmp_path / f"ckpt-{pkg}")
+        capsys.readouterr()
+        rc = _in_process(pkg, [
+            "train", "--variant", str(REC_VARIANT), *repl.args(),
+            "--checkpoint-dir", str(tmp_path / f"ckpt-{pkg}"),
+            "--checkpoint-every", "0", "--resume"])
+        out[pkg] = (rc, _mask(capsys.readouterr().out))
+    return out
+
+
+def _completed_on_every_node(repl) -> list:
+    return [[i.status for i in
+             http.store_app._storage.get_meta_data_engine_instances()
+             .get_all()] for http in repl.servers]
+
+
+def _store_url_train(sets, tmp_path, capsys):
+    out = _train_through(sets, tmp_path, capsys)
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == 0
+    for repl in sets.values():
+        assert _completed_on_every_node(repl) == [["COMPLETED"]] * 2
+
+
+def _store_url_deploy(sets, tmp_path, capsys):
+    assert _train_through(sets, tmp_path, capsys)["port"][0] == 0
+    ports = {pkg: _free_port() for pkg in sets}
+    results, threads = {}, {}
+    for pkg, repl in sets.items():
+        argv = ["deploy", "--variant", str(REC_VARIANT), "--ip", "127.0.0.1",
+                "--port", str(ports[pkg]), "--max-batch", "8", *repl.args()]
+        threads[pkg] = threading.Thread(
+            target=lambda p=pkg, a=argv: results.__setitem__(
+                p, _in_process(p, a)))
+        threads[pkg].start()
+        assert _serving(ports[pkg], threads[pkg]), results
+    try:
+        users = sorted({e.entity_id for e in _rate_events(Event)})[:20]
+        answers = {pkg: [_query(port, {"user": u, "num": 5})
+                         for u in users] for pkg, port in ports.items()}
+    finally:
+        assert main(["undeploy", "--port", str(ports["port"])]) == 0
+        assert jax_main(["undeploy", "--port", str(ports["jax"])]) == 0
+        for t in threads.values():
+            t.join(timeout=60)
+    assert results == {"jax": 0, "port": 0}
+    # the bound of test_deploy_answers_alike, which states why: each
+    # slot's score within 2e-5, and two items may trade places only where
+    # the JAX package scores them within 1e-4 + 1e-5·|s|
+    for got, want in zip(answers["port"], answers["jax"]):
+        jax_score = {e["item"]: e["score"] for e in want["itemScores"]}
+        assert len(got["itemScores"]) == len(want["itemScores"]) == 5
+        for g, w in zip(got["itemScores"], want["itemScores"]):
+            assert abs(g["score"] - w["score"]) <= 2e-5, (g, w)
+            if g["item"] != w["item"]:
+                assert abs(jax_score[g["item"]] - w["score"]) <= (
+                    1e-4 + 1e-5 * abs(w["score"])), (g, w)
+
+
+def _store_url_trainer(sets, tmp_path, capsys):
+    out = {}
+    for pkg, repl in sets.items():
+        capsys.readouterr()
+        rc = _in_process(pkg, [
+            "trainer", "--app", "MyRecApp", "--variant", str(REC_VARIANT),
+            "--once", "--checkpoint-dir", str(tmp_path / f"t-{pkg}"),
+            *repl.args()])
+        out[pkg] = (rc, _mask(capsys.readouterr().out))
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == 0
+    for repl in sets.values():
+        assert _completed_on_every_node(repl) == [["COMPLETED"]] * 2
+
+
+def _store_url_eventserver(sets, tmp_path, capsys):
+    import os
+    import signal
+    import subprocess
+
+    got = {}
+    for pkg, repl in sets.items():
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+                   PIO_FS_BASEDIR=str(tmp_path / f"es-{pkg}"))
+        out_path = tmp_path / f"es-{pkg}.out"
+        with open(out_path, "w") as out_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", _CONSOLE_MODULES[pkg], "eventserver",
+                 "--ip", "127.0.0.1", "--port", str(port), *repl.args()],
+                env=env, stdout=out_f, stderr=subprocess.DEVNULL)
+        try:
+            deadline = time.monotonic() + 60
+            while not _listening_on(port):
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.05)
+            base = f"http://127.0.0.1:{port}"
+            body = [{"event": "rate", "entityType": "user",
+                     "entityId": f"new{i}", "targetEntityType": "item",
+                     "targetEntityId": "i1", "properties": {"rating": 3},
+                     "eventId": f"{i:032x}"} for i in range(3)]
+            req = urllib.request.Request(
+                base + "/batch/events.json?accessKey=repl-key",
+                data=json.dumps(body).encode(), method="POST",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                statuses = [r["status"] for r in json.loads(resp.read())]
+            with urllib.request.urlopen(base + "/healthz",
+                                        timeout=10) as resp:
+                health = json.loads(resp.read())
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        held = [sorted(e.entity_id for e in
+                       http.store_app._storage.get_events().find(
+                           1, entity_type="user")
+                       if e.entity_id.startswith("new"))
+                for http in repl.servers]
+        repl_view = health["replication"]
+        for i, peer in enumerate(repl_view["peers"]):
+            assert peer.pop("url") == repl.urls[i]
+        got[pkg] = (proc.returncode, statuses, held, repl_view,
+                    out_path.read_text().replace(str(port), "<port>"))
+    assert got["port"] == got["jax"]
+    rc, statuses, held, view, _out = got["port"]
+    assert rc == 0 and statuses == [201] * 3
+    assert held == [["new0", "new1", "new2"]] * 2
+    assert (view["role"], view["n"], view["w"]) == ("client", 2, 2)
+
+
+def _listening_on(port: int) -> bool:
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=1):
+            return True
+    except OSError:
+        return False
+
+
+def _store_url_status(sets, tmp_path, capsys):
+    got = {}
+    for pkg, repl in sets.items():
+        repl.servers[1].store_app.replication.sync_once()
+        capsys.readouterr()
+        rc = _in_process(pkg, ["status", *repl.args()])
+        text = capsys.readouterr().out
+        for i, url in enumerate(repl.urls):
+            text = text.replace(url, f"<node{i}>")
+        got[pkg] = (rc, re.sub(r"(lag|last-sync)=[\d.]+s", r"\1=<t>s", text))
+    assert got["port"] == got["jax"]
+    assert got["port"] == (0, "Store <node0>: ok, standalone (no "
+                              "replication)\nStore <node1>: ok role=replica "
+                              "peers=1 lag=<t>s last-sync=<t>s ago\n")
+
+
+def _store_url_storeserver(sets, tmp_path, capsys):
+    import os
+    import signal
+    import subprocess
+
+    got = {}
+    for pkg, repl in sets.items():
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+                   PIO_FS_BASEDIR=str(tmp_path / f"ss-{pkg}"))
+        out_path = tmp_path / f"ss-{pkg}.out"
+        with open(out_path, "w") as out_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", _CONSOLE_MODULES[pkg], "storeserver",
+                 "--ip", "127.0.0.1", "--port", str(port), "--peer",
+                 repl.urls[0], "--role", "primary"],
+                env=env, stdout=out_f, stderr=subprocess.DEVNULL)
+        try:
+            deadline = time.monotonic() + 60
+            while "Replication:" not in out_path.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.05)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=10) as resp:
+                repl_view = json.loads(resp.read())["replication"]
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        got[pkg] = (proc.returncode, repl_view["role"],
+                    [p["url"] == repl.urls[0] for p in repl_view["peers"]],
+                    out_path.read_text().replace(str(port), "<port>"))
+    assert got["port"] == got["jax"]
+    assert got["port"] == (0, "primary", [True], (
+        "Store server is listening on 127.0.0.1:<port>\n"
+        "Replication: role=primary, anti-entropy against 1 peer(s)\n"))
+
+
+_STORE_URL_VERBS = {
+    "train --store-url": _store_url_train,
+    "deploy --store-url": _store_url_deploy,
+    "trainer --app": _store_url_trainer,
+    "eventserver --store-url": _store_url_eventserver,
+    "status --store-url": _store_url_status,
+    "storeserver --peer": _store_url_storeserver,
+}
+
+
+@pytest.mark.parametrize("verb", list(_STORE_URL_VERBS))
+def test_store_url_verbs_work_alike(tmp_path, capsys, monkeypatch, verb):
+    """What the refusals of the replicated store tier became: each verb
+    of both consoles against its own package's two store servers
+    (``--store-url`` twice, ``storeserver --peer``), with the same exit
+    code, the same masked stdout, and the same effect on every node."""
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    sets = {}
+    try:
+        for pkg in ("jax", "port"):
+            sets[pkg] = _ReplSet(pkg, monkeypatch, tmp_path,
+                                 peers=verb == "status --store-url")
+        _STORE_URL_VERBS[verb](sets, tmp_path, capsys)
+    finally:
+        for repl in sets.values():
+            repl.close()
 
 
 

@@ -5,7 +5,10 @@ served through the kernel, one server's cache, deadline cut and
 canary promotion on the card, tenants pooled on the card in each
 table form (f32, bf16, int8 + scale) answering through the kernel, and
 ``deploy --workers 2``: two processes on the card behind one port, each
-answer equal to the plain top-k, from both pids.
+answer equal to the plain top-k, from both pids, and a full-width
+generation published through the replicated store tier with one node
+down, read back by a reader of one surviving node and served through
+the kernel.
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -1111,3 +1114,103 @@ def test_cuda_trained_generation_through_minipg_serves_on_card(cuda_device,
             assert fused_topk.LAUNCHES["f32"] >= before + 8
         finally:
             es.close()
+
+
+@pytest.mark.gpu
+def test_a_full_width_generation_through_the_tier_serves_on_the_card(
+        cuda_device, tmp_path):
+    """Phase 4's width (rank 32 × 1,048,576 items) published through a
+    replicated storage over two port store servers and a dead third
+    (W = 2 of 3), read back by a reader of one surviving node; the
+    engine server on the card serves it through the fused top-k
+    kernel, each answer equal to the plain top-k (float64 here)."""
+    import datetime as dt
+    import json
+    import urllib.request
+
+    from predictionio_tpu_torch.convert import als_model_from_numpy
+    from predictionio_tpu_torch.core.persistence import (
+        publish_generation,
+        serialize_models,
+    )
+    from predictionio_tpu_torch.data.storage import EngineInstance, Storage
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+    from predictionio_tpu_torch.serving.engine_server import (
+        create_engine_server,
+    )
+    from predictionio_tpu_torch.serving.store_server import (
+        create_store_server,
+    )
+
+    rng = np.random.default_rng(0)
+    n_users, n_items, rank = 4096, 1_048_576, 32
+    model = als_model_from_numpy(
+        rng.standard_normal((n_users, rank), dtype=np.float32),
+        rng.standard_normal((n_items, rank), dtype=np.float32),
+        np.char.add("u", np.arange(n_users).astype(str)),
+        np.char.add("i", np.arange(n_items).astype(str)))
+    mem = {"PIO_STORAGE_SOURCES_M_TYPE": "memory"}
+    servers = [create_store_server(host="127.0.0.1", port=0,
+                                   storage=Storage(env=mem))
+               for _ in range(2)]
+    for s in servers:
+        s.start()
+    urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+
+    def env(us):
+        return {"PIO_STORAGE_SOURCES_R_TYPE": "replicated",
+                "PIO_STORAGE_SOURCES_R_URLS": ",".join(us),
+                "PIO_STORAGE_SOURCES_R_HINT_DIR": str(tmp_path / "h"),
+                "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "R",
+                "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "R",
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "R"}
+
+    writer = Storage(env=env(urls + ["http://127.0.0.1:1"]))
+    reader = Storage(env=env(urls[1:]))
+    es = None
+    try:
+        t0 = dt.datetime.now(dt.timezone.utc)
+        iid = writer.get_meta_data_engine_instances().insert(EngineInstance(
+            id="", status="COMPLETED", start_time=t0, end_time=t0,
+            engine_id="wide", engine_version="1", engine_variant="default",
+            engine_factory="recommendation"))
+        publish_generation(writer.get_model_data_models(), iid,
+                           serialize_models(iid, [ALSAlgorithm()], [model]))
+        engine = recommendation_engine()
+        params = engine.params_from_variant({
+            "datasource": {"params": {"app_name": "unused"}},
+            "algorithms": [{"name": "als", "params": {}}]})
+        fused_topk.reset_launch_counts()
+        es, http = create_engine_server(
+            engine, params, "wide", host="127.0.0.1", port=0,
+            storage=reader, ctx=ComputeContext.create(device="cuda"))
+        http.start()
+        items = torch.as_tensor(model.item_factors, device=cuda_device)
+        for u in range(0, n_users, 512):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{http.port}/queries.json",
+                data=json.dumps({"user": f"u{u}", "num": 10}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got = json.loads(resp.read())["itemScores"]
+            q = torch.as_tensor(model.user_factors[u], device=cuda_device)
+            scores = (items.double() @ q.double()).cpu().numpy()
+            want = np.argsort(-scores, kind="stable")[:10]
+            for slot, (e, w) in enumerate(zip(got, want)):
+                # a swap only between items the plain scores tie
+                i = int(e["item"][1:])
+                assert i == w or abs(scores[i] - scores[w]) <= 1e-4, slot
+                assert abs(e["score"] - scores[i]) <= 1e-4 + 1e-5 * abs(
+                    scores[i]), slot
+        assert fused_topk.LAUNCHES["f32"] > 0
+    finally:
+        if es is not None:
+            es.close()
+        for storage in (writer, reader):
+            storage._client("R").close()
+        for s in servers:
+            s.shutdown()

@@ -10,8 +10,9 @@
 * ``BackendSpec`` and ``register_backend`` are exported with the JAX
   names and semantics: a user-registered backend is built from
   ``PIO_STORAGE_SOURCES_X_TYPE``, a DAO it leaves out is refused, the
-  built-in types are registered through it, and the networked types
-  still raise naming ROADMAP item 3b.
+  built-in types are registered through it, and each networked type
+  (``postgres``, ``mysql``, ``httpstore``, ``replicated``) resolves and
+  round-trips an app through its running servers.
 """
 
 import dataclasses
@@ -266,13 +267,8 @@ def test_backend_spec_has_the_jax_fields_and_builtins():
     assert "BackendSpec" in storage_mod.__all__
 
 
-@pytest.mark.parametrize("kind", ["replicated"])
-def test_networked_types_still_refused(kind):
-    with pytest.raises(StorageError, match="item 3b"):
-        Storage(env={"PIO_STORAGE_SOURCES_X_TYPE": kind})
-
-
-@pytest.mark.parametrize("kind", ["postgres", "mysql", "httpstore"])
+@pytest.mark.parametrize("kind",
+                         ["postgres", "mysql", "httpstore", "replicated"])
 def test_networked_types_resolve_and_round_trip_an_app(tmp_path, kind):
     """Each networked type the JAX package registers is a registered
     ``BackendSpec`` with every DAO, and an app goes through it (its dev
@@ -291,14 +287,22 @@ def test_networked_types_resolve_and_round_trip_an_app(tmp_path, kind):
         f.name for f in dataclasses.fields(JAX_BACKENDS[kind])
         if getattr(JAX_BACKENDS[kind], f.name) is None} == set()
     env = {"PIO_STORAGE_SOURCES_X_TYPE": kind}
-    if kind == "httpstore":
-        server = create_store_server(host="127.0.0.1", port=0,
-                                     storage=Storage(env={
-                                         "PIO_STORAGE_SOURCES_M_TYPE":
-                                             "memory"}))
-        server.start()
-        env["PIO_STORAGE_SOURCES_X_URL"] = f"http://127.0.0.1:{server.port}"
-        stop = server.shutdown
+    if kind in ("httpstore", "replicated"):
+        servers = []
+        for _ in range(1 if kind == "httpstore" else 2):
+            server = create_store_server(host="127.0.0.1", port=0,
+                                         storage=Storage(env={
+                                             "PIO_STORAGE_SOURCES_M_TYPE":
+                                                 "memory"}))
+            server.start()
+            servers.append(server)
+        urls = ",".join(f"http://127.0.0.1:{s.port}" for s in servers)
+        env["PIO_STORAGE_SOURCES_X_URL" + "S" * (kind == "replicated")] = urls
+        env["PIO_STORAGE_SOURCES_X_HINT_DIR"] = str(tmp_path / "hints")
+
+        def stop():
+            for server in servers:
+                server.shutdown()
     else:
         cls, scheme = ((MiniPGServer, "postgresql") if kind == "postgres"
                        else (MiniMySQLServer, "mysql"))
@@ -307,11 +311,15 @@ def test_networked_types_resolve_and_round_trip_an_app(tmp_path, kind):
         env["PIO_STORAGE_SOURCES_X_URL"] = (
             f"{scheme}://pio:pio@127.0.0.1:{port}/pio")
         stop = server.stop
+    storages = [Storage(env=env), Storage(env=env)]
     try:
-        apps = Storage(env=env).get_meta_data_apps()
+        apps = storages[0].get_meta_data_apps()
         app_id = apps.insert(App(0, "shop", "first"))
-        assert Storage(env=env).get_meta_data_apps().get(app_id) == App(
+        assert storages[1].get_meta_data_apps().get(app_id) == App(
             app_id, "shop", "first")
         assert [a.name for a in apps.get_all()] == ["shop"]
     finally:
+        if kind == "replicated":
+            for storage in storages:
+                storage._client("X").close()
         stop()

@@ -559,12 +559,6 @@ def test_default_wiring_matches_jax(tmp_path, env):
         assert (tmp_path / "pio.sqlite").exists()
 
 
-@pytest.mark.parametrize("kind", ["replicated"])
-def test_networked_backends_are_not_ported(kind):
-    with pytest.raises(StorageError, match="item 3b"):
-        Storage(env={"PIO_STORAGE_SOURCES_X_TYPE": kind})
-
-
 @pytest.fixture()
 def networked_env(request, tmp_path):
     """``PIO_STORAGE_*`` naming one networked store for every repository,
@@ -577,7 +571,25 @@ def networked_env(request, tmp_path):
 
     kind = request.param
     env = {"PIO_STORAGE_SOURCES_X_TYPE": kind}
-    if kind == "httpstore":
+    if kind == "replicated":
+        # three store servers, each on its own sqlite; W = 2 of 3
+        servers = []
+        for i in range(3):
+            (tmp_path / f"node{i}").mkdir()
+            server = create_store_server(
+                host="127.0.0.1", port=0, storage=Storage(env={
+                    **_env("sqlite", tmp_path / f"node{i}"),
+                    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL"}))
+            server.start()
+            servers.append(server)
+        env["PIO_STORAGE_SOURCES_X_URLS"] = ",".join(
+            f"http://127.0.0.1:{s.port}" for s in servers)
+        env["PIO_STORAGE_SOURCES_X_HINT_DIR"] = str(tmp_path / "hints")
+
+        def stop():
+            for server in servers:
+                server.shutdown()
+    elif kind == "httpstore":
         server = create_store_server(
             host="127.0.0.1", port=0, storage=Storage(env={
                 **_env("sqlite", tmp_path),
@@ -597,13 +609,27 @@ def networked_env(request, tmp_path):
     stop()
 
 
-@pytest.mark.parametrize("networked_env", ["postgres", "mysql", "httpstore"],
+@pytest.mark.parametrize("networked_env",
+                         ["postgres", "mysql", "httpstore", "replicated"],
                          indirect=True)
 def test_networked_backends_resolve_and_round_trip_an_app(networked_env):
     """``Storage(env=...)`` resolves each networked type for every
-    repository, and an app, its events and a model go there and back."""
+    repository (``replicated``: a quorum over three store servers), and
+    an app, its events and a model go there and back."""
     kind, env = networked_env
     storage = Storage(env=env)
+    if kind == "replicated":
+        try:
+            _round_trip(storage)
+            for peer in storage._client("X").peers:
+                assert peer.models.get("m").models == b"\x00\xffblob"
+        finally:
+            storage._client("X").close()
+        return
+    _round_trip(storage)
+
+
+def _round_trip(storage):
     app_id = storage.get_meta_data_apps().insert(App(0, "shop", "d"))
     assert storage.get_meta_data_apps().get_by_name("shop") == App(
         app_id, "shop", "d")

@@ -11,8 +11,9 @@ package's.
 * Each package's ``httpstore`` client drives the other package's server
   through the storage contract: metadata, models (``X-PIO-SHA256`` on
   upload), events, ``list_ids``, and the key over TLS.
-* ``create_store_server(peers=...)`` refuses the replicated tier, naming
-  ROADMAP.md item 3b.
+* ``create_store_server(peers=..., role=...)`` starts the anti-entropy
+  loop in both packages: the same ``/healthz`` replication payload and
+  the same records pulled from a peer.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import hashlib
 import http.client
 import json
 import ssl
+import urllib.request
 
 import numpy as np
 import pytest
@@ -35,7 +37,7 @@ from predictionio_tpu.serving.store_server import (
     create_store_server as jax_create_store_server,
 )
 from predictionio_tpu_torch.data.event import Event
-from predictionio_tpu_torch.data.storage import Storage, StorageError
+from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.serving.config import ServerConfig
 from predictionio_tpu_torch.serving.store_server import (
     create_store_server,
@@ -359,8 +361,79 @@ def test_each_client_against_the_other_server(tmp_path, client_pkg,
     assert got[server_pkg][-1] == ["g1.manifest"]
 
 
-def test_peers_are_refused_naming_the_item(tmp_path):
-    with pytest.raises(StorageError, match="item 3b"):
-        create_store_server(host="127.0.0.1", port=0,
-                            storage=Storage(env=_own_env(tmp_path)),
-                            peers=["http://127.0.0.1:1"])
+def test_peers_start_the_anti_entropy_loop_alike(tmp_path):
+    """``create_store_server(peers=[...], role="primary")`` in each
+    package, its peer a plain server of the same package holding an app
+    and a model: ``/healthz`` carries the same replication payload (times
+    and ports masked), and one round pulls the same records."""
+    got = {}
+    for pkg, (create, storage_cls, _config) in PKGS.items():
+        source = _start(pkg, tmp_path / pkg / "source")
+        base = tmp_path / pkg / "node"
+        base.mkdir(parents=True)
+        node = create(host="127.0.0.1", port=0,
+                      storage=storage_cls(env=_own_env(base)),
+                      peers=[f"http://127.0.0.1:{source.port}"],
+                      role="primary")
+        node.start()
+        loop = node.store_app.replication
+        try:
+            s = source.store_app._storage
+            app_id = s.get_meta_data_apps().insert(_app(pkg, "shop"))
+            s.get_model_data_models().insert(_model(pkg, "g", b"bytes"))
+            before = _healthz(node.port)
+            pulled = loop.sync_once(horizon=0.0)
+            after = _healthz(node.port)
+            local = node.store_app._storage
+            got[pkg] = {
+                "before": before, "pulled": pulled, "after": after,
+                "app": local.get_meta_data_apps().get(app_id).name,
+                "model": local.get_model_data_models().get("g").models,
+            }
+            got[pkg] = json.loads(json.dumps(got[pkg], default=str).replace(
+                str(source.port), "<peer>"))
+        finally:
+            loop.close()
+            node.shutdown()
+            source.shutdown()
+    assert got["port"] == got["jax"]
+    assert got["port"]["pulled"] == {"metadata": 1, "events": 0,
+                                     "models": 1}
+    repl = got["port"]["after"]["replication"]
+    assert repl["role"] == "primary" and repl["peers"][0]["error"] is None
+
+
+def _app(pkg, name):
+    if pkg == "jax":
+        from predictionio_tpu.data.storage import App as JaxApp
+
+        return JaxApp(0, name)
+    from predictionio_tpu_torch.data.storage import App
+
+    return App(0, name)
+
+
+def _model(pkg, model_id, blob):
+    if pkg == "jax":
+        from predictionio_tpu.data.storage import Model as JaxModel
+
+        return JaxModel(model_id, blob)
+    from predictionio_tpu_torch.data.storage import Model
+
+    return Model(model_id, blob)
+
+
+def _healthz(port: int) -> dict:
+    """The node's /healthz with its pid and wall times masked."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=10) as resp:
+        payload = json.loads(resp.read())
+    payload["pid"] = "<pid>"
+    repl = payload["replication"]
+    if repl["lastSync"] is not None:
+        repl["lastSync"] = "<t>"
+    for peer in repl["peers"]:
+        for key in ("lastSync", "lagSeconds"):
+            if peer[key] is not None:
+                peer[key] = "<t>"
+    return payload
