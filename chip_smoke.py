@@ -35,8 +35,9 @@ and PyTorch built for CUDA. In order:
 6. trains ALS at the MovieLens-20M shape (bench.py's ``ml20m``: 138,493
    users × 26,744 items, 20M interactions from its generator, seed 42),
    rank 32, implicit, 5 epochs, once in float32 and once with bf16
-   gathers: prints the packing seconds (native and numpy, whose arrays
-   must be identical), the epoch time (median of epochs 2-5, CUDA
+   gathers: prints the packing seconds (native at full width; native and
+   numpy, whose arrays must be identical, on the first 4,000,000
+   interactions), the epoch time (median of epochs 2-5, CUDA
    events), each half-step's device split from the profiler (gather +
    Gramian, Cholesky solve, heavy ``index_add_``), the peak device
    memory and the epoch's bound; holds every heavy item row, 256
@@ -52,8 +53,8 @@ and PyTorch built for CUDA. In order:
    trained factors; prints the read, prepare, train and persist seconds;
 8. drives the event server and its stores: sqlite metadata with a
    generated access key and a second key limited to ``view``, the port's
-   ``create_event_server``, and the first 100,000 of the same events as
-   2,000 ``POST /batch/events.json`` requests of 50 from 8 keep-alive client
+   ``create_event_server``, and the first 60,000 of the same events as
+   1,200 ``POST /batch/events.json`` requests of 50 from 8 keep-alive client
    threads into the native event log (every event 201; a request the
    event server's admission sheds is sent again after its
    ``Retry-After``, and the retries are counted), the probes (no
@@ -61,7 +62,7 @@ and PyTorch built for CUDA. In order:
    then 404), ``EventStore.interactions`` through the log's native scan
    (its triples equal to the generator's), then ``train_and_serve``;
    once more with the events in sqlite (the zero-config wiring, read
-   through the frame path) on the first 50,000 events; prints events/s,
+   through the frame path) on the first 30,000 events; prints events/s,
    batch-request p50/p99, the read seconds of both stores beside phase
    7's memory read, and the train answers;
 9. evaluates on phase 7's store: ``run_evaluation`` over the
@@ -246,7 +247,7 @@ and PyTorch built for CUDA. In order:
    ``start-all --with-minipg`` finds running) holding metadata, events
    and models; the daemon event server, ``train`` (under
    ``--cli-child``) and ``deploy``, each with only the ``PIO_STORAGE_*``
-   env naming ``postgresql://...``: phase 7's first 50,000 events through
+   env naming ``postgresql://...``: phase 7's first 15,000 events through
    the port's ``EventClient`` (batches of 50 from 8 threads, every event
    201, sheds sent again), the training read over the wire (its triples
    equal to the generator's), ``train`` of the unchanged
@@ -276,7 +277,7 @@ and PyTorch built for CUDA. In order:
    ``storeserver --peer ×2`` nodes (``--role primary`` on node 0), each
    with its own sqlite, fsynced event log and localfs, node 2 under
    ``PIO_CHAOS=partition:p=0.05,ms=50``, and the event server with three
-   ``--store-url``; (b) phase 7's first 50,000 events from 8 threads in
+   ``--store-url``; (b) phase 7's first 30,000 events from 8 threads in
    batches of 50, the primary SIGKILLed a third of the way, ingest
    acking through W = 2 of 3 (events/s and batch p50/p99 before and
    after the kill); (c) ``train`` (under ``--cli-child``, on the card)
@@ -294,8 +295,32 @@ and PyTorch built for CUDA. In order:
    generator's); (f) ``status --store-url ×3``, the event server's
    ``/healthz`` replication view, the merged ``/debug/timeline.json``;
    no child left; a time limit of its own (600 s);
-19. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-18; phase 16's ``--workers`` children, which the package
+19. runs the port on more than one device: (a) ``train_als`` at the
+   ml20m shape (rank 32, implicit, 3 epochs) on (data, model) meshes
+   (1, 1), (1, 2), (2, 2) and (1, 4) of logical devices on the card
+   (``devices=[cuda:0] * n``), and over distinct cards where the machine
+   has them: the factors within 2e-3 of their largest entry of the
+   (1, 1) run's (a second (1, 1) run, printed beside, differs by about
+   1e-4 of it: float32 summation order, amplified), the JAX tests' own
+   problems within their rtol 1e-4 / atol 1e-5 on every mesh, phantom
+   rows exactly zero, each model shard a 1/m row slice,
+   ``check_factor_sharding`` on a probe, the epoch timed (CUDA events
+   around each half-step, median) and the factor bytes per device; (b) phase 4's
+   tables (1,048,576 items, rank 32) staged over (1, 2) and (1, 4)
+   meshes in f32, bf16 and int8 (quantized shard by shard, equal to the
+   whole table's quantization): the sharded top-k at B = 1 / 64 / 256
+   held against the plain version on the whole table, one launch per
+   model shard, its p50 beside one launch on one device; then the main
+   path: ``deploy --mesh-shape 1,4 --devices cuda:0,...`` answering 256
+   ``/queries.json`` equal to the plain top-k, ``GET /`` reporting
+   ``"modelSharded": true``, and a ``create_engine_server`` a form on a
+   (1, 2) mesh; (c) ``launch -n N -- <console> train`` over NCCL (N =
+   min(4, cards), mesh (1, N), sharded factors: the all-gathers and the
+   fetch go through NCCL even at N = 1) on an engine reading the ml20m
+   interactions, run beside (b)'s served checks, every rank's published
+   factors held to (a)'s (1, 1) run as (a)'s meshes are;
+20. prints one ``{"kernels": [...]}`` line (launches summed over phases
+   4 and 7-19; phase 16's ``--workers`` children, which the package
    re-execs, by their ``pio_batches_total``) and, last, the device
    line.
 
@@ -307,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import datetime as dt
 import json
@@ -346,6 +372,8 @@ TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
 #: training at bench.py's "ml20m" shape (users, items, interactions)
 ML20M = (138_493, 26_744, 20_000_000)
 TRAIN_EPOCHS = 5
+#: the native and numpy packing paths are held identical on this prefix
+PACK_CHECK_NNZ = 4_000_000
 TRAIN_REG, TRAIN_ALPHA = 0.01, 1.0
 #: a row's solve against its normal equations rebuilt in float64; true
 #: fp32 products and sums stay near 1e-6, TF32 products near 1e-3
@@ -357,9 +385,9 @@ DASE = (20_000, 5_000, 200_000)
 #: events of the sqlite run (the first of the same stream)
 INGEST_BATCH = 50
 INGEST_THREADS = 8
-SQLITE_EVENTS = 50_000
+SQLITE_EVENTS = 30_000
 #: the event log run: the first of phase 7's events
-INGEST_LOG_EVENTS = 100_000
+INGEST_LOG_EVENTS = 60_000
 #: names of the profiler ranges ops/als.py opens
 ALS_RANGES = ("als/gather_gramian", "als/solve", "als/heavy_add")
 
@@ -596,9 +624,10 @@ def query_plan(n_users: int, n_items: int, seed: int):
 
 
 def serve_and_check(storage, model, table_f32, quantize: str, device,
-                    seed: int, n_users: int) -> dict:
+                    seed: int, n_users: int, ctx=None) -> dict:
     """One server run: start, warm, query over HTTP, check every answer
-    against the plain version on the same table, shut down."""
+    against the plain version on the same table, shut down. ``ctx``: the
+    server's context (phase 19 passes a mesh), else one on ``device``."""
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
@@ -618,7 +647,7 @@ def serve_and_check(storage, model, table_f32, quantize: str, device,
     t0 = time.perf_counter()
     es, http = create_engine_server(
         engine, params, "chip-smoke", host="127.0.0.1", port=0,
-        storage=storage, ctx=ComputeContext.create(device=device),
+        storage=storage, ctx=ctx or ComputeContext.create(device=device),
         max_batch=64, max_wait_ms=2.0, quantize=quantize or None,
     )
     http.start()
@@ -628,6 +657,8 @@ def serve_and_check(storage, model, table_f32, quantize: str, device,
         with urllib.request.urlopen(base + "/", timeout=30) as resp:
             status = json.loads(resp.read())
         assert status["warmed"] is True, status
+        if ctx is not None:
+            assert status["modelSharded"] == (ctx.model_parallelism > 1)
         after_warmup = fused_topk.LAUNCHES[form]
         seq, conc, batch = query_plan(n_users, n_items, seed)
         answers, lat = [], []
@@ -838,24 +869,29 @@ def make_interactions(n_users: int, n_items: int, nnz: int, seed: int = 42):
 
 
 def pack_sides(rows, cols, vals, n_users: int, n_items: int) -> dict:
-    """Both sides packed natively and with numpy (timed apart); the two
-    paths must give identical arrays."""
+    """Both sides packed natively at full width, and natively and with
+    numpy on the first PACK_CHECK_NNZ interactions (each timed); the two
+    paths must give identical arrays there."""
     from predictionio_tpu_torch.ops import als
 
     assert als._load_alspack() is not None, "native alspack did not build"
     out = {}
-    for path in ("native", "numpy"):
+    p = PACK_CHECK_NNZ
+    for path, data in (("native", (rows, cols, vals)),
+                       ("native_prefix", (rows[:p], cols[:p], vals[:p])),
+                       ("numpy", (rows[:p], cols[:p], vals[:p]))):
+        r, c, v = data
         if path == "numpy":
             os.environ["PIO_NO_NATIVE"] = "1"
         try:
             t0 = time.perf_counter()
-            users = als.build_bucketed(rows, cols, vals, n_users)
-            items = als.build_bucketed(cols, rows, vals, n_items)
+            users = als.build_bucketed(r, c, v, n_users)
+            items = als.build_bucketed(c, r, v, n_items)
             out[f"{path}_s"] = time.perf_counter() - t0
         finally:
             os.environ.pop("PIO_NO_NATIVE", None)
         out[path] = (users, items)
-    for a, b in zip(out["native"], out["numpy"]):
+    for a, b in zip(out["native_prefix"], out["numpy"]):
         assert np.array_equal(a.inv_perm, b.inv_perm)
         for sa, sb in zip(a.slabs + a.heavy, b.slabs + b.heavy):
             for field in ("idx", "weights", "valid"):
@@ -1057,13 +1093,15 @@ def train_phase(device, seed: int) -> dict:
     gen_s = time.perf_counter() - t0
     packs = pack_sides(*data, n_users, n_items)
     log(f"train data: {nnz} interactions in {gen_s:.2f} s; pack native "
-        f"{packs['native_s']:.3f} s, numpy {packs['numpy_s']:.3f} s "
+        f"{packs['native_s']:.3f} s; on the first {PACK_CHECK_NNZ}: native "
+        f"{packs['native_prefix_s']:.3f} s, numpy {packs['numpy_s']:.3f} s "
         f"(identical); padded slots user "
         f"{packs['native'][0].padded_nnz} item "
         f"{packs['native'][1].padded_nnz}, heavy sub-row groups "
         f"{len(packs['native'][1].heavy)}")
     out = {"pack_native_s": packs["native_s"],
-           "pack_numpy_s": packs["numpy_s"]}
+           "pack_prefix_native_s": packs["native_prefix_s"],
+           "pack_prefix_numpy_s": packs["numpy_s"]}
     for compute in ("float32", "bfloat16"):
         run = train_full_width(device, data, packs, compute, seed)
         log("train " + json.dumps(run))
@@ -6134,7 +6172,7 @@ def fleet_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 # -- phase 17: the networked stores ----------------------------------------
 
 #: (a) and (c): the first of phase 7's events, ingested over HTTP
-STORE_EVENTS = 50_000
+STORE_EVENTS = 15_000
 #: (b): the first of phase 7's events, written through the MySQL wire
 STORE_MYSQL_EVENTS = 5_000
 #: answers held against the plain top-k in each of (a), (c) and (d)
@@ -6754,7 +6792,7 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 
 #: (b): the first of phase 7's events, each acked through a W = 2 of 3
 #: quorum
-REPL_EVENTS = 50_000
+REPL_EVENTS = 30_000
 #: (b): the primary is SIGKILLed once this many events are acked
 REPL_KILL_AT = REPL_EVENTS // 3
 REPL_KEY = "chip-smoke-repl-key"
@@ -7258,6 +7296,542 @@ def replicated_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     assert launches["f32"] > 0, launches
     return out
 
+
+
+# -- phase 19: more than one device -------------------------------------------
+
+#: the (data, model) meshes of (a), logical devices on the card (and,
+#: where the machine has the cards, distinct ones)
+MESH_SHAPES = ((1, 1), (1, 2), (2, 2), (1, 4))
+MESH_EPOCHS = 3
+#: JAX tests/test_als.py's tolerance between meshes, held on that test's
+#: own problems (MESH_SMALL) on the card
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+#: at full width float32 rounding is amplified past that tolerance: a
+#: second (1, 1) run, whose heavy-row ``index_add_`` sums in another
+#: order, differs from the first by up to 1.2e-4 of the factors' largest
+#: entry (~2e-5 of 0.21 for users, ~2.4e-3 of 20.5 for items), and a mesh
+#: (other padding, other batch sizes) by up to 2.8e-4. A mesh run's
+#: largest difference from (1, 1) must stay within MESH_REL of that
+#: largest entry, side by side; a misplaced row moves by the entry itself
+MESH_REL = 2e-3
+#: JAX tests' ALS problems: tests/distributed_als_child.py (users, items,
+#: interactions, rank, block_len, s_max, heavy rows) and
+#: tests/test_als.py TestShardedFactors with its heavy rows
+MESH_SMALL = ((48, 32, 400, 8, 8, 16, False), (24, 18, 600, 4, 4, 2, True))
+#: check_factor_sharding's probe: the first interactions of the data
+MESH_PROBE_NNZ = 200_000
+#: (b): the catalog meshes, the batches timed, the deployed server's
+#: mesh and its queries
+SERVE_MESHES = ((1, 2), (1, 4))
+SERVE_BATCHES = (1, 64, 256)
+SERVE_REPS = 10
+MESH_DEPLOY = (1, 4)
+MESH_QUERIES = 256
+#: (c): the process group's ranks at most, and its variant's factory
+LAUNCH_RANKS = 4
+MESH_ENGINE = "chip_smoke:mesh_engine"
+
+
+def mesh_engine():
+    """The engine ``launch ... train`` runs in phase 19 (c): bench.py's
+    ``ml20m`` interactions from its generator (duplicates kept, no
+    dedupe, as ``train_als`` took them in (a)) into the recommendation
+    template's ALS."""
+    from predictionio_tpu_torch.core import Engine
+    from predictionio_tpu_torch.core.controller import (
+        DataSource,
+        FirstServing,
+        IdentityPreparator,
+    )
+    from predictionio_tpu_torch.data.eventframe import Interactions
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        RecTrainingData,
+    )
+    from predictionio_tpu_torch.utils.bimap import BiMap
+
+    class ML20MSource(DataSource):
+        def read_training(self, ctx):
+            n_users, n_items, nnz = ML20M
+            rows, cols, vals = make_interactions(n_users, n_items, nnz,
+                                                 seed=42)
+            return RecTrainingData(interactions=Interactions(
+                entity_map=BiMap(np.char.add(
+                    "u", np.arange(n_users).astype(str))),
+                target_map=BiMap(np.char.add(
+                    "i", np.arange(n_items).astype(str))),
+                rows=rows, cols=cols, values=vals,
+                times=np.zeros(nnz, np.float64),
+            ))
+
+    return Engine(ML20MSource, IdentityPreparator, {"als": ALSAlgorithm},
+                  FirstServing)
+
+
+def _sync_all(devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _mesh_diff(host: dict, base: dict) -> dict:
+    """Per side: the largest |difference| and the elements outside
+    MESH_RTOL / MESH_ATOL."""
+    out = {}
+    for name in ("user", "item"):
+        d = np.abs(host[name] - base[name])
+        out[name] = {"max_abs": float(d.max()), "outside_tol": int(
+            (d > MESH_ATOL + MESH_RTOL * np.abs(base[name])).sum())}
+    return out
+
+
+def _hold_to_base(what: str, diff: dict, base: dict) -> None:
+    for name in ("user", "item"):
+        limit = MESH_REL * float(np.abs(base[name]).max())
+        assert diff[name]["max_abs"] <= limit, (
+            f"{what} {name} factors differ from (1, 1) by "
+            f"{diff[name]['max_abs']:.3g}, past {MESH_REL} of their "
+            f"largest entry ({limit:.3g})")
+
+
+def mesh_small(device, shape) -> dict:
+    """The JAX tests' ALS problems (MESH_SMALL) trained on ``shape``
+    (logical devices on the card) and on one device: within MESH_RTOL /
+    MESH_ATOL, the JAX tests' tolerance, and phantom rows zero."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    n = shape[0] * shape[1]
+    worst = 0.0
+    for n_users, n_items, nnz, k, block_len, s_max, heavy in MESH_SMALL:
+        rng = np.random.default_rng(11 if not heavy else 21)
+        rows = rng.integers(0, n_users, nnz).astype(np.int32)
+        cols = rng.integers(0, n_items, nnz).astype(np.int32)
+        vals = rng.integers(1, 5, nnz).astype(np.float32)
+        if heavy:
+            rows = np.concatenate([rows, np.zeros(60, np.int32),
+                                   np.ones(60, np.int32)])
+            cols = np.concatenate([cols, np.arange(60, dtype=np.int32)
+                                   % n_items, np.zeros(60, np.int32)])
+            vals = np.concatenate([vals, np.ones(120, np.float32)])
+        kw = dict(n_users=n_users, n_items=n_items, rank=k, iterations=3,
+                  reg=0.1, alpha=1.0, block_len=block_len, s_max=s_max)
+        one = als.train_als(ComputeContext.create(devices=[device]), rows,
+                            cols, vals, **kw)
+        got = als.train_als(ComputeContext.create(
+            mesh_shape=shape, devices=[device] * n), rows, cols, vals, **kw)
+        for a, b in ((got.user_factors, one.user_factors),
+                     (got.item_factors, one.item_factors)):
+            np.testing.assert_allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL,
+                                       err_msg=f"{shape} small problem")
+            worst = max(worst, float(np.abs(a - b).max()))
+    return {"max_abs": worst}
+
+
+class _EventTimer:
+    """The ``timer`` ``train_als`` takes: CUDA events on the home device
+    around each half-step (``train_als`` synchronizes every position's
+    device inside the step), so a half-step's time is the card's, with
+    no host gap between the two halves counted."""
+
+    def __init__(self):
+        self.spans: list = []
+
+    @contextlib.contextmanager
+    def step(self, name: str, **_kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        stop.record()
+        self.spans.append((name, start, stop))
+
+    def epoch_ms(self) -> list:
+        """Each epoch's user half-step plus its item half-step."""
+        ms = [a.elapsed_time(b) for _n, a, b in self.spans]
+        return [u + i for u, i in zip(ms[0::2], ms[1::2])]
+
+
+def mesh_train(device, data, shape, devices, timed: bool = True):
+    """Phase 19 (a) on one mesh: ``train_als`` at the ml20m shape with
+    ``return_layout="device"`` (``timed``: each half-step between CUDA
+    events): phantom rows exactly zero, each model shard a 1/m row slice,
+    ``check_factor_sharding`` on a probe. Returns the numbers and the
+    host factors (the caller holds them to (1, 1))."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import (
+        ComputeContext,
+        ShardedTensor,
+    )
+
+    rows, cols, vals = data
+    n_users, n_items, _ = ML20M
+    ctx = ComputeContext.create(batch=f"mesh-{shape}", mesh_shape=shape,
+                                devices=devices)
+    timer = _EventTimer() if timed else None
+    _sync_all(devices)
+    t0 = time.perf_counter()
+    f = als.train_als(ctx, rows, cols, vals, n_users, n_items, rank=RANK,
+                      iterations=MESH_EPOCHS, reg=TRAIN_REG,
+                      alpha=TRAIN_ALPHA, implicit=True, timer=timer,
+                      return_layout="device")
+    _sync_all(devices)
+    train_s = time.perf_counter() - t0
+    sharded = isinstance(f.item_factors, ShardedTensor)
+    m = ctx.model_parallelism
+    per_device = [0] * ctx.n_devices
+    host = {}
+    for name, arr, n_real in (("user", f.user_factors, n_users),
+                              ("item", f.item_factors, n_items)):
+        if sharded:
+            rows_per = {s.shape[0] for s in arr.addressable_shards}
+            assert rows_per == {arr.shape[0] // m}, (shape, name, rows_per)
+            for pos, s in enumerate(arr.shards):
+                per_device[pos] += s.numel() * s.element_size()
+            whole = arr.gather()
+        else:
+            whole = arr
+            per_device[0] += arr.numel() * arr.element_size()
+        whole = whole.cpu().numpy()
+        assert not whole[n_real:].any(), f"{shape}: phantom {name} rows"
+        assert np.isfinite(whole).all(), f"{shape}: {name} not finite"
+        host[name] = whole[:n_real]
+    if m > 1:
+        p = MESH_PROBE_NNZ
+        als.check_factor_sharding(ctx, rows[:p], cols[:p], vals[:p],
+                                  n_users, n_items, rank=8, block_len=8)
+
+    run = {
+        "mesh": list(shape),
+        "devices": sorted({str(d) for d in devices}),
+        "sharded": sharded,
+        "train_als_s": train_s,
+        "factor_bytes_per_device": per_device,
+    }
+    if timed:
+        epoch_ms = timer.epoch_ms()
+        run.update(epoch_ms=epoch_ms,
+                   epoch_ms_median=float(np.median(epoch_ms)))
+    return run, host
+
+
+def mesh_serve_kernel(device, model, seed: int) -> dict:
+    """Phase 19 (b), in this process: phase 4's tables staged over each
+    of SERVE_MESHES (int8 and bf16 quantized shard by shard, equal to
+    the whole table's quantization), the sharded top-k at each batch of
+    SERVE_BATCHES held against the plain version on the whole table,
+    its kernel launches per call (one per model shard), and the call's
+    p50 (CUDA events, SERVE_REPS calls) beside one launch over the whole
+    table on one device. These launches check and time; they are not
+    the main path's."""
+    from predictionio_tpu_torch.ops import fused_topk, quantize, similarity
+    from predictionio_tpu_torch.parallel import partition
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    n_items = len(model.item_map)
+    items32 = torch.as_tensor(model.item_factors).to(device)
+    out = {}
+    for shape in SERVE_MESHES:
+        m = shape[1]
+        ctx = ComputeContext.create(mesh_shape=shape,
+                                    devices=[device] * (shape[0] * m))
+        staged, mask = partition.stage_factor_matrix(ctx, model.item_factors,
+                                                     n_real=n_items)
+        for form in FORMS:
+            if form == "f32":
+                table, items, scale = staged, items32, None
+            else:
+                table = quantize.quantize_factors(staged, form)
+                whole = quantize.quantize_factors(items32, form)
+                assert torch.equal(table.data.gather(), whole.data), form
+                if form == "int8":
+                    assert torch.equal(table.scale.gather(), whole.scale)
+                items, scale = whole.data, whole.scale
+            for b in SERVE_BATCHES:
+                g = torch.Generator(device=device).manual_seed(seed + b)
+                q = torch.randn(b, RANK, generator=g, device=device)
+                before = fused_topk.LAUNCHES[form]
+                got = similarity.top_k_dot(q, table, 10, mask)
+                torch.cuda.synchronize()
+                launches = fused_topk.LAUNCHES[form] - before
+                assert launches == m, (shape, form, b, launches)
+                want = fused_topk.fused_top_k_dot_reference(q, items, 10,
+                                                            None, scale)
+                res = compare(q, items.float(), scale, None, 10, got, want)
+
+                def sharded_call():
+                    return similarity.top_k_dot(q, table, 10, mask)
+
+                def one_call():
+                    return fused_topk.fused_top_k_dot(q, items, 10, None,
+                                                      scale)
+
+                times = {}
+                for name, fn in (("sharded", sharded_call),
+                                 ("one_device", one_call)):
+                    fn()
+                    torch.cuda.synchronize()
+                    per = []
+                    for _ in range(SERVE_REPS):
+                        start = torch.cuda.Event(enable_timing=True)
+                        stop = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        fn()
+                        stop.record()
+                        per.append((start, stop))
+                    torch.cuda.synchronize()
+                    times[name] = float(np.median(
+                        [a.elapsed_time(z) for a, z in per]))
+                out[f"{shape[0]}x{m}/{form}/B{b}"] = {
+                    "launches_per_call": launches,
+                    "p50_ms": times["sharded"],
+                    "one_device_p50_ms": times["one_device"],
+                    "max_abs_err": res["max_abs_err"],
+                    "tied_mismatches": res["tied_mismatches"],
+                }
+                log(f"mesh serve {shape[0]}x{m} {form:4s} B={b:<3d} "
+                    f"I={n_items} num=10: {launches} launches a call, "
+                    f"p50 {times['sharded']:.4f} ms (one device, one "
+                    f"launch: {times['one_device']:.4f} ms), "
+                    f"max_abs_err={res['max_abs_err']:.3g} "
+                    f"tied={res['tied_mismatches']}")
+    return out
+
+
+def mesh_deploy(device, workdir: str, model, seed: int) -> dict:
+    """Phase 19 (b) through the console: phase 4's generation published
+    into a sqlite + localfs store, ``deploy --mesh-shape 1,4 --devices
+    cuda:0,...`` (under ``--cli-child``, which counts its launches),
+    ``GET /`` reporting the mesh and ``"modelSharded": true``, 256
+    ``/queries.json`` from 16 threads each held against the plain top-k
+    on the whole table, and ``POST /stop``."""
+    from predictionio_tpu_torch.data.storage import Storage
+
+    os.makedirs(workdir, exist_ok=True)
+    env = {**os.environ, **fleet_env(workdir), "PIO_FS_BASEDIR": workdir}
+    storage = Storage(env=fleet_env(workdir))
+    _publish_next(storage, model)
+    variant = _fleet_variant(workdir, "default")
+    console = _Console(workdir, env)
+    port = _free_port()
+    n = MESH_DEPLOY[0] * MESH_DEPLOY[1]
+    argv = ["deploy", "--variant", variant, "--ip", "127.0.0.1", "--port",
+            str(port), "--mesh-shape", ",".join(map(str, MESH_DEPLOY)),
+            "--devices", ",".join([str(device)] * n)]
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        proc = console.start("mesh_deploy", argv, counted=True)
+        console.listening("mesh_deploy", proc, port)
+        out["deploy_listening_s"] = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/", timeout=30) as resp:
+            status = json.loads(resp.read())
+        assert status["modelSharded"] is True, status
+        assert status["mesh"] == {"data": MESH_DEPLOY[0],
+                                  "model": MESH_DEPLOY[1]}, status
+        rng = np.random.default_rng(seed + 19)
+        users = rng.choice(model.user_map.keys(), MESH_QUERIES).tolist()
+        queries = [{"user": u, "num": [1, 10, 20, 50][i % 4]}
+                   for i, u in enumerate(users)]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            futs = [pool.submit(_post, base, "/queries.json", q)
+                    for q in queries]
+            results = [f.result() for f in futs]
+        out["queries_s"] = time.perf_counter() - t0
+        lat = sorted(s * 1e3 for _a, s in results)
+        out["p50_ms"] = lat[len(lat) // 2]
+        out["p99_ms"] = lat[int(len(lat) * 0.99)]
+        n_checked, ties, err = check_answers(
+            [(q, a) for q, (a, _s) in zip(queries, results)], model,
+            device)
+        assert n_checked == MESH_QUERIES, n_checked
+        out.update(answers_checked=n_checked, tied_swaps=ties,
+                   max_abs_err=err, status_mesh=status["mesh"])
+        # the request ``undeploy`` sends, without its process start
+        _post(base, "/stop", {})
+        console.wait("mesh_deploy", proc)
+        counts = console.counts("mesh_deploy")
+        out["launches"] = counts["launches"]
+        out["devices"] = counts["devices"]
+        assert counts["launches"]["f32"] >= MESH_DEPLOY[1], counts
+    finally:
+        console.close()
+    return out
+
+
+def mesh_launch_start(device, workdir: str) -> dict:
+    """Phase 19 (c), started: ``launch -n N -- <console> train`` over
+    ``nccl``, N = min(LAUNCH_RANKS, cards), mesh (1, N),
+    ``factor_sharding="sharded"`` so every half-step all-gathers through
+    NCCL (on one card: a world of one, all-gathers and fetches made for
+    real). :func:`mesh_launch_finish` waits for it."""
+    # on the card NCCL, a card a rank; a CPU rehearsal runs gloo
+    cuda = device.type == "cuda"
+    ranks = min(LAUNCH_RANKS, torch.cuda.device_count()) if cuda else 1
+    os.makedirs(workdir, exist_ok=True)
+    variant = os.path.join(workdir, "engine-mesh.json")
+    with open(variant, "w") as f:
+        json.dump({"id": "chip-smoke-mesh", "engineFactory": MESH_ENGINE,
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": RANK, "num_iterations": MESH_EPOCHS,
+                       "lambda_": TRAIN_REG, "alpha": TRAIN_ALPHA,
+                       "factor_sharding": "sharded"}}]}, f)
+    env = {**os.environ, **fleet_env(workdir), "PIO_FS_BASEDIR": workdir}
+    console = _Console(workdir, env)
+    proc = console.start("mesh_launch", [
+        "launch", "-n", str(ranks), "--timeout", "600", "--",
+        *CONSOLE, "train", "--variant", variant, "--mesh-shape",
+        f"1,{ranks}", *([] if cuda else ["--device", "cpu"])])
+    return {"console": console, "proc": proc, "ranks": ranks,
+            "backend": "nccl" if cuda else "gloo", "workdir": workdir,
+            "t0": time.perf_counter()}
+
+
+def mesh_launch_finish(job: dict, base: dict) -> dict:
+    """Phase 19 (c), ended: every rank joined the process group, and
+    each rank's published factors, read back from the store, are held
+    to (a)'s (1, 1) run as (a)'s meshes are."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+    from predictionio_tpu_torch.data.storage import Storage
+
+    console, ranks, backend = job["console"], job["ranks"], job["backend"]
+    try:
+        console.wait("mesh_launch", job["proc"])
+        launch_s = time.perf_counter() - job["t0"]
+        err = _tail(console.path("mesh_launch", "err"), 200_000)
+    finally:
+        console.close()
+    joined = [ln for ln in err.splitlines()
+              if f"torch.distributed initialized ({backend})" in ln]
+    assert len(joined) == ranks, (joined, err[-3000:])
+    # every rank publishes the all-gathered factors, as every JAX
+    # process does
+    storage = Storage(env=fleet_env(job["workdir"]))
+    insts = [i for i in storage.get_meta_data_engine_instances().get_all()
+             if i.engine_id == "chip-smoke-mesh"]
+    assert len(insts) == ranks, [i.status for i in insts]
+    for inst in insts:
+        assert inst.status == "COMPLETED", inst.status
+        (model,) = [m for _t, m in deserialize_models(load_generation(
+            storage.get_model_data_models(), inst.id))]
+        diffs = _mesh_diff({"user": np.asarray(model.user_factors),
+                            "item": np.asarray(model.item_factors)}, base)
+        _hold_to_base("launch", diffs, base)
+    return {"nccl_ranks": ranks, "backend": backend, "launch_s": launch_s,
+            "mesh_conf": inst.mesh_conf, "diff_vs_1x1": diffs}
+
+
+def mesh_phase(device, workdir: str, seed: int) -> dict:
+    """Phase 19: more than one device (a) sharded ALS at full width on
+    MESH_SHAPES of logical devices on the card (and of distinct cards
+    where the machine has them), (b) sharded serving at phase 4's width,
+    (c) the process boundary over NCCL. Returns the numbers and the
+    main path's launches: (b)'s deployed server and its
+    ``create_engine_server`` runs on a (1, 2) mesh, per shard."""
+    from predictionio_tpu_torch.ops import fused_topk
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    out = {"runs": [], "small": {}}
+    n_users, n_items, nnz = ML20M
+    data = make_interactions(n_users, n_items, nnz, seed=42)
+    base = None
+    for shape in MESH_SHAPES:
+        n = shape[0] * shape[1]
+        meshes = [[device] * n]
+        if 1 < n <= torch.cuda.device_count():
+            meshes.append([torch.device("cuda", i) for i in range(n)])
+        for devices in meshes:
+            run, host = mesh_train(device, data, shape, devices)
+            if base is None:
+                # (1, 1) twice: the second run shows float32's spread
+                base = host
+                _again, host = mesh_train(device, data, shape, devices,
+                                          timed=False)
+                spread = _mesh_diff(host, base)
+                _hold_to_base("(1, 1) rerun", spread, base)
+                out["spread"] = spread
+                log(f"mesh als (1, 1) rerun against the first: "
+                    f"{json.dumps(spread)}")
+            else:
+                run["diff_vs_1x1"] = _mesh_diff(host, base)
+                _hold_to_base(f"mesh {shape}", run["diff_vs_1x1"], base)
+                out["small"][f"{shape[0]}x{shape[1]}"] = mesh_small(
+                    devices[0], shape)
+            out["runs"].append(run)
+            log("mesh als " + json.dumps(run))
+    del data
+
+    model = make_model(N_USERS, N_ITEMS, RANK, seed)
+    out["serve_kernel"] = mesh_serve_kernel(device, model, seed)
+    # (c) runs beside (b)'s served checks (its launch child is mostly
+    # process start and host packing); (b)'s timings are taken above
+    job = mesh_launch_start(device, os.path.join(workdir, "launch"))
+    # the main path: a console deploy on a (1, 4) mesh, and one server
+    # a form on a (1, 2) mesh in this process
+    out["deploy"] = mesh_deploy(device, os.path.join(workdir, "deploy"),
+                                model, seed)
+    launches = dict(out["deploy"]["launches"])
+    table_f32 = torch.as_tensor(model.item_factors).to(device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as store:
+        storage, _bytes = publish(model, store)
+        ctx = ComputeContext.create(mesh_shape=SERVE_MESHES[0],
+                                    devices=[device] * SERVE_MESHES[0][1])
+        out["servers"] = []
+        for quantize in ("", "int8", "bf16"):
+            before = dict(fused_topk.LAUNCHES)
+            run = serve_and_check(storage, model, table_f32, quantize,
+                                  device, seed, N_USERS, ctx=ctx)
+            for form in FORMS:
+                launches[form] = launches.get(form, 0) + (
+                    fused_topk.LAUNCHES[form] - before[form])
+            out["servers"].append(run)
+            log("mesh server " + json.dumps(run))
+    out["launches"] = launches
+    for form in FORMS:
+        assert launches.get(form, 0) > 0, f"{form}: phase 19 never launched"
+    del model, table_f32
+    out["launch"] = mesh_launch_finish(job, base)
+    return out
+
+
+def log_mesh(p: dict, smi: str) -> None:
+    """Each phase 19 number on a line of its own, beside the card."""
+    for run in p["runs"]:
+        log(f"mesh als {run['mesh'][0]}x{run['mesh'][1]} on "
+            f"{','.join(run['devices'])} ({'sharded' if run['sharded'] else 'replicated'}): "
+            f"epoch p50 {run['epoch_ms_median']:.2f} ms "
+            f"(epochs {', '.join(f'{e:.2f}' for e in run['epoch_ms'])}), "
+            f"train_als {run['train_als_s']:.2f} s, factor bytes per device "
+            f"{run['factor_bytes_per_device']}, against 1x1 "
+            f"{json.dumps(run.get('diff_vs_1x1'))} ({smi})")
+    log(f"mesh als 1x1 rerun against 1x1: {json.dumps(p['spread'])}; "
+        f"the JAX tests' problems on each mesh within rtol {MESH_RTOL} / "
+        f"atol {MESH_ATOL}: {json.dumps(p['small'])}")
+    d = p["deploy"]
+    log(f"mesh deploy {MESH_DEPLOY[0]}x{MESH_DEPLOY[1]}: listening in "
+        f"{d['deploy_listening_s']:.2f} s, {d['answers_checked']} answers "
+        f"equal to the plain top-k (tied swaps {d['tied_swaps']}), p50 "
+        f"{d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms over 16 threads, "
+        f"launches {json.dumps(d['launches'])} ({smi})")
+    for s in p["servers"]:
+        log(f"mesh server {SERVE_MESHES[0][0]}x{SERVE_MESHES[0][1]} "
+            f"{s['form']}: {s['answers_checked']} answers checked, p50 "
+            f"{s['p50_ms']:.3f} ms, served launches "
+            f"{s['served_launches']} ({smi})")
+    c = p["launch"]
+    wait = (f" (NCCL puts one rank on a card: {LAUNCH_RANKS} ranks wait "
+            f"for a machine with {LAUNCH_RANKS} cards)"
+            if c["nccl_ranks"] < LAUNCH_RANKS else "")
+    log(f"mesh launch: \"nccl_ranks\": {c['nccl_ranks']}{wait}, "
+        f"{c['launch_s']:.2f} s, mesh_conf {json.dumps(c['mesh_conf'])}, "
+        f"against 1x1 {json.dumps(c['diff_vs_1x1'])} ({smi})")
+    log(f"mesh phase launches: {json.dumps(p['launches'])}")
 
 
 def log_repl(r: dict, store: dict, smi: str) -> None:
@@ -7805,20 +8379,30 @@ def main() -> int:
     log(f"phase replicated: ok ({time.perf_counter() - t_phase:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s)")
 
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as d:
+        mesh = mesh_phase(device, d, args.seed)
+    mesh["phase_s"] = time.perf_counter() - t_phase
+    log("mesh " + json.dumps(mesh))
+    log_mesh(mesh, smi)
+    log(f"phase mesh: ok ({mesh['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s)")
+
     # every main-path run's launches: phase 4, 7, 8 (both stores), 9, 10,
     # 11, 12, the console's children in 13, the server of 14, the
     # tenants of 15, the fleet of 16 (its counted children, and the
     # batches of the --workers children, which the package re-execs),
     # the networked stores of 17 (console children and servers), and
     # the replicated tier of 18 (its deploy child and the full-width
-    # server)
+    # server), and the sharded servers of 19 (a launch per model shard)
     for run in (dase, *ingest.values(), evaluation, similar,
                 templates["ecommerce"], trainer, cli, server, pool, fleet,
-                store, repl):
+                store, repl, mesh):
         for form in FORMS:
             launches[form] += run["launches"].get(form, 0)
     launches["f32"] += int(sum(w["child_batches"] for w in fleet["workers"]))
-    log(f"launches over phases 4 and 7-18: {json.dumps(launches)}")
+    log(f"launches over phases 4 and 7-19: {json.dumps(launches)}")
 
     kernels = []
     for form in FORMS:

@@ -11,8 +11,8 @@ Verbs: version, help, status, trace, timeline, profile, app
 (new/list/show/delete/data-delete/channel-new/channel-delete), accesskey
 (new/list/delete), build, unregister, upgrade, shell, train, eval,
 deploy, undeploy, trainer, eventserver, dashboard, adminserver, export,
-import, template (list/get), run, start-all, stop-all, daemons, daemon,
-storeserver, minipg.
+import, template (list/get), run, launch, start-all, stop-all, daemons,
+daemon, storeserver, minipg.
 
 Every verb that builds a ``ComputeContext`` (status, shell, run, train,
 eval, deploy, trainer) takes ``--device {cuda,cpu}``, default ``cuda``;
@@ -38,34 +38,23 @@ servers (quorum writes, failover reads, hinted handoff); ``storeserver
 anti-entropy loop, and ``status --store-url`` prints one health line per
 node.
 
-A verb or option that needs a part of the system not ported yet exits 1
-naming its ROADMAP.md item before doing anything: more than one card
-(9).
+``--mesh-shape D,M`` (or the variant's ``meshConf.shape``) builds a
+(data, model) mesh; ``launch -n N -- <argv>`` starts N coordinated
+processes (``torch.distributed``: ``nccl`` with a card per rank, ``gloo``
+under ``--device cpu``), and ``train`` / ``run`` under it join the
+process group.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
 
 from predictionio_tpu_torch.obs.context import redact_keys
 from predictionio_tpu_torch.version import __version__
-
-_ITEM = {
-    "9": "ROADMAP.md, queue 1, item 9",
-}
-
-
-def _refuse(what: str, item: str) -> int:
-    """Print why ``what`` cannot run in the port and return exit code 1."""
-    print(f"error: {what} is not ported yet ({_ITEM[item]})",
-          file=sys.stderr)
-    return 1
-
 
 def _load_variant(path: str | None) -> dict:
     if not path:
@@ -150,13 +139,20 @@ def _variant_batch(args, variant: dict | None) -> str:
 def _mesh_ctx(args, variant: dict | None = None):
     """Compute context from CLI flags, falling back to the variant's
     embedded ``meshConf`` (``{"meshConf": {"shape": "4,2" | [4, 2],
-    "batch": "nightly"}}``), as the JAX console reads it. The port runs
-    on one card: a shape spanning more than one device refuses, naming
-    item 9. ``--device`` picks the card (default) or the CPU."""
-    from predictionio_tpu_torch.cli.commands import CommandError
+    "batch": "nightly"}}``, device counts per data/model axis), as the
+    JAX console reads it. Joins the multi-process job first when
+    ``launch`` (or the ``PIO_*`` env contract) started this process.
+    ``--device`` picks the cards (default) or the CPU, where a shape
+    gives that many logical devices; ``--devices`` lists the mesh's
+    devices explicitly (``cuda:0,cuda:0`` is two logical devices on one
+    card). A CUDA shape wider than the cards raises."""
+    from predictionio_tpu_torch.parallel import distributed
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
+    device = getattr(args, "device", None)
+    distributed.initialize(device=device)
     mesh_conf = (variant or {}).get("meshConf") or {}
+    mesh_shape = None
     raw_shape = getattr(args, "mesh_shape", None) or mesh_conf.get("shape")
     if raw_shape:
         try:
@@ -169,14 +165,10 @@ def _mesh_ctx(args, variant: dict | None = None):
                 f"error: mesh shape {raw_shape!r} (--mesh-shape / "
                 "meshConf.shape) must be device counts like \"4,2\""
             ) from None
-        if math.prod(mesh_shape) != 1:
-            raise CommandError(
-                f"mesh shape {raw_shape!r} (--mesh-shape / meshConf.shape) "
-                f"spans {math.prod(mesh_shape)} devices; more than one "
-                f"card is not ported yet ({_ITEM['9']})"
-            )
+    devices = getattr(args, "devices", None)
     return ComputeContext.create(
-        batch=_variant_batch(args, variant), device=args.device
+        batch=_variant_batch(args, variant), mesh_shape=mesh_shape,
+        devices=devices.split(",") if devices else None, device=device,
     )
 
 
@@ -1345,10 +1337,9 @@ def cmd_trainer(args) -> int:
 
 
 def cmd_undeploy(args) -> int:
+    # the stop handshake imports no torch: undeploy is one HTTP call
     from predictionio_tpu_torch.serving.config import ServerConfig
-    from predictionio_tpu_torch.serving.engine_server import (
-        undeploy_existing,
-    )
+    from predictionio_tpu_torch.serving.http import undeploy_existing
 
     if undeploy_existing(args.ip, args.port, ServerConfig.from_env()):
         print(f"Undeployed engine server at {args.ip}:{args.port}")
@@ -1871,6 +1862,37 @@ def cmd_daemons(args) -> int:
     return daemon.status_all()
 
 
+def cmd_launch(args) -> int:
+    """Spawn N coordinated processes of a command. Children receive
+    ``PIO_COORDINATOR_ADDRESS`` / ``PIO_NUM_PROCESSES`` /
+    ``PIO_PROCESS_ID`` and join the process group through
+    ``parallel.distributed.initialize()`` (``run`` and ``train`` do so
+    themselves). A ``.py`` path runs under this Python; a
+    ``module:fn`` target runs through this console's ``run``."""
+    from predictionio_tpu_torch.parallel.distributed import launch_processes
+
+    argv = list(args.cmd)
+    if argv and argv[0] == "--":
+        argv = argv[1:]
+    if not argv:
+        print("error: launch needs a command to run", file=sys.stderr)
+        return 1
+    if argv[0].endswith(".py") or ":" in argv[0]:
+        if argv[0].endswith(".py"):
+            argv = [sys.executable] + argv
+        else:
+            argv = [
+                sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                "run",
+            ] + argv
+    return launch_processes(
+        argv,
+        num_processes=args.num_processes,
+        coordinator_address=args.coordinator_address,
+        timeout=args.timeout or None,
+    )
+
+
 def cmd_daemon(args) -> int:
     """Run ANY console verb as a managed background daemon
     (reference bin/pio-daemon: nohup + pidfile)."""
@@ -1894,12 +1916,6 @@ def cmd_daemon(args) -> int:
 
 # -- parser ----------------------------------------------------------------
 
-#: verbs of the JAX console that need an unported item: verb → (what, item)
-_REFUSED_VERBS = {
-    "launch": ("launch (the multi-process launcher)", "9"),
-}
-
-
 def _store_url_args(p) -> None:
     p.add_argument(
         "--store-url", dest="store_urls", action="append", default=None,
@@ -1916,7 +1932,12 @@ def _store_url_args(p) -> None:
 def _device_arg(p) -> None:
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="run on the CUDA card (default) or on the host's CPU",
+        help="run on the CUDA cards (default) or on the host's CPU",
+    )
+    p.add_argument(
+        "--devices", default=None,
+        help="comma list of the mesh's devices, repeats allowed "
+             "(cuda:0,cuda:0 is two logical devices on one card)",
     )
 
 
@@ -2056,8 +2077,8 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(
                 "--mesh-shape",
                 dest="mesh_shape",
-                help="data,model mesh shape; one device only (more is "
-                     "ROADMAP.md, queue 1, item 9)",
+                help="data,model mesh shape (default: every device on "
+                     "data)",
             )
             _device_arg(p)
 
@@ -2454,11 +2475,24 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.set_defaults(func=cmd_daemon)
 
-    for verb, (what, item) in _REFUSED_VERBS.items():
-        sub.add_parser(verb, help=f"not ported ({_ITEM[item]})").set_defaults(
-            func=lambda _args, what=what, item=item: _refuse(what, item),
-            any_args=True,
-        )
+    p = sub.add_parser("launch")
+    p.add_argument(
+        "-n", "--num-processes", type=int, default=1,
+        help="process count (one per card)",
+    )
+    p.add_argument(
+        "--coordinator-address", dest="coordinator_address",
+        help="host:port of process 0 (default: 127.0.0.1:<free port>)",
+    )
+    p.add_argument(
+        "--timeout", type=float, default=0.0,
+        help="seconds to wait for all processes (0 = no limit)",
+    )
+    p.add_argument(
+        "cmd", nargs=argparse.REMAINDER,
+        help="command to run (script.py, module:fn, or full argv after --)",
+    )
+    p.set_defaults(func=cmd_launch)
 
     return parser
 

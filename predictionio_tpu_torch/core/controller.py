@@ -165,8 +165,15 @@ class Algorithm(_Controller, Generic[PD, M, Q, P], abc.ABC):
         )
 
     def stage_model(self, ctx: ComputeContext, model: M) -> M:
-        """Deploy-time hook: place model state on ``ctx.device`` ONCE so
-        serving never re-uploads it per request. Default: identity."""
+        """Deploy-time hook: place model state on ``ctx``'s devices ONCE
+        so serving never re-uploads it per request. Default: identity.
+
+        When ``ctx.model_parallelism > 1`` implementations should commit
+        large row-addressed state SHARDED over the model mesh axis
+        (``predictionio_tpu_torch.parallel.partition`` has the rule
+        tables and the ``stage_factor_matrix`` helper) so per-device
+        memory divides by the axis size; already-sharded values must
+        pass through untouched — the unbroken train→serve path."""
         return model
 
     # -- persistence hooks (MANUAL mode) ---------------------------------

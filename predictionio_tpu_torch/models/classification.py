@@ -134,9 +134,9 @@ class ClassificationPreparator(
         self, ctx: ComputeContext, td: ClassificationTrainingData
     ) -> PreparedClassificationData:
         return PreparedClassificationData(
-            x=ctx.shard_rows(td.x),
-            y=ctx.shard_rows(td.y),
-            mask=ctx.shard_rows(np.ones(len(td.x), np.float32)),
+            x=ctx.pad_rows(td.x),
+            y=ctx.pad_rows(td.y),
+            mask=ctx.pad_rows(np.ones(len(td.x), np.float32)),
             label_map=td.label_map,
             n_classes=max(len(td.label_map), 1),
         )

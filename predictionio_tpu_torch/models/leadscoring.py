@@ -130,9 +130,9 @@ class LeadPreparator(Preparator[LeadTrainingData, LeadPrepared]):
         std = np.maximum(td.x.std(axis=0), 1e-6)
         x = (td.x - mean) / std
         return LeadPrepared(
-            x=ctx.shard_rows(x.astype(np.float32)),
-            y=ctx.shard_rows(td.y),
-            mask=ctx.shard_rows(np.ones(len(td.x), np.float32)),
+            x=ctx.pad_rows(x.astype(np.float32)),
+            y=ctx.pad_rows(td.y),
+            mask=ctx.pad_rows(np.ones(len(td.x), np.float32)),
             mean=mean.astype(np.float32),
             std=std.astype(np.float32),
         )

@@ -159,8 +159,9 @@ class ALSParams(Params):
 @dataclasses.dataclass
 class ALSRecModel:
     # np.ndarray after train and when loaded from the model store;
-    # tensors on the card after ALSAlgorithm.stage_model (or
-    # QuantizedFactors after a quantized deploy)
+    # tensors on the card after ALSAlgorithm.stage_model (ShardedTensor
+    # on a mesh with a model axis above 1, QuantizedFactors after a
+    # quantized deploy)
     user_factors: "np.ndarray | torch.Tensor"
     item_factors: "np.ndarray | torch.Tensor"
     user_map: BiMap
@@ -213,8 +214,10 @@ class ALSAlgorithm(Algorithm):
     def stage_model(
         self, ctx: ComputeContext, model: ALSRecModel
     ) -> ALSRecModel:
-        """Put both factor matrices on ``ctx.device`` once; each request
-        then uploads only its int user indices."""
+        """Put both factor matrices on ``ctx``'s devices once, row-sharded
+        over ``model`` when that axis is above 1 (a sharded result of
+        ``train_als(return_layout="device")`` passes straight through);
+        each request then uploads only its int user indices."""
         user_f, _ = partition.stage_factor_matrix(
             ctx, model.user_factors, n_real=len(model.user_map)
         )

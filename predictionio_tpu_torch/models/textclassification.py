@@ -157,9 +157,9 @@ class TextPreparator(Preparator[TextTrainingData, TextPrepared]):
         label_map, y = BiMap.string_int_with_codes(np.asarray(td.labels))
         x = hash_rows(td.texts, n)
         return TextPrepared(
-            x=ctx.shard_rows(x),
-            y=ctx.shard_rows(y),
-            mask=ctx.shard_rows(np.ones(len(td.texts), np.float32)),
+            x=ctx.pad_rows(x),
+            y=ctx.pad_rows(y),
+            mask=ctx.pad_rows(np.ones(len(td.texts), np.float32)),
             label_map=label_map,
             n_features=n,
         )

@@ -1,7 +1,7 @@
-"""Alternating Least Squares on one card.
+"""Alternating Least Squares on the device mesh.
 
 Counterpart of ``predictionio_tpu/ops/als.py`` (implicit Hu-Koren-Volinsky
-and explicit weighted-λ ALS), in PyTorch on ``ctx.device``:
+and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
 
 * Host side, interactions are packed into **degree-bucketed slabs**
   (:func:`build_bucketed`, copied from the JAX package, numpy plus the
@@ -16,11 +16,15 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx.device``:
 * :func:`train_als` alternates the two sides for ``iterations`` epochs,
   with npz checkpoints in the JAX package's format, so a checkpoint
   written by either package resumes in the other.
+* On a mesh of more than one device the slab rows split over ``data``
+  (replicated factors, the solved rows all-gathered), or, with
+  ``factor_sharding="sharded"``, the factor matrices split over ``model``
+  and the stats rows over every device (:func:`plan_shards`), each
+  position solving its rows and the results gathered device-major.
 
 The JAX package's TPU formulations of the same math are not ported: the
 k-major gather layout (``PIO_ALS_GATHER_LAYOUT``) and the unrolled
-Cholesky–Crout solve. Model-sharded training (``factor_sharding=
-"sharded"``) is multi-GPU work (ROADMAP.md, queue 1, item 9).
+Cholesky–Crout solve.
 """
 
 from __future__ import annotations
@@ -37,8 +41,11 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.obs import get_registry, tracing
+from predictionio_tpu_torch.parallel import distributed, partition
 from predictionio_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
     ComputeContext,
+    ShardedTensor,
     assert_phantom_rows_zero,
     load_cuda_linalg,
 )
@@ -501,6 +508,48 @@ def _solve(a, b, cnt, yty, lam, implicit):
                                               device=x.device))
 
 
+def _prepare(y, compute, implicit):
+    """``y`` cast once to ``compute`` (before any gather), its float32
+    view, and ``YᵀY`` (implicit mode) in float32."""
+    if compute is not None:
+        y = y.to(compute)
+    yf = y.float()
+    return y, (yf.T @ yf if implicit else None)
+
+
+def _heavy_stats(y, heavy_groups, n_regular, n_heavy_slots, implicit, alpha,
+                 compute):
+    """Heavy sub-rows' partial stats added into their owners' slots:
+    ``(A [n_heavy_slots,k,k], b, count)``. Owners are absolute stats
+    positions; phantom sub-rows carry owner 0 and zero weights, and the
+    clamp keeps their (zero) contribution in range."""
+    k = y.shape[1]
+    dev = y.device
+    ha = torch.zeros((n_heavy_slots, k, k), device=dev)
+    hb = torch.zeros((n_heavy_slots, k), device=dev)
+    hcnt = torch.zeros((n_heavy_slots,), device=dev)
+    for idx, weights, valid, owner in heavy_groups:
+        ga, gb, gcnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
+                                   compute)
+        local = (owner - n_regular).clamp(0, n_heavy_slots - 1)
+        with torch.profiler.record_function("als/heavy_add"):
+            ha.index_add_(0, local, ga)
+            hb.index_add_(0, local, gb)
+            hcnt.index_add_(0, local, gcnt)
+    return ha, hb, hcnt
+
+
+def _regular_solve(y, yty, slab_arrays, implicit, alpha, lam, compute):
+    """Every slab's systems, each solved as soon as it is built; the
+    solved rows concatenated in slab order."""
+    parts = []
+    for idx, weights, valid in slab_arrays:
+        a, b, cnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
+                                compute)
+        parts.append(_solve(a, b, cnt, yty, lam, implicit))
+    return torch.cat(parts, dim=0)
+
+
 def _assemble_and_solve(
     y, slab_arrays, heavy_groups, n_heavy_slots, implicit, alpha, lam,
     compute=None,
@@ -511,35 +560,13 @@ def _assemble_and_solve(
     sub-rows add their partial stats into a small ``[n_heavy_slots, k,
     k]`` buffer with ``index_add_``, solved last. ``heavy_groups`` are
     ``(idx, weights, valid, owner)`` with absolute stats positions."""
-    k = y.shape[1]
-    if compute is not None:
-        y = y.to(compute)  # cast once, before any gather
-    yf = y.float()
-    yty = yf.T @ yf if implicit else None
-    n_regular = 0
-    parts = []
-    for idx, weights, valid in slab_arrays:
-        a, b, cnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
-                                compute)
-        parts.append(_solve(a, b, cnt, yty, lam, implicit))
-        n_regular += idx.shape[0]
-    if n_heavy_slots:
-        dev = yf.device
-        ha = torch.zeros((n_heavy_slots, k, k), device=dev)
-        hb = torch.zeros((n_heavy_slots, k), device=dev)
-        hcnt = torch.zeros((n_heavy_slots,), device=dev)
-        for idx, weights, valid, owner in heavy_groups:
-            ga, gb, gcnt = _slab_stats(y, idx, weights, valid, implicit,
-                                       alpha, compute)
-            # phantom sub-rows carry owner 0 and zero weights: the clamp
-            # keeps their (zero) contribution in range
-            local = (owner - n_regular).clamp(0, n_heavy_slots - 1)
-            with torch.profiler.record_function("als/heavy_add"):
-                ha.index_add_(0, local, ga)
-                hb.index_add_(0, local, gb)
-                hcnt.index_add_(0, local, gcnt)
-        parts.append(_solve(ha, hb, hcnt, yty, lam, implicit))
-    return torch.cat(parts, dim=0)
+    y, yty = _prepare(y, compute, implicit)
+    x = _regular_solve(y, yty, slab_arrays, implicit, alpha, lam, compute)
+    if not n_heavy_slots:
+        return x
+    ha, hb, hcnt = _heavy_stats(y, heavy_groups, x.shape[0], n_heavy_slots,
+                                implicit, alpha, compute)
+    return torch.cat([x, _solve(ha, hb, hcnt, yty, lam, implicit)], dim=0)
 
 
 def make_solve_side(
@@ -592,6 +619,393 @@ def make_train_step(solve_u, solve_i):
         return x, y
 
     return run
+
+
+# --------------------------------------------------------------------------
+# More than one device: the replicated layout over ``data`` and the
+# model-sharded layout
+# --------------------------------------------------------------------------
+#
+# Each mesh position solves its share of the stats rows through
+# ``_assemble_and_solve`` (a plain loop over the positions: logical
+# devices on one card take turns); the solved rows meet on the home
+# device, across processes through ``distributed.all_gather_cat``.
+
+
+def _sync(x) -> None:
+    for t in (x.unique_shards() if isinstance(x, ShardedTensor) else [x]):
+        sync(t)
+
+
+def _slab_tree(slabs) -> list[dict]:
+    """Slabs as a named tree: the leaf paths (``slabs/0/idx``) are what
+    the partition-rule regexes match against."""
+    return [{"idx": s.idx, "weights": s.weights, "valid": s.valid}
+            for s in slabs]
+
+
+def _slab_tuples(tree: list[dict]) -> tuple:
+    return tuple((d["idx"], d["weights"], d["valid"]) for d in tree)
+
+
+def _at(arrays, pos: int) -> tuple:
+    return tuple(a.shards[pos] for a in arrays)
+
+
+def _device_slabs(ctx: ComputeContext, packed: Bucketed):
+    """Stage the replicated-factor geometry per the ALS rule table: slab
+    rows (and the heavy owners with their sub-rows) split over
+    ``data``."""
+    placed = partition.shard_pytree(ctx, partition.ALS_REPLICATED_RULES, {
+        "slabs": _slab_tree(packed.slabs),
+        "heavy": [
+            {"idx": h.idx, "weights": h.weights, "valid": h.valid,
+             "owner": owner.astype(np.int64)}
+            for h, owner in zip(packed.heavy, packed.heavy_owner_pos)
+        ],
+    })
+    heavy = tuple((d["idx"], d["weights"], d["valid"], d["owner"])
+                  for d in placed["heavy"])
+    return _slab_tuples(placed["slabs"]), heavy
+
+
+def _split_layout(packed: Bucketed, n_shards: int):
+    """Where each regular stats row lands when every slab's rows split
+    into ``n_shards`` equal parts gathered shard-major: ``(c_slab, n
+    slab rows, layout position of each regular entity, mask of regular
+    entities)``."""
+    rbs = [s.idx.shape[0] for s in packed.slabs]
+    per = []
+    for rb in rbs:
+        if rb % n_shards:
+            raise ValueError(
+                "slab rows not divisible by n_shards; "
+                "build_bucketed with row_multiple=n_shards"
+            )
+        per.append(rb // n_shards)
+    c_slab = int(sum(per))
+    n_slab_rows = int(sum(rbs))
+    slab_ends = np.cumsum(rbs)
+    offsets_global = np.concatenate([[0], slab_ends[:-1]])
+    local_off = np.concatenate([[0], np.cumsum(per)[:-1]]).astype(np.int64)
+    per_arr = np.asarray(per, np.int64)
+    inv = packed.inv_perm.astype(np.int64)
+    is_reg = inv < n_slab_rows
+    pos = inv[is_reg]
+    slab_of = np.searchsorted(slab_ends, pos, side="right")
+    j = pos - offsets_global[slab_of]
+    shard = j // per_arr[slab_of]
+    local = local_off[slab_of] + (j % per_arr[slab_of])
+    return c_slab, n_slab_rows, shard * c_slab + local, is_reg
+
+
+def make_replicated_half_step(
+    ctx: ComputeContext,
+    packed: Bucketed,
+    implicit: bool,
+    alpha: float,
+    compute_dtype: str | None = None,
+) -> Callable[[torch.Tensor, float], torch.Tensor]:
+    """The replicated layout over more than one device (or process):
+    slab rows split over ``data``, each position solving its rows;
+    heavy owners' partial stats summed over ``data`` in order and solved
+    on the home device; the solved rows all-gathered into the factor
+    matrix, ``(y [I_padded, k] on ctx.device, lam) → x`` there."""
+    compute = _resolve_compute(compute_dtype)
+    slabs, heavy = _device_slabs(ctx, packed)
+    d = max(ctx.data_parallelism, 1)
+    c_slab, n_slab_rows, reg_pos, is_reg = _split_layout(packed, d)
+    inv = packed.inv_perm.astype(np.int64).copy()
+    inv[is_reg] = reg_pos
+    inv[~is_reg] = d * c_slab + (inv[~is_reg] - n_slab_rows)
+    home = ctx.device
+    inv = torch.from_numpy(inv).to(home)
+    n_heavy = packed.n_stat_rows - n_slab_rows
+    mesh = ctx.mesh
+    # one position per data index (model index 0), in data order
+    lead = torch.tensor([p for p in range(mesh.size)
+                         if mesh.coords(p).get(MODEL_AXIS, 0) == 0])
+
+    def solve(y: torch.Tensor, lam: float) -> torch.Tensor:
+        k = y.shape[1]
+        ys = ctx.on_each(y)
+        regs, parts = [], []
+        for pos in mesh.local:
+            yd, yty = _prepare(ys[mesh.device(pos)], compute, implicit)
+            regs.append(_regular_solve(
+                yd, yty, [_at(s, pos) for s in slabs], implicit, alpha,
+                lam, compute).to(home))
+            if n_heavy:
+                ha, hb, hcnt = _heavy_stats(
+                    yd, [_at(h, pos) for h in heavy], n_slab_rows, n_heavy,
+                    implicit, alpha, compute)
+                parts.append(torch.cat(
+                    [ha.reshape(n_heavy, -1), hb, hcnt[:, None]],
+                    dim=1).to(home))
+        every = distributed.all_gather_cat(torch.stack(regs))
+        x = [every.index_select(0, lead.to(home)).reshape(-1, k)]
+        if n_heavy:
+            summed = distributed.all_gather_cat(torch.stack(parts))
+            summed = summed.index_select(0, lead.to(home))
+            total = summed[0]
+            for more in summed[1:]:
+                total = total + more
+            yh, yty = _prepare(y.to(home), compute, implicit)
+            x.append(_solve(total[:, :k * k].reshape(n_heavy, k, k),
+                            total[:, k * k:k * k + k], total[:, -1], yty,
+                            lam, implicit))
+        return torch.cat(x, dim=0).index_select(0, inv)
+
+    return solve
+
+
+@dataclasses.dataclass
+class ShardPlan:
+    """Device-major layout for one solve direction in sharded mode.
+
+    Each slab is row-split over the combined (data, model) axes, so the
+    gathered stats layout is device-major: device ``i`` holds rows
+    ``[i*c_local, (i+1)*c_local)``. ``inv_perm_dm`` re-expresses
+    :attr:`Bucketed.inv_perm` in that layout. Heavy sub-rows are
+    regrouped so every sub-row's owner slot lives on the same device
+    (``heavy_owner_local`` is a device-local stats position), which
+    keeps the heavy scatter-add device-local.
+    """
+
+    heavy: Slab | None                    # regrouped per-shard heavy slab
+    heavy_owner_local: np.ndarray | None  # [rows] int32 — local stats pos
+    inv_perm_dm: np.ndarray               # [n_rows_padded] int32
+    c_local: int                          # stats rows per device
+    n_heavy_slots_local: int              # heavy stat slots per device
+    n_shards: int
+
+
+def plan_shards(packed: Bucketed, n_shards: int) -> ShardPlan:
+    """Host-side layout planning for the model-sharded solver (the JAX
+    package's, to the row)."""
+    c_slab, n_slab_rows, reg_pos, is_reg = _split_layout(packed, n_shards)
+
+    heavy_out = None
+    owner_local = None
+    h_slots_per = 0
+    slot_local: dict[int, tuple[int, int]] = {}
+    heavy = None
+    if packed.heavy:
+        # regrouping is by owner anyway: merge the slot-capped groups
+        # back into one host-side slab first
+        heavy = Slab(
+            idx=np.concatenate([h.idx for h in packed.heavy]),
+            weights=np.concatenate([h.weights for h in packed.heavy]),
+            valid=np.concatenate([h.valid for h in packed.heavy]),
+        )
+        owner_all = np.concatenate(packed.heavy_owner_pos)
+    if heavy is not None:
+        real = heavy.valid.any(axis=1)
+        real_rows = np.nonzero(real)[0]
+        owners_glob = owner_all[real_rows].astype(np.int64)
+        slots, slot_counts = np.unique(owners_glob, return_counts=True)
+        # greedy balance: heaviest slot first onto the lightest shard
+        shard_sub = np.zeros(n_shards, np.int64)
+        shard_slots: list[list[int]] = [[] for _ in range(n_shards)]
+        for t in np.argsort(-slot_counts):
+            i = int(np.argmin(shard_sub))
+            shard_sub[i] += slot_counts[t]
+            shard_slots[i].append(int(slots[t]))
+        h_slots_per = max(len(s) for s in shard_slots)
+        rb_h_per = int(shard_sub.max())
+        width = heavy.idx.shape[1]
+        h_idx = np.zeros((n_shards * rb_h_per, width), np.int32)
+        h_wt = np.zeros((n_shards * rb_h_per, width), np.float32)
+        h_vd = np.zeros((n_shards * rb_h_per, width), np.float32)
+        owner_local = np.zeros(n_shards * rb_h_per, np.int32)
+        for i in range(n_shards):
+            fill = 0
+            for t_local, slot in enumerate(shard_slots[i]):
+                slot_local[slot] = (i, t_local)
+                rows_sel = real_rows[owners_glob == slot]
+                n = len(rows_sel)
+                dst = i * rb_h_per + fill
+                h_idx[dst:dst + n] = heavy.idx[rows_sel]
+                h_wt[dst:dst + n] = heavy.weights[rows_sel]
+                h_vd[dst:dst + n] = heavy.valid[rows_sel]
+                owner_local[dst:dst + n] = c_slab + t_local
+                fill += n
+        heavy_out = Slab(idx=h_idx, weights=h_wt, valid=h_vd)
+    c_local = c_slab + h_slots_per
+
+    inv = packed.inv_perm.astype(np.int64)
+    inv_dm = np.zeros_like(inv)
+    # the regular rows' (shard, local) positions, rebased onto c_local
+    shard, local = np.divmod(reg_pos, c_slab)
+    inv_dm[is_reg] = shard * c_local + local
+    for e in np.nonzero(~is_reg)[0]:
+        i, t_local = slot_local[int(inv[e])]
+        inv_dm[e] = i * c_local + c_slab + t_local
+    return ShardPlan(
+        heavy=heavy_out,
+        heavy_owner_local=owner_local,
+        inv_perm_dm=inv_dm.astype(np.int32),
+        c_local=c_local,
+        n_heavy_slots_local=h_slots_per,
+        n_shards=n_shards,
+    )
+
+
+@dataclasses.dataclass
+class ShardedSide:
+    """Device-staged arrays for one solve direction (sharded mode)."""
+
+    slabs: tuple            # ((idx, weights, valid), ...) — P((data,model))
+    heavy: tuple            # () or (idx, weights, valid, owner_local)
+    inv: ShardedTensor      # [n_rows_padded] int64 — P(model)
+    n_heavy_slots_local: int
+
+
+def stage_sharded(
+    ctx: ComputeContext, packed: Bucketed, plan: ShardPlan
+) -> ShardedSide:
+    """Stage one direction's sharded geometry per the ALS rule table
+    (``partition.ALS_SHARDED_RULES``): slab rows split over the combined
+    (data, model) axes, the heavy owner map with its slab, the
+    device-major permutation over ``model``. The rules' axes are
+    checked against the mesh here."""
+    tree: dict = {"slabs": _slab_tree(packed.slabs)}
+    if plan.heavy is not None:
+        tree["heavy"] = {
+            "idx": plan.heavy.idx,
+            "weights": plan.heavy.weights,
+            "valid": plan.heavy.valid,
+            "owner": plan.heavy_owner_local.astype(np.int64),
+        }
+    tree["inv_perm"] = plan.inv_perm_dm.astype(np.int64)
+    placed = partition.shard_pytree(ctx, partition.ALS_SHARDED_RULES, tree)
+    heavy: tuple = ()
+    if plan.heavy is not None:
+        h = placed["heavy"]
+        heavy = (h["idx"], h["weights"], h["valid"], h["owner"])
+    return ShardedSide(
+        slabs=_slab_tuples(placed["slabs"]),
+        heavy=heavy,
+        inv=placed["inv_perm"],
+        n_heavy_slots_local=plan.n_heavy_slots_local,
+    )
+
+
+def _factor_sharding(ctx: ComputeContext):
+    return ctx.sharding(*partition.match_partition_rule(
+        partition.ALS_SHARDED_RULES, "user_factors"))
+
+
+def _gather_full(ctx: ComputeContext, y: ShardedTensor, compute) -> dict:
+    """The opposite side's model shards, cast to ``compute`` first (the
+    all-gather then moves low-precision bytes), gathered whole onto
+    every local device: device → ``[I_padded, k]``."""
+    if compute is not None:
+        y = y.map(lambda t: t.to(compute))
+    return ctx.on_each(y.gather())
+
+
+def _sharded_half(
+    ctx: ComputeContext, y_full: dict, side: ShardedSide, implicit, alpha,
+    lam, compute=None,
+) -> ShardedTensor:
+    """One solve direction, per mesh position: each solves its share of
+    the (data×model)-split stats rows against the whole opposite side
+    (``y_full``, device → tensor), heavy owners device-local by
+    construction (:class:`ShardPlan`). The solved rows are gathered
+    device-major — ``model`` minor, ``data`` major, the flat mesh order —
+    and each position takes its model shard's rows through
+    ``inv_perm_dm``."""
+    mesh = ctx.mesh
+    home = ctx.device
+    stats = []
+    for pos in mesh.local:
+        heavy = [_at(side.heavy, pos)] if side.heavy else []
+        stats.append(_assemble_and_solve(
+            y_full[mesh.device(pos)], [_at(s, pos) for s in side.slabs],
+            heavy, side.n_heavy_slots_local, implicit, alpha, lam, compute,
+        ).to(home))
+    k = stats[0].shape[1]
+    xs = distributed.all_gather_cat(torch.stack(stats)).reshape(-1, k)
+    shards: list = [None] * mesh.size
+    made: dict = {}
+    for pos in mesh.local:
+        inv = side.inv.shards[pos]
+        key = (id(inv), mesh.device(pos))
+        if key not in made:
+            made[key] = xs.index_select(0, inv.to(home)).to(key[1])
+        shards[pos] = made[key]
+    return ShardedTensor(_factor_sharding(ctx), (side.inv.shape[0], k),
+                         shards)
+
+
+def make_sharded_half_step(
+    ctx: ComputeContext, side: ShardedSide, implicit: bool, alpha: float,
+    compute_dtype: str | None = None,
+):
+    """Single-direction sharded solve: ``(y, lam) → x`` (both
+    ``P(model)`` :class:`ShardedTensor`)."""
+    compute = _resolve_compute(compute_dtype)
+
+    def solve_once(y: ShardedTensor, lam: float) -> ShardedTensor:
+        return _sharded_half(ctx, _gather_full(ctx, y, compute), side,
+                             implicit, alpha, lam, compute)
+
+    return solve_once
+
+
+def make_sharded_train_step(
+    ctx: ComputeContext,
+    u_side: ShardedSide,
+    i_side: ShardedSide,
+    implicit: bool,
+    alpha: float,
+    compute_dtype: str | None = None,
+):
+    """The epoch loop with model-sharded factors: ``(x, y, lam, n_iters)
+    → (x, y)``, each a ``P(model)`` :class:`ShardedTensor` whose
+    positions hold a ``1/model_parallelism`` row slice."""
+    solve_u = make_sharded_half_step(ctx, u_side, implicit, alpha,
+                                     compute_dtype)
+    solve_i = make_sharded_half_step(ctx, i_side, implicit, alpha,
+                                     compute_dtype)
+    return make_train_step(solve_u, solve_i)
+
+
+def check_factor_sharding(
+    ctx: ComputeContext,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_users: int,
+    n_items: int,
+    rank: int = 8,
+    block_len: int = 8,
+) -> None:
+    """Validation probe: run one sharded training step and assert the
+    factor matrices are genuinely split over the model axis — each
+    position holds exactly a ``1/model_parallelism`` row slice, not a
+    replicated copy."""
+    n_dev = ctx.n_devices
+    up = build_bucketed(rows, cols, vals, n_users, block_len=block_len,
+                        row_multiple=n_dev)
+    ip = build_bucketed(cols, rows, vals, n_items, block_len=block_len,
+                        row_multiple=n_dev)
+    u_side = stage_sharded(ctx, up, plan_shards(up, n_dev))
+    i_side = stage_sharded(ctx, ip, plan_shards(ip, n_dev))
+    run = make_sharded_train_step(ctx, u_side, i_side, True, 1.0)
+    place = _factor_sharding(ctx)
+    x = place.place(np.zeros((up.n_rows_padded, rank), np.float32))
+    y = place.place(np.ones((ip.n_rows_padded, rank), np.float32))
+    x, y = run(x, y, 0.1, 1)
+    m_par = max(ctx.model_parallelism, 1)
+    for arr, n_pad in ((x, up.n_rows_padded), (y, ip.n_rows_padded)):
+        shard_rows = {s.shape[0] for s in arr.addressable_shards}
+        if shard_rows != {n_pad // m_par}:
+            raise AssertionError(
+                f"factors not model-sharded: shard rows {shard_rows}, "
+                f"expected {{{n_pad // m_par}}}"
+            )
 
 
 # --------------------------------------------------------------------------
@@ -671,26 +1085,31 @@ def train_als(
     factor_sharding: str = "auto",
     return_layout: str = "host",
 ) -> ALSFactors:
-    """Alternate user/item normal-equation solves on ``ctx.device``.
+    """Alternate user/item normal-equation solves on ``ctx``'s mesh.
 
     The signature and defaults are the JAX package's. ``ctx=None`` takes
-    the current CUDA device and raises without one: training never drops
-    quietly to the CPU (pass ``ComputeContext.create(device="cpu")`` for
-    that). Epochs are enqueued without a wait; a ``timer``
+    the CUDA cards and raises without one: training never drops quietly
+    to the CPU (pass ``ComputeContext.create(device="cpu")`` for that).
+    Epochs are enqueued without a wait; a ``timer``
     (:class:`~predictionio_tpu_torch.utils.profiling.StepTimer`) instead
     times each half-step, synchronising after it. With
     ``checkpoint_dir`` + ``checkpoint_every`` the factors are written
     every N iterations (atomic npz: ``iteration``, ``item_factors``,
-    ``user_factors``), and ``resume=True`` continues from the latest
-    checkpoint whose shapes match and whose iteration is at most
-    ``iterations``; a damaged checkpoint means a cold start.
-    ``row_chunk`` is kept for call compatibility.
+    ``user_factors``; the coordinator process writes), and
+    ``resume=True`` continues from the latest checkpoint whose shapes
+    match and whose iteration is at most ``iterations`` (across
+    processes, the coordinator's view); a damaged checkpoint means a
+    cold start. ``row_chunk`` is kept for call compatibility.
 
     ``compute_dtype`` ("bfloat16") gathers bf16 factors; products,
-    sums and the solve stay float32. ``factor_sharding`` "auto" and
-    "replicated" are one card's layout; "sharded" is multi-GPU work and
-    raises. ``return_layout`` "host" returns unpadded numpy; "device"
-    returns the padded tensors on ``ctx.device``.
+    sums and the solve stay float32. ``factor_sharding``: "replicated"
+    keeps both factor matrices whole (slab rows split over ``data``
+    when the mesh has more than one device); "sharded" splits them over
+    ``model`` with the stats rows split over every device; "auto" picks
+    "sharded" when the model axis is above 1. ``return_layout`` "host"
+    returns unpadded numpy; "device" the padded factors as trained (a
+    ``P(model)`` :class:`ShardedTensor` when sharded, else one tensor on
+    ``ctx.device``), single-process only.
     """
     del row_chunk
     if factor_sharding not in ("auto", "sharded", "replicated"):
@@ -698,20 +1117,26 @@ def train_als(
             f"factor_sharding must be 'auto', 'sharded' or 'replicated', "
             f"got {factor_sharding!r}"
         )
-    if factor_sharding == "sharded":
-        raise NotImplementedError(
-            "factor_sharding='sharded' (model-sharded factors over "
-            "several cards) is not ported yet: ROADMAP.md, queue 1, "
-            "item 9 (multi-GPU)"
-        )
     if return_layout not in ("host", "device"):
         raise ValueError(
             f"return_layout must be 'host' or 'device', "
             f"got {return_layout!r}"
         )
+    if return_layout == "device" and distributed.process_count() > 1:
+        raise NotImplementedError(
+            "return_layout='device' is single-process only (other "
+            "processes' shards are not addressable here); use the "
+            "default host layout on multi-process meshes"
+        )
     ctx = ctx or ComputeContext.create(batch="als")
-    load_cuda_linalg(ctx.device)
-    row_multiple = ctx.data_parallelism
+    for dev in ctx.local_devices:
+        load_cuda_linalg(dev)
+    sharded = factor_sharding == "sharded" or (
+        factor_sharding == "auto" and ctx.model_parallelism > 1
+    )
+    # one device, one process: the single-card path, no gathers
+    alone = ctx.n_devices == 1 and not distributed.is_initialized()
+    row_multiple = ctx.n_devices if sharded else ctx.data_parallelism
 
     user_packed = build_bucketed(
         user_ids, item_ids, values, n_users,
@@ -751,21 +1176,69 @@ def train_als(
             )
             start_iteration = 0
             resumed_user_factors = None
+    if resume and ckpt_path and distributed.process_count() > 1:
+        # the coordinator writes checkpoints; with a host-local
+        # checkpoint_dir the others see no file. Its view is broadcast
+        # and wins: divergent resume points would mean divergent
+        # collective schedules (a deadlock)
+        have = resumed_user_factors is not None
+        state = distributed.broadcast_array(
+            np.array([int(have), start_iteration], np.int64))
+        if int(state[0]):
+            base = np.asarray(init).dtype
+            init = distributed.broadcast_array(
+                np.asarray(init, base) if have
+                else np.zeros((n_items, rank), base))
+            resumed_user_factors = distributed.broadcast_array(
+                np.asarray(resumed_user_factors, base) if have
+                else np.zeros((n_users, rank), base))
+            start_iteration = int(state[1])
+        else:
+            init = _cold_init(n_items, rank, seed, dtype)
+            start_iteration = 0
+            resumed_user_factors = None
     np_dtype = np.asarray(init).dtype
     # phantom rows start (and, with no interactions, stay) exactly zero
     item_host = np.zeros((item_packed.n_rows_padded, rank), np_dtype)
     item_host[:n_items] = init
-    item_factors = torch.from_numpy(item_host).to(ctx.device)
-    user_factors = torch.zeros(
-        (user_packed.n_rows_padded, rank), dtype=item_factors.dtype,
-        device=ctx.device,
-    )
+    user_host = np.zeros((user_packed.n_rows_padded, rank), np_dtype)
+    # the factors' placement comes from the rule table that stages the
+    # geometry: P(model) row slices when sharded, else whole (one tensor
+    # on the home device that every position reads)
+    rules = partition.als_partition_rules(sharded)
+    partition.validate_rules(rules, ctx.mesh)
+    factor_place = ctx.sharding(
+        *partition.match_partition_rule(rules, "item_factors"))
+
+    def place(host: np.ndarray):
+        if sharded:
+            return factor_place.place(host)
+        return torch.from_numpy(host).to(ctx.device)
+
+    def fetch(arr) -> np.ndarray:
+        """Host copy of the whole factor matrix (a collective when the
+        process group is up: every process calls it)."""
+        if isinstance(arr, ShardedTensor):
+            arr = arr.gather()
+        return arr.cpu().numpy()
+
+    item_factors = place(item_host)
+    user_factors = place(user_host)
     lam = float(reg)
 
-    solve_u = make_solve_side(ctx, user_packed, implicit, alpha,
-                              compute_dtype)
-    solve_i = make_solve_side(ctx, item_packed, implicit, alpha,
-                              compute_dtype)
+    if sharded:
+        u_side = stage_sharded(
+            ctx, user_packed, plan_shards(user_packed, ctx.n_devices))
+        i_side = stage_sharded(
+            ctx, item_packed, plan_shards(item_packed, ctx.n_devices))
+        solve_u = make_sharded_half_step(ctx, u_side, implicit, alpha,
+                                         compute_dtype)
+        solve_i = make_sharded_half_step(ctx, i_side, implicit, alpha,
+                                         compute_dtype)
+    else:
+        make = make_solve_side if alone else make_replicated_half_step
+        solve_u = make(ctx, user_packed, implicit, alpha, compute_dtype)
+        solve_i = make(ctx, item_packed, implicit, alpha, compute_dtype)
     step = make_train_step(solve_u, solve_i)
 
     ran_any = False
@@ -778,14 +1251,14 @@ def train_als(
                 time.sleep(chaos_sleep)
             with timer.step("als/user_solve"):
                 user_factors = solve_u(item_factors, lam)
-                sync(user_factors)
+                _sync(user_factors)
             with timer.step("als/item_solve"):
                 item_factors = solve_i(user_factors, lam)
-                sync(item_factors)
+                _sync(item_factors)
             ran_any = True
             _maybe_checkpoint(
                 ckpt_path, checkpoint_every, it + 1, iterations,
-                user_factors, item_factors, n_users, n_items,
+                user_factors, item_factors, n_users, n_items, fetch,
             )
     else:
         checkpointing = bool(ckpt_path) and checkpoint_every > 0
@@ -806,7 +1279,7 @@ def train_als(
             ran_any = True
             _maybe_checkpoint(
                 ckpt_path, checkpoint_every, it, iterations,
-                user_factors, item_factors, n_users, n_items,
+                user_factors, item_factors, n_users, n_items, fetch,
             )
 
     if not ran_any:
@@ -818,21 +1291,23 @@ def train_als(
                 np.asarray(resumed_user_factors).dtype,
             )
             padded_u[:n_users] = resumed_user_factors[:n_users]
-            user_factors = torch.from_numpy(padded_u).to(ctx.device)
+            user_factors = place(padded_u)
         else:
             user_factors = solve_u(item_factors, lam)
     if return_layout == "device":
-        # fetch only the padded tails to check the phantom invariant
-        assert_phantom_rows_zero(user_factors[n_users:], 0, "user factors")
-        assert_phantom_rows_zero(item_factors[n_items:], 0, "item factors")
+        # one process holds every shard here: check the padded tails
+        assert_phantom_rows_zero(
+            fetch(user_factors)[n_users:], 0, "user factors")
+        assert_phantom_rows_zero(
+            fetch(item_factors)[n_items:], 0, "item factors")
         return ALSFactors(
             user_factors=user_factors,
             item_factors=item_factors,
             n_users=n_users,
             n_items=n_items,
         )
-    user_full = user_factors.cpu().numpy()
-    item_full = item_factors.cpu().numpy()
+    user_full = fetch(user_factors)
+    item_full = fetch(item_factors)
     assert_phantom_rows_zero(user_full, n_users, "user factors")
     assert_phantom_rows_zero(item_full, n_items, "item factors")
     return ALSFactors(
@@ -845,7 +1320,7 @@ def train_als(
 
 def _maybe_checkpoint(
     ckpt_path, checkpoint_every, iteration, total,
-    user_factors, item_factors, n_users, n_items,
+    user_factors, item_factors, n_users, n_items, fetch,
 ) -> None:
     if (
         ckpt_path
@@ -853,6 +1328,13 @@ def _maybe_checkpoint(
         and iteration % checkpoint_every == 0
         and iteration < total
     ):
+        # fetch is the collective (every process runs it); the write is
+        # the coordinator's alone: N processes racing os.replace on one
+        # shared path would corrupt the checkpoint
+        items = fetch(item_factors)
+        users = fetch(user_factors)
+        if not distributed.is_coordinator():
+            return
         # the checkpoint is a span of the training trace and a count in
         # the registry (the restore points a trainer has banked)
         with tracing.span(
@@ -861,8 +1343,8 @@ def _maybe_checkpoint(
             _write_checkpoint(
                 ckpt_path,
                 iteration=iteration,
-                item_factors=item_factors[:n_items].cpu().numpy(),
-                user_factors=user_factors[:n_users].cpu().numpy(),
+                item_factors=items[:n_items],
+                user_factors=users[:n_users],
             )
         get_registry().counter(
             "pio_train_checkpoints_total",

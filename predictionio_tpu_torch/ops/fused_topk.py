@@ -31,6 +31,12 @@ import threading
 
 import torch
 
+from predictionio_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    ShardedTensor,
+)
+
 #: per-form launch counts on the CUDA path: one per wrapper call that
 #: launches the kernel, and nowhere else
 LAUNCHES = {"f32": 0, "bf16": 0, "int8": 0}
@@ -109,7 +115,11 @@ def fused_top_k_dot(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``num`` items per query row by dot product: ``(scores
     [B, num] float32, indices [B, num] int32)``. A CUDA tensor launches
-    the kernel (or raises); a CPU tensor takes the plain version."""
+    the kernel (or raises); a CPU tensor takes the plain version. A
+    catalog sharded over ``model`` (:class:`ShardedTensor`) runs
+    :func:`sharded_top_k_dot`."""
+    if isinstance(items, ShardedTensor):
+        return sharded_top_k_dot(queries, items, num, mask, scale)
     if queries.device.type == "cpu":
         return fused_top_k_dot_reference(queries, items, num, mask, scale)
     if queries.device.type != "cuda":
@@ -117,6 +127,88 @@ def fused_top_k_dot(
             f"fused_top_k_dot runs on cuda or cpu, not {queries.device}"
         )
     return _launch(queries, items, num, mask, scale)
+
+
+def _block_of(x, pos: int, cols: slice, rows: slice, dev):
+    """Position ``pos``'s part of a mask or scale: a ShardedTensor's own
+    block, else the ``cols`` (and, for a ``[B, I]`` mask, ``rows``)
+    slice of a whole tensor, on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, ShardedTensor):  # an [I] mask or scale, P(model)
+        return x.shards[pos].to(dev)
+    if x.dim() == 2:
+        return x[rows, cols].to(dev).contiguous()
+    return x[cols].to(dev).contiguous()
+
+
+def sharded_top_k_dot(
+    queries: torch.Tensor,
+    items: ShardedTensor,
+    num: int,
+    mask=None,
+    scale=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``num`` over a catalog whose rows are split over ``model``:
+    each model shard runs :func:`fused_top_k_dot` (one kernel launch on
+    the card) on its own rows with its slice of ``mask`` and ``scale``,
+    batch rows split over ``data`` where ``B >= data_parallelism``;
+    local indices are offset by the shard's first row, and the ``m ·
+    num`` candidates of a batch row merge on the home device by a stable
+    sort on score descending. Shards list their candidates in (score
+    descending, index ascending) order and shard ``j``'s indices all lie
+    below shard ``j+1``'s, so a stable sort of the shards' lists, in
+    shard order, ranks ties by the lower global index — the contract of
+    one launch over the whole catalog, ``-inf`` slots included."""
+    mesh = items.mesh
+    sh = items.sharding
+    if any(sh.parts(d) > 1 for d in range(1, items.ndim)) or any(
+        a != MODEL_AXIS for a in sh.axes(0)
+    ):
+        raise ValueError(
+            f"sharded top-k needs a catalog split over rows by "
+            f"{MODEL_AXIS!r} only, got {sh.spec!r}"
+        )
+    if len(mesh.local) != mesh.size:
+        raise NotImplementedError(
+            "sharded top-k needs every model shard in this process"
+        )
+    n_items = items.shape[0]
+    num = min(int(num), n_items)
+    home = mesh.home
+    batch = queries.shape[0]
+    d = mesh.shape.get(DATA_AXIS, 1)
+    m = sh.parts(0)
+    step = n_items // m
+    # batch rows split over data when there are enough of them
+    parts = d if batch >= d else 1
+    bounds = [batch * i // parts for i in range(parts + 1)]
+    # mesh position of (data i, model j): the flat row-major order
+    index = {(c.get(DATA_AXIS, 0), c.get(MODEL_AXIS, 0)): p
+             for p in range(mesh.size) for c in [mesh.coords(p)]}
+    out_s, out_i = [], []
+    for i in range(parts):
+        r = slice(bounds[i], bounds[i + 1])
+        q_rows = queries[r]
+        cand_s, cand_i = [], []
+        for j in range(m):
+            pos = index[(i, j)]
+            dev = mesh.device(pos)
+            cols = slice(j * step, (j + 1) * step)
+            s_j, i_j = fused_top_k_dot(
+                q_rows.to(dev).contiguous(), items.shards[pos],
+                min(num, step), _block_of(mask, pos, cols, r, dev),
+                _block_of(scale, pos, cols, r, dev),
+            )
+            cand_s.append(s_j.to(home))
+            cand_i.append(i_j.to(home).long() + j * step)
+        scores = torch.cat(cand_s, dim=1)
+        order = torch.sort(scores, dim=1, descending=True,
+                           stable=True).indices[:, :num]
+        out_s.append(scores.gather(1, order))
+        out_i.append(torch.cat(cand_i, dim=1).gather(1, order))
+    return (torch.cat(out_s).contiguous(),
+            torch.cat(out_i).to(torch.int32).contiguous())
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -10,6 +10,12 @@ and multiplies each item's score by its scale after the dot.
 
 Quantized and float32 rankings agree approximately; callers gate on
 :func:`recall_at_k` against the float32 order.
+
+Both quantizations are row-local, so a table sharded over the mesh's
+``model`` axis (a ``ShardedTensor``) quantizes shard by shard, and
+``quantize_factors`` of each slice equals the slice of
+``quantize_factors`` of the whole table: the int8 data and its scale stay
+sharded alike, and serve through ``fused_topk.sharded_top_k_dot``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.fused_topk import fused_top_k_dot
+from predictionio_tpu_torch.parallel.mesh import ShardedTensor
 
 MODES = ("int8", "bf16")
 
@@ -32,8 +39,8 @@ class QuantizedFactors:
     float32 ``scale`` ([N]); row ``i`` dequantizes to
     ``data[i].float() * scale[i]`` (scale ``None`` means 1.0)."""
 
-    data: torch.Tensor
-    scale: torch.Tensor | None
+    data: "torch.Tensor | ShardedTensor"
+    scale: "torch.Tensor | ShardedTensor | None"
     mode: str
 
     @property
@@ -46,10 +53,14 @@ class QuantizedFactors:
 
     @property
     def nbytes(self) -> int:
-        n = self.data.numel() * self.data.element_size()
-        if self.scale is not None:
-            n += self.scale.numel() * self.scale.element_size()
-        return n
+        return sum(_nbytes(t) for t in (self.data, self.scale)
+                   if t is not None)
+
+
+def _nbytes(t) -> int:
+    if isinstance(t, ShardedTensor):
+        return t.nbytes
+    return t.numel() * t.element_size()
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -64,6 +75,13 @@ def quantize_factors(x, mode: str = "int8") -> QuantizedFactors:
     1.0 so they stay exactly zero); ``bf16``: a plain cast, no scale."""
     if mode not in MODES:
         raise ValueError(f"unknown quantize mode {mode!r}")
+    if isinstance(x, ShardedTensor):  # row-local: shard by shard
+        return QuantizedFactors(
+            data=x.map(lambda t: quantize_factors(t, mode).data),
+            scale=None if mode == "bf16" else x.map(
+                lambda t: quantize_factors(t, mode).scale),
+            mode=mode,
+        )
     x = _as_tensor(x)
     if x.ndim != 2:
         raise ValueError(f"expected [N, k] factors, got shape {tuple(x.shape)}")
@@ -82,6 +100,11 @@ def quantize_factors(x, mode: str = "int8") -> QuantizedFactors:
 
 def dequantize(qf: QuantizedFactors) -> torch.Tensor:
     """Full float32 reconstruction (tests and evaluation only)."""
+    if isinstance(qf.data, ShardedTensor):
+        qf = QuantizedFactors(
+            data=qf.data.gather(),
+            scale=None if qf.scale is None else qf.scale.gather(),
+            mode=qf.mode)
     x = qf.data.to(torch.float32)
     if qf.scale is not None:
         x = x * qf.scale[:, None]
@@ -92,7 +115,9 @@ def stage_quantized(
     qf: QuantizedFactors, device: str | torch.device
 ) -> QuantizedFactors:
     """A copy of a quantized table on ``device`` (no copy when it is
-    already there)."""
+    already there, or placed over a mesh)."""
+    if isinstance(qf.data, ShardedTensor):
+        return qf
     return QuantizedFactors(
         data=qf.data.to(device),
         scale=None if qf.scale is None else qf.scale.to(device),
@@ -116,7 +141,13 @@ def top_k_dot_quantized(
 def gather_rows(qf: "QuantizedFactors | torch.Tensor", idx) -> torch.Tensor:
     """Dequantized float32 rows ``qf[idx]``; only the gathered rows are
     ever reconstructed, never the table."""
-    data = qf.data if isinstance(qf, QuantizedFactors) else _as_tensor(qf)
+    data = qf.data if isinstance(qf, QuantizedFactors) else qf
+    if isinstance(data, ShardedTensor):
+        rows = data.take_rows(idx).to(torch.float32)
+        if isinstance(qf, QuantizedFactors) and qf.scale is not None:
+            rows = rows * qf.scale.take_rows(idx)[:, None]
+        return rows
+    data = _as_tensor(data)
     idx = torch.as_tensor(np.asarray(idx, np.int64), device=data.device)
     rows = torch.index_select(data, 0, idx).to(torch.float32)
     if isinstance(qf, QuantizedFactors) and qf.scale is not None:
@@ -127,10 +158,13 @@ def gather_rows(qf: "QuantizedFactors | torch.Tensor", idx) -> torch.Tensor:
 def normalized(qf: QuantizedFactors) -> QuantizedFactors:
     """Row-normalized view for cosine scoring: the SAME int8/bf16 data
     with ``scale = 1/‖data_row‖``."""
-    norm = torch.linalg.vector_norm(qf.data.to(torch.float32), dim=1)
-    return QuantizedFactors(
-        data=qf.data, scale=1.0 / (norm + _EPS), mode=qf.mode
-    )
+    def inv_norm(t):
+        return 1.0 / (torch.linalg.vector_norm(t.to(torch.float32), dim=1)
+                      + _EPS)
+
+    scale = (qf.data.map(inv_norm) if isinstance(qf.data, ShardedTensor)
+             else inv_norm(qf.data))
+    return QuantizedFactors(data=qf.data, scale=scale, mode=qf.mode)
 
 
 def recall_at_k(ref_idx, got_idx) -> float:
@@ -163,7 +197,8 @@ def quantize_model_factors(model, mode: str = "int8"):
         value = getattr(model, field.name, None)
         if value is None or isinstance(value, QuantizedFactors):
             continue
-        arr = _as_tensor(value)
+        arr = value if isinstance(value, ShardedTensor) else _as_tensor(
+            value)
         if arr.ndim != 2 or not arr.is_floating_point():
             continue
         updates[field.name] = quantize_factors(arr, mode)

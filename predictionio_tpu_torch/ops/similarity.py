@@ -6,7 +6,12 @@ Counterpart of ``predictionio_tpu/ops/similarity.py`` (``l2_normalize``,
 Every top-k here goes through :func:`ops.fused_topk.fused_top_k_dot`: on
 a CUDA tensor that launches the hand-written kernel at every size, with
 no size threshold and no library path beside it; on a CPU tensor it runs
-the kernel's plain version.
+the kernel's plain version. A factor table staged over the mesh's
+``model`` axis (a :class:`~predictionio_tpu_torch.parallel.mesh.ShardedTensor`,
+``parallel.partition.stage_factor_matrix``) serves through the same
+entry points: row gathers read each shard, row normalization runs per
+shard, and the top-k launches the kernel once per model shard
+(``fused_topk.sharded_top_k_dot``).
 """
 
 from __future__ import annotations
@@ -15,9 +20,14 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.fused_topk import fused_top_k_dot
+from predictionio_tpu_torch.parallel.mesh import ShardedTensor
 
 
-def l2_normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+def l2_normalize(x, eps: float = 1e-9):
+    """Rows scaled to unit norm (per shard of a ShardedTensor: the
+    operation is row-local)."""
+    if isinstance(x, ShardedTensor):
+        return x.map(lambda t: l2_normalize(t, eps))
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
 
 
@@ -65,8 +75,10 @@ def top_k_cosine(
 
 def stage_factors(x, device: str | torch.device = "cuda") -> torch.Tensor:
     """A factor matrix on ``device``, copied once; a tensor already
-    there is returned as it is."""
+    there (or a table placed over a mesh) is returned as it is."""
     device = torch.device(device)
+    if isinstance(x, ShardedTensor):
+        return x
     if isinstance(x, torch.Tensor):
         if x.device.type == device.type and (
             device.index is None or x.device == device
@@ -92,13 +104,17 @@ def gather_top_k_dot(
             return quantize.top_k_dot_quantized(vecs, items, num, mask)
         return top_k_dot(vecs, stage_factors(items, vecs.device), num, mask)
     device = next(
-        (t.device for t in (factors, items) if isinstance(t, torch.Tensor)),
+        (t.device for t in (factors, items)
+         if isinstance(t, (torch.Tensor, ShardedTensor))),
         torch.device("cuda"),
     )
     factors = stage_factors(factors, device)
     items = stage_factors(items, device)
-    idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
-    vecs = torch.index_select(factors, 0, idx)
+    if isinstance(factors, ShardedTensor):
+        vecs = factors.take_rows(idx)
+    else:
+        idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
+        vecs = torch.index_select(factors, 0, idx)
     return fused_top_k_dot(vecs, items, min(num, items.shape[0]), mask)
 
 
@@ -129,12 +145,16 @@ def gather_mean_top_k_cosine(
         return quantize.top_k_dot_quantized(
             l2_normalize(q), quantize.normalized(items_f), num, mask
         )
-    device = (items_f.device if isinstance(items_f, torch.Tensor)
+    device = (items_f.device
+              if isinstance(items_f, (torch.Tensor, ShardedTensor))
               else torch.device("cuda"))
     items_f = stage_factors(items_f, device)
-    rows = torch.index_select(
-        items_f, 0, torch.as_tensor(np.clip(idx, 0, None), device=device)
-    )
+    if isinstance(items_f, ShardedTensor):
+        rows = items_f.take_rows(np.clip(idx, 0, None))
+    else:
+        rows = torch.index_select(
+            items_f, 0, torch.as_tensor(np.clip(idx, 0, None), device=device)
+        )
     return fused_top_k_dot(
         l2_normalize(_basket_mean(rows, idx)), l2_normalize(items_f), num,
         mask,

@@ -117,13 +117,14 @@ from predictionio_tpu_torch.serving.batching import (
     MicroBatcher,
     TwoPhaseBatchFn,
 )
-from predictionio_tpu_torch.serving.http import (
+from predictionio_tpu_torch.serving.http import (  # noqa: F401
     HTTPError,
     HTTPServer,
     Request,
     Response,
     Router,
     install_metrics_routes,
+    undeploy_existing,
 )
 from predictionio_tpu_torch.serving.plugins import (
     OUTPUT_SNIFFER,
@@ -767,6 +768,13 @@ class EngineServer:
                 "engineId": self._engine_id,
                 "engineVersion": self._engine_version,
                 "engineVariant": self._engine_variant,
+                # the serving mesh: a model axis above 1 means the
+                # factor catalog is row-sharded over the devices
+                "mesh": {
+                    str(name): int(size)
+                    for name, size in self._ctx.mesh.shape.items()
+                },
+                "modelSharded": self._ctx.model_parallelism > 1,
                 "device": str(self._ctx.device),
                 "quantize": self._quantize,
                 "canaryState": (
@@ -1879,58 +1887,6 @@ class EngineServer:
             self._http.shutdown()
             self._http = None
         self._close_serving()
-
-
-def undeploy_existing(host: str, port: int, server_config=None) -> bool:
-    """POST /stop to whatever occupies ``host:port`` before binding
-    there (reference MasterActor.undeploy, CreateServer.scala:280-305).
-    Returns True if an old server acknowledged the stop. It stops an
-    engine server of either package; under ``server_config`` it speaks
-    TLS when TLS is on (the old server's certificate is not verified:
-    this is a localhost control handshake, not a trust decision) and
-    sends the server key as ``accessKey``, as the JAX package does."""
-    probe_host = "127.0.0.1" if host in ("0.0.0.0", "") else host
-    ssl_enabled = bool(getattr(server_config, "ssl_enabled", False))
-    scheme = "https" if ssl_enabled else "http"
-    url = f"{scheme}://{probe_host}:{port}/stop"
-    key = getattr(server_config, "access_key", "") or ""
-    if key:
-        url += "?" + urllib.parse.urlencode({"accessKey": key})
-    tls_ctx = None
-    if ssl_enabled:
-        import ssl as _ssl
-
-        tls_ctx = _ssl.create_default_context()
-        tls_ctx.check_hostname = False
-        tls_ctx.verify_mode = _ssl.CERT_NONE
-    logger.info(
-        "Undeploying any existing engine instance at %s:%d",
-        probe_host, port,
-    )
-    try:
-        with urllib.request.urlopen(
-            urllib.request.Request(url, method="POST"),
-            timeout=5,
-            context=tls_ctx,
-        ) as resp:
-            if resp.status == 200:
-                # give the old server a moment to release the socket
-                time.sleep(1.0)
-                return True
-            logger.error(
-                "Existing server at %s:%d answered HTTP %d to /stop; "
-                "unable to undeploy",
-                probe_host, port, resp.status,
-            )
-    except urllib.error.HTTPError as exc:
-        logger.error(
-            "Another process is using %s:%d (HTTP %d on /stop). "
-            "Unable to undeploy.",
-            probe_host, port, exc.code,
-        )
-    except OSError:
-        logger.debug("Nothing at %s:%d", probe_host, port)
-    return False
 
 
 def create_engine_server(

@@ -49,6 +49,9 @@ import socket
 import ssl
 import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable
 from urllib.parse import parse_qs, urlparse
@@ -931,3 +934,55 @@ class HTTPServer:
                 fn()
         finally:
             self._shut_done.set()
+
+
+def undeploy_existing(host: str, port: int, server_config=None) -> bool:
+    """POST /stop to whatever occupies ``host:port`` before binding
+    there (reference MasterActor.undeploy, CreateServer.scala:280-305).
+    Returns True if an old server acknowledged the stop. It stops an
+    engine server of either package; under ``server_config`` it speaks
+    TLS when TLS is on (the old server's certificate is not verified:
+    this is a localhost control handshake, not a trust decision) and
+    sends the server key as ``accessKey``, as the JAX package does."""
+    probe_host = "127.0.0.1" if host in ("0.0.0.0", "") else host
+    ssl_enabled = bool(getattr(server_config, "ssl_enabled", False))
+    scheme = "https" if ssl_enabled else "http"
+    url = f"{scheme}://{probe_host}:{port}/stop"
+    key = getattr(server_config, "access_key", "") or ""
+    if key:
+        url += "?" + urllib.parse.urlencode({"accessKey": key})
+    tls_ctx = None
+    if ssl_enabled:
+        import ssl as _ssl
+
+        tls_ctx = _ssl.create_default_context()
+        tls_ctx.check_hostname = False
+        tls_ctx.verify_mode = _ssl.CERT_NONE
+    logger.info(
+        "Undeploying any existing engine instance at %s:%d",
+        probe_host, port,
+    )
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"),
+            timeout=5,
+            context=tls_ctx,
+        ) as resp:
+            if resp.status == 200:
+                # give the old server a moment to release the socket
+                time.sleep(1.0)
+                return True
+            logger.error(
+                "Existing server at %s:%d answered HTTP %d to /stop; "
+                "unable to undeploy",
+                probe_host, port, resp.status,
+            )
+    except urllib.error.HTTPError as exc:
+        logger.error(
+            "Another process is using %s:%d (HTTP %d on /stop). "
+            "Unable to undeploy.",
+            probe_host, port, exc.code,
+        )
+    except OSError:
+        logger.debug("Nothing at %s:%d", probe_host, port)
+    return False

@@ -274,11 +274,22 @@ def test_device_layout_and_timer(coo, cpu):
                                host.item_factors, rtol=1e-5, atol=1e-6)
 
 
-def test_refused_options(coo, cpu, monkeypatch):
+def test_refused_options(coo, jctx8, tmp_path, monkeypatch):
+    """``factor_sharding="sharded"`` (refused until the mesh was ported)
+    now trains on a (2, 2) CPU mesh, to the JAX package's sharded
+    factors on its 8 devices from one shared start (rtol 1e-3 / atol
+    1e-4, as three epochs above); float16 stays refused."""
     rows, cols, vals = coo
-    with pytest.raises(NotImplementedError, match="item 9"):
-        als.train_als(cpu, rows, cols, vals, N_USERS, N_ITEMS,
-                      factor_sharding="sharded")
+    _shared_checkpoint(tmp_path)
+    kw = dict(rank=RANK, iterations=3, reg=0.05, factor_sharding="sharded",
+              checkpoint_dir=str(tmp_path), resume=True)
+    want = jals.train_als(jctx8, rows, cols, vals, N_USERS, N_ITEMS, **kw)
+    mesh = ComputeContext.create(device="cpu", mesh_shape=(2, 2))
+    got = als.train_als(mesh, rows, cols, vals, N_USERS, N_ITEMS, **kw)
+    np.testing.assert_allclose(got.user_factors, want.user_factors,
+                               **EPOCHS)
+    np.testing.assert_allclose(got.item_factors, want.item_factors,
+                               **EPOCHS)
     with pytest.raises(ValueError, match="compute_dtype"):
         als._resolve_compute("float16")
     monkeypatch.setenv("PIO_ALS_COMPUTE_DTYPE", "bf16")

@@ -23,6 +23,10 @@ equal once ids, keys and times are masked; so must the stored state
   one iteration-0 checkpoint per rank: metric values within 1e-6 and the
   same best candidate;
 * every refused verb and option exits 1 naming its ROADMAP.md item;
+  ``--mesh-shape`` / ``meshConf.shape`` past one device and ``launch``,
+  refused until the mesh was ported, now train (a (4, 2) mesh in both
+  consoles, models within rtol 1e-3 / atol 1e-4) and launch (a rank
+  line from each of two processes);
 * the replicated store tier's verbs run alike over each package's two
   store servers: ``train``, ``deploy`` (answers held as below),
   ``trainer --once`` and ``eventserver`` (a process) with ``--store-url``
@@ -78,6 +82,10 @@ from predictionio_tpu.data.storage import (
     set_storage as jax_set_storage,
 )
 from predictionio_tpu_torch.cli.main import build_parser, main
+from predictionio_tpu_torch.core.persistence import (
+    deserialize_models,
+    load_generation,
+)
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import App, Storage, set_storage
 from predictionio_tpu_torch.ops.als import _write_checkpoint, checkpoint_path
@@ -392,7 +400,17 @@ def test_template_get_from_a_git_repository(both, tmp_path):
         assert not (dst / ".git").exists()
 
 
-def test_run(both, tmp_path, monkeypatch):
+@pytest.fixture()
+def fresh_fakejob():
+    """``fakejob`` is imported by name here and in ``test_cli.py``, each
+    test writing its own: whichever a worker process imported first
+    would answer for the other, so none may stay in ``sys.modules``."""
+    sys.modules.pop("fakejob", None)
+    yield
+    sys.modules.pop("fakejob", None)
+
+
+def test_run(both, tmp_path, monkeypatch, fresh_fakejob):
     (tmp_path / "fakejob.py").write_text(
         "def job(ctx):\n"
         "    return {'batch': ctx.batch, 'ok': [1, 2]}\n"
@@ -813,9 +831,6 @@ def test_eval_matches_the_jax_grid(both, tmp_path, monkeypatch):
 # -- refusals --------------------------------------------------------------
 
 _REFUSALS = [
-    (["launch", "-n", "2", "--", "python", "x.py"], "9"),
-    (["train", "--variant", str(REC_VARIANT), "--mesh-shape", "4,2"], "9"),
-    (["shell", "--mesh-shape", "2"], "9"),
     (["lint", "predictionio_tpu"], None),
 ]
 
@@ -1360,32 +1375,47 @@ def test_status_router_url_alike(both, target):
         assert code == 1 and err
 
 def test_mesh_conf_of_the_variant_is_held_to_one_card(both, tmp_path):
-    wide = _variant(tmp_path, "wide.json", {
-        "id": "w", "engineFactory": "helloworld",
-        "meshConf": {"shape": [2, 2], "batch": "b"}})
-    code, _, err = both.port_run(("train", "--variant", wide), device=True)
-    assert code == 1 and "item 9" in err
+    """The variant's ``meshConf.shape`` (refused past one card until the
+    mesh was ported) now trains in both consoles: the recommendation
+    example with ``"meshConf": {"shape": [4, 2]}``, the JAX console on
+    its 8 virtual devices and the port's on 8 logical CPU devices, both
+    model-sharded ALS from one iteration-0 checkpoint. The instance
+    records the variant's batch, and the two models agree within rtol
+    1e-3 / atol 1e-4 (ten rank-32 epochs; the packages sum the Gramians
+    in different orders). A shape that is not device counts still
+    exits through ``SystemExit`` in both."""
+    n_users, n_items = _seeded(both)
+    variant = json.loads(REC_VARIANT.read_text())
+    variant["meshConf"] = {"shape": [4, 2], "batch": "from-variant"}
+    wide = _variant(tmp_path, "wide.json", variant)
+    _start_checkpoint(tmp_path / "start", n_users, n_items, 32, 12)
+    models = {}
+    for name, run, kw, storage, load in (
+            ("jax", both.jax_run, {}, both.jax,
+             lambda st, iid: [m for _t, m in jax_deserialize(
+                 jax_load_generation(st.get_model_data_models(), iid))]),
+            ("port", both.port_run, {"device": True}, both.port,
+             lambda st, iid: [m for _t, m in deserialize_models(
+                 load_generation(st.get_model_data_models(), iid))])):
+        shutil.copytree(tmp_path / "start", tmp_path / name)
+        code, _, err = run(("train", "--variant", wide, "--checkpoint-dir",
+                            str(tmp_path / name), "--checkpoint-every",
+                            "0", "--resume"), **kw)
+        assert code == 0, err
+        (inst,) = storage.get_meta_data_engine_instances().get_all()
+        assert inst.batch == "from-variant"
+        (models[name],) = load(storage, inst.id)
+    for field in ("user_factors", "item_factors"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(models["port"], field)),
+            np.asarray(getattr(models["jax"], field)), rtol=1e-3,
+            atol=1e-4)
     bad = _variant(tmp_path, "bad.json", {
         "id": "w", "engineFactory": "helloworld",
         "meshConf": {"shape": "data,model"}})
     for run, kw in ((both.jax_run, {}), (both.port_run, {"device": True})):
         with pytest.raises(SystemExit, match="mesh shape"):
             run(("train", "--variant", bad), **kw)
-    one = _variant(tmp_path, "one.json", {
-        "id": "w", "engineFactory": "helloworld",
-        "datasource": {"params": {"app_name": "hw"}},
-        "meshConf": {"shape": "1,1", "batch": "from-variant"}})
-    both.port_run(("app", "new", "hw"))
-    app = both.port.get_meta_data_apps().get_by_name("hw")
-    both.port.get_events().insert_batch([
-        Event(event="report", entity_type="day", entity_id=day,
-              properties={"temperature": t})
-        for day, t in (("Mon", 20.0), ("Tue", 22.5), ("Mon", 21.0))
-    ], app.id)
-    code, out, err = both.port_run(("train", "--variant", one), device=True)
-    assert code == 0, err
-    (inst,) = both.port.get_meta_data_engine_instances().get_all()
-    assert inst.batch == "from-variant"
 
 
 @pytest.mark.parametrize("argv", [
@@ -1421,7 +1451,7 @@ def test_deploy_feedback_needs_an_existing_app(both):
     ["shell"],
 ])
 def test_no_cuda_and_no_device_flag_exits(monkeypatch, capsys, tmp_path,
-                                          argv):
+                                          argv, fresh_fakejob):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("PIO_TEST_EVAL_CKPT", str(tmp_path))
     monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))

@@ -8,7 +8,10 @@ table form (f32, bf16, int8 + scale) answering through the kernel, and
 answer equal to the plain top-k, from both pids, and a full-width
 generation published through the replicated store tier with one node
 down, read back by a reader of one surviving node and served through
-the kernel.
+the kernel; a catalog sharded over logical devices of the card, one
+launch a model shard, against the plain version on the whole table, and
+model-sharded ALS on such a mesh against one device within rtol 1e-4 /
+atol 1e-5 (JAX ``tests/test_als.py``'s problem and tolerance).
 
 These tests need a CUDA card (the kernel has no CPU form) and skip
 elsewhere; the file imports no JAX, so it also runs where only PyTorch
@@ -1214,3 +1217,70 @@ def test_a_full_width_generation_through_the_tier_serves_on_the_card(
             storage._client("R").close()
         for s in servers:
             s.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 4)], ids=str)
+def test_sharded_catalog_launches_a_kernel_per_shard(cuda_device, shape,
+                                                     form):
+    """A catalog staged over ``model`` on logical devices of the card:
+    each call launches the kernel once per model shard (batch rows split
+    over ``data``), and the merged answer holds against the plain version
+    on the whole table like one launch does (tolerance above)."""
+    from predictionio_tpu_torch.ops import similarity
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    n = shape[0] * shape[1]
+    ctx = ComputeContext.create(mesh_shape=shape, devices=[cuda_device] * n)
+    q, items, mask, scale = _inputs(form, 33, 20_000, 32, 3, cuda_device)
+    table = ctx.model_sharded.place(items)
+    mask_s = ctx.model_sharded.place(mask)
+    scale_s = None if scale is None else ctx.model_sharded.place(scale)
+    before = fused_topk.LAUNCHES[form]
+    got = fused_topk.fused_top_k_dot(q, table, 64, mask_s, scale_s)
+    torch.cuda.synchronize()
+    # B = 33 >= data: every (data, model) position launches once
+    assert fused_topk.LAUNCHES[form] == before + n
+    want = fused_topk.fused_top_k_dot_reference(q, items, 64, mask, scale)
+    _assert_topk_alike(q, items.float(), scale, got, want)
+    assert not mask[got[1].long()].any()
+    if form == "f32":
+        one = similarity.top_k_dot(q[:1], table, 10, mask_s)
+        _assert_topk_alike(q[:1], items, None, one,
+                           fused_topk.fused_top_k_dot_reference(
+                               q[:1], items, 10, mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 4)], ids=str)
+def test_sharded_als_on_card_matches_one_device(cuda_device, shape):
+    """JAX ``tests/test_als.py``'s heavy-row problem on a mesh of logical
+    devices of the card against one device of it: rtol 1e-4 / atol 1e-5,
+    phantom rows zero, factors genuinely split over ``model``."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    rng = np.random.default_rng(21)
+    rows = rng.integers(0, 24, 600).astype(np.int32)
+    cols = rng.integers(0, 18, 600).astype(np.int32)
+    vals = rng.integers(1, 5, 600).astype(np.float32)
+    rows = np.concatenate([rows, np.zeros(60, np.int32), np.ones(60, np.int32)])
+    cols = np.concatenate([cols, np.arange(60, dtype=np.int32) % 18,
+                           np.zeros(60, np.int32)])
+    vals = np.concatenate([vals, np.ones(120, np.float32)])
+    kw = dict(n_users=24, n_items=18, rank=4, iterations=3, reg=0.1,
+              block_len=4, s_max=2)
+    one = als.train_als(ComputeContext.create(devices=[cuda_device]), rows,
+                        cols, vals, **kw)
+    ctx = ComputeContext.create(mesh_shape=shape,
+                                devices=[cuda_device] * (shape[0] * shape[1]))
+    got = als.train_als(ctx, rows, cols, vals, return_layout="device", **kw)
+    if ctx.model_parallelism > 1:
+        als.check_factor_sharding(ctx, rows, cols, vals, 24, 18, rank=4,
+                                  block_len=4)
+    for g, w, n_real in ((got.user_factors, one.user_factors, 24),
+                         (got.item_factors, one.item_factors, 18)):
+        full = (g.gather() if hasattr(g, "gather") else g).cpu().numpy()
+        assert not full[n_real:].any()
+        np.testing.assert_allclose(full[:n_real], w, rtol=1e-4, atol=1e-5)

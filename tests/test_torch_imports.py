@@ -93,7 +93,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                 "data.storage.minipg", "data.storage.mywire",
                 "data.storage.mysql", "data.storage.minimysql",
                 "data.storage.httpstore", "serving.store_server",
-                "client"):
+                "client", "parallel", "parallel.mesh",
+                "parallel.partition", "parallel.distributed"):
         assert f"predictionio_tpu_torch.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
