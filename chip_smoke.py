@@ -40,7 +40,7 @@ and PyTorch built for CUDA. In order:
    interactions), the epoch time (median of epochs 2-5, CUDA
    events), each half-step's device split from the profiler (gather +
    Gramian, Cholesky solve, heavy ``index_add_``), the peak device
-   memory and the epoch's bound; holds every heavy item row, 256
+   memory and the epoch's bound; holds 256 sampled heavy item rows, 256
    sampled items and (after one more user half-step) 256 sampled users
    to a relative residual of 1e-4 against their normal equations
    rebuilt in float64 on the host;
@@ -152,7 +152,7 @@ and PyTorch built for CUDA. In order:
    4's width (a new generation of random factors from the seed),
    through ``create_engine_server`` with admission, the query cache and
    the canary on, ``max_batch`` 64, pipeline depth 2, over HTTP: (a)
-   closed-loop clients (64, 128, 256, 384 threads, 3 s a stage, until
+   closed-loop clients (64, 128, 256, 384 threads, 2 s a stage, until
    p50 passes twice its unloaded value beyond the admission floor) post
    single queries, 20 % ``critical``, 50 % ``default``, 30 %
    ``sheddable`` (half of them with ``X-PIO-Deadline: 50``); per class
@@ -180,8 +180,8 @@ and PyTorch built for CUDA. In order:
    of its own engine variant in a local model store, behind
    ``create_engine_server(tenants=...)`` with a ``ModelPool`` whose
    budget is 2.5 f32 tenants, once with f32, bf16 and int8 + scale
-   tables: the preload leaves the tenants that fit resident, then 64 /
-   64 / 256 ``/queries.json`` (num 10) from 8 threads (cut from 256 for
+   tables: the preload leaves the tenants that fit resident, then 32 /
+   32 / 256 ``/queries.json`` (num 10) from 8 threads (cut from 256 for
    f32 and bf16: cold loads), tenants Zipf(1.0), users
    uniform, half naming the tenant by ``accessKey`` and half by
    ``X-PIO-Tenant``; every answer a 200 equal to the plain top-k on that
@@ -212,7 +212,7 @@ and PyTorch built for CUDA. In order:
    under ``chip_smoke.py --cli-child DIR`` (their launches land in
    ``DIR/<pid>.json``), the clients 4 processes of 16 closed-loop
    threads that retry a transport error or a 503 with ``Retry-After``:
-   (a) ``deploy --workers N`` for N = 1, 2 (3 s of traffic each):
+   (a) ``deploy --workers N`` for N = 1, 2 (2 s of traffic each):
    every answer a 200 equal to the plain top-k, every worker pid
    answered (read on the connection's ``GET /``) and its
    ``pio_batches_total`` rose; goodput, p50/p99, answers by pid, each
@@ -299,9 +299,10 @@ and PyTorch built for CUDA. In order:
    ml20m shape (rank 32, implicit, 3 epochs) on (data, model) meshes
    (1, 1), (1, 2), (2, 2) and (1, 4) of logical devices on the card
    (``devices=[cuda:0] * n``), and over distinct cards where the machine
-   has them: the factors within 2e-3 of their largest entry of the
-   (1, 1) run's (a second (1, 1) run, printed beside, differs by about
-   1e-4 of it: float32 summation order, amplified), the JAX tests' own
+   has them: every factor row within 1e-2 of its norm of the (1, 1)
+   run's row (a second (1, 1) run is read beside it: float32 summation
+   order, amplified; a (2, 2) run with a transposed-gather layout fault
+   planted in ``plan_shards`` must fail that check), the JAX tests' own
    problems within their rtol 1e-4 / atol 1e-5 on every mesh, phantom
    rows exactly zero, each model shard a 1/m row slice,
    ``check_factor_sharding`` on a probe, the epoch timed (CUDA events
@@ -317,8 +318,8 @@ and PyTorch built for CUDA. In order:
    (1, 2) mesh; (c) ``launch -n N -- <console> train`` over NCCL (N =
    min(4, cards), mesh (1, N), sharded factors: the all-gathers and the
    fetch go through NCCL even at N = 1) on an engine reading the ml20m
-   interactions, run beside (b)'s served checks, every rank's published
-   factors held to (a)'s (1, 1) run as (a)'s meshes are;
+   interactions, run after (b), every rank's published factors held to
+   (a)'s (1, 1) run as (a)'s meshes are;
 20. prints one ``{"kernels": [...]}`` line (launches summed over phases
    4 and 7-19; phase 16's ``--workers`` children, which the package
    re-execs, by their ``pio_batches_total``) and, last, the device
@@ -378,6 +379,8 @@ TRAIN_REG, TRAIN_ALPHA = 0.01, 1.0
 #: a row's solve against its normal equations rebuilt in float64; true
 #: fp32 products and sums stay near 1e-6, TF32 products near 1e-3
 RESIDUAL_TOL = 1e-4
+#: rows a side held to their normal equations (sampled; heavy items too,
+#: where 716 of them, each checked, took half the check's time)
 RESIDUAL_SAMPLE = 256
 #: the DASE phase: users, items, rate events
 DASE = (20_000, 5_000, 200_000)
@@ -1023,11 +1026,14 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     items_dev = torch.from_numpy(f.item_factors).to(device)
     users_next = solve_u(items_dev, TRAIN_REG).cpu().numpy()
 
-    # residuals: every heavy item, sampled items, sampled users
+    # residuals: sampled heavy items, sampled items, sampled users
     rng = np.random.default_rng(seed + 3)
     by_item = _rows_by(cols, n_items)
     deg = np.diff(by_item[1])
     heavy = np.nonzero(deg > 16 * 64)[0]  # s_max blocks of block_len
+    n_heavy = len(heavy)
+    heavy = np.random.default_rng(seed + 4).choice(
+        heavy, min(RESIDUAL_SAMPLE, n_heavy), replace=False)
     # rows with no interactions solve to zero against b = 0: no residual
     light = np.nonzero((deg > 0) & (deg <= 16 * 64))[0]
     sampled = rng.choice(light, min(RESIDUAL_SAMPLE, len(light)),
@@ -1077,7 +1083,7 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         "item_half_step": split_i,
         "bound": bound,
         "bound_share": bound["bound_ms"] / median,
-        "heavy_items": int(len(heavy)),
+        "heavy_items": n_heavy, "heavy_items_checked": int(len(heavy)),
         "residual_max": {"heavy_items": heavy_max, "items": item_max,
                          "users": user_max},
         "residual_median": {"heavy_items": heavy_med, "items": item_med,
@@ -3744,9 +3750,10 @@ def cli_phase(device, workdir: str, seed: int) -> dict:
 #: seconds; a stage past the first runs only while p50 has not reached
 #: twice its unloaded value, and at least until the in-flight count can
 #: pass the admission floor (max_batch × (pipeline depth + 1) = 192),
-#: below which nothing is shed by design
+#: below which nothing is shed by design (stages cut from 3 s to 2 s to
+#: keep the script inside its time limit with phase 19; PERF.md §4)
 SERVER_STAGES = (64, 128, 256, 384)
-SERVER_STAGE_S = 3.0
+SERVER_STAGE_S = 2.0
 SERVER_FLOOR = 64 * 3
 SERVER_MIX = (("critical", 0.2), ("default", 0.5), ("sheddable", 0.3))
 #: the budget half the sheddable requests carry (milliseconds)
@@ -4358,10 +4365,11 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 #: client threads, the Zipf exponent over tenants. The f32 and bf16
 #: counts are cut from 256: at 256 a form, 85 f32 cold loads of 0.95-2.26
 #: s each made phase 15 take 197.5 s on an H100 80GB HBM3 at 700 W; bf16
-#: to 64 with the networked stores' phase added (PERF.md §4).
+#: to 64 with the networked stores' phase added, both to 32 with phase
+#: 19's serial process boundary (PERF.md §4).
 POOL_TENANTS = 8
 POOL_BUDGET_TENANTS = 2.5
-POOL_REQUESTS = {"f32": 64, "bf16": 64, "int8": 256}
+POOL_REQUESTS = {"f32": 32, "bf16": 32, "int8": 256}
 POOL_THREADS = 8
 POOL_ZIPF = 1.0
 POOL_BATCH = 8
@@ -5026,9 +5034,10 @@ def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 
 #: (a): worker counts, and the seconds of closed-loop traffic each takes
 #: (4 workers, measured no faster than 2, and 5 s stages were cut to keep
-#: the script inside its time limit with phase 17; PERF.md §4)
+#: the script inside its time limit with phase 17, 3 s stages with phase
+#: 19; PERF.md §4)
 FLEET_WORKERS = (1, 2)
-FLEET_STAGE_S = 3.0
+FLEET_STAGE_S = 2.0
 #: the clients: processes of their own, closed-loop threads in each
 FLEET_PROCS = 4
 FLEET_THREADS = 16
@@ -7307,14 +7316,20 @@ MESH_EPOCHS = 3
 #: JAX tests/test_als.py's tolerance between meshes, held on that test's
 #: own problems (MESH_SMALL) on the card
 MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
-#: at full width float32 rounding is amplified past that tolerance: a
-#: second (1, 1) run, whose heavy-row ``index_add_`` sums in another
-#: order, differs from the first by up to 1.2e-4 of the factors' largest
-#: entry (~2e-5 of 0.21 for users, ~2.4e-3 of 20.5 for items), and a mesh
-#: (other padding, other batch sizes) by up to 2.8e-4. A mesh run's
-#: largest difference from (1, 1) must stay within MESH_REL of that
-#: largest entry, side by side; a misplaced row moves by the entry itself
-MESH_REL = 2e-3
+#: at full width float32 rounding is amplified past that tolerance
+#: element by element: a second (1, 1) run, whose heavy-row
+#: ``index_add_`` sums in another order, already differs past it in
+#: thousands of small item entries. So each full-width run is held row by
+#: row: no row may differ from its (1, 1) row by more than MESH_ROW_REL of
+#: that row's norm (plus MESH_ATOL for rows that are zero there); a second
+#: (1, 1) run is read beside it, and a planted layout fault (MESH_FAULT)
+#: must fail the same check
+MESH_ROW_REL = 1e-2
+#: the planted fault: real rows of these two blocks of the device-major
+#: layout trade places, where a transposed (model-major) gather puts them
+#: on this (2, 2) mesh; phantom rows stay in place, so only the row check
+#: can see it
+MESH_FAULT = ((2, 2), (1, 2))
 #: JAX tests' ALS problems: tests/distributed_als_child.py (users, items,
 #: interactions, rank, block_len, s_max, heavy rows) and
 #: tests/test_als.py TestShardedFactors with its heavy rows
@@ -7376,23 +7391,81 @@ def _sync_all(devices) -> None:
 
 
 def _mesh_diff(host: dict, base: dict) -> dict:
-    """Per side: the largest |difference| and the elements outside
-    MESH_RTOL / MESH_ATOL."""
+    """Per side: the largest |difference|, the elements outside MESH_RTOL
+    / MESH_ATOL, each row's difference over its (1, 1) row's norm at its
+    largest, and the rows past MESH_ROW_REL of that norm."""
     out = {}
     for name in ("user", "item"):
-        d = np.abs(host[name] - base[name])
-        out[name] = {"max_abs": float(d.max()), "outside_tol": int(
-            (d > MESH_ATOL + MESH_RTOL * np.abs(base[name])).sum())}
+        b = base[name].astype(np.float64)
+        d = host[name].astype(np.float64) - b
+        d_norm = np.linalg.norm(d, axis=1)
+        b_norm = np.linalg.norm(b, axis=1)
+        live = b_norm > 0
+        out[name] = {
+            "max_abs": float(np.abs(d).max()),
+            "outside_tol": int((np.abs(d) > MESH_ATOL + MESH_RTOL
+                                * np.abs(b)).sum()),
+            "row_rel_max": float((d_norm[live] / b_norm[live]).max()),
+            "rows_past": int((d_norm > MESH_ATOL + MESH_ROW_REL
+                              * b_norm).sum()),
+        }
     return out
 
 
-def _hold_to_base(what: str, diff: dict, base: dict) -> None:
+def _hold_to_base(what: str, diff: dict) -> None:
     for name in ("user", "item"):
-        limit = MESH_REL * float(np.abs(base[name]).max())
-        assert diff[name]["max_abs"] <= limit, (
-            f"{what} {name} factors differ from (1, 1) by "
-            f"{diff[name]['max_abs']:.3g}, past {MESH_REL} of their "
-            f"largest entry ({limit:.3g})")
+        assert diff[name]["rows_past"] == 0, (
+            f"{what}: {diff[name]['rows_past']} {name} rows differ from "
+            f"(1, 1) by more than {MESH_ROW_REL} of their norm (at most "
+            f"{diff[name]['row_rel_max']:.3g})")
+
+
+def _swap_blocks(plan, n_real: int):
+    """``plan`` with MESH_FAULT's layout fault planted in its
+    ``inv_perm_dm``: each real row of the first block trades places with
+    the real row at the same local position of the second."""
+    a, b = MESH_FAULT[1]
+    inv = plan.inv_perm_dm.astype(np.int64)
+    c = plan.c_local
+    at = np.full(plan.n_shards * c, -1, np.int64)
+    at[inv] = np.arange(inv.size)
+    rows = np.nonzero(inv[:n_real] // c == a)[0]
+    other = at[b * c + inv[rows] % c]
+    keep = (other >= 0) & (other < n_real)
+    rows, other = rows[keep], other[keep]
+    swapped = inv.copy()
+    swapped[rows], swapped[other] = inv[other], inv[rows]
+    return dataclasses.replace(plan, inv_perm_dm=swapped.astype(np.int32))
+
+
+def mesh_fault(device, data, base: dict) -> dict:
+    """MESH_FAULT planted in ``plan_shards`` for one ``train_als`` on
+    its mesh of logical devices: the row check must find misplaced rows
+    on both sides, or the phase fails. Returns the readings."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    shape = MESH_FAULT[0]
+    rows, cols, vals = data
+    n_users, n_items, _ = ML20M
+    plan_shards = als.plan_shards
+    als.plan_shards = lambda packed, n: _swap_blocks(
+        plan_shards(packed, n), packed.n_rows)
+    try:
+        f = als.train_als(
+            ComputeContext.create(mesh_shape=shape,
+                                  devices=[device] * (shape[0] * shape[1])),
+            rows, cols, vals, n_users, n_items, rank=RANK,
+            iterations=MESH_EPOCHS, reg=TRAIN_REG, alpha=TRAIN_ALPHA,
+            implicit=True)
+    finally:
+        als.plan_shards = plan_shards
+    diff = _mesh_diff({"user": f.user_factors, "item": f.item_factors},
+                      base)
+    for name in ("user", "item"):
+        assert diff[name]["rows_past"] > 0, (
+            f"the planted layout fault passed the row check: {diff}")
+    return diff
 
 
 def mesh_small(device, shape) -> dict:
@@ -7662,15 +7735,24 @@ def mesh_deploy(device, workdir: str, model, seed: int) -> dict:
     return out
 
 
-def mesh_launch_start(device, workdir: str) -> dict:
-    """Phase 19 (c), started: ``launch -n N -- <console> train`` over
-    ``nccl``, N = min(LAUNCH_RANKS, cards), mesh (1, N),
+def mesh_launch(device, workdir: str, base: dict) -> dict:
+    """Phase 19 (c): ``launch -n N -- <console> train`` over ``nccl``,
+    N = min(LAUNCH_RANKS, cards), mesh (1, N),
     ``factor_sharding="sharded"`` so every half-step all-gathers through
     NCCL (on one card: a world of one, all-gathers and fetches made for
-    real). :func:`mesh_launch_finish` waits for it."""
+    real). Every rank joined the process group, and each rank's
+    published factors, read back from the store, are held to (a)'s
+    (1, 1) run as (a)'s meshes are."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+    from predictionio_tpu_torch.data.storage import Storage
+
     # on the card NCCL, a card a rank; a CPU rehearsal runs gloo
     cuda = device.type == "cuda"
     ranks = min(LAUNCH_RANKS, torch.cuda.device_count()) if cuda else 1
+    backend = "nccl" if cuda else "gloo"
     os.makedirs(workdir, exist_ok=True)
     variant = os.path.join(workdir, "engine-mesh.json")
     with open(variant, "w") as f:
@@ -7681,29 +7763,14 @@ def mesh_launch_start(device, workdir: str) -> dict:
                        "factor_sharding": "sharded"}}]}, f)
     env = {**os.environ, **fleet_env(workdir), "PIO_FS_BASEDIR": workdir}
     console = _Console(workdir, env)
-    proc = console.start("mesh_launch", [
-        "launch", "-n", str(ranks), "--timeout", "600", "--",
-        *CONSOLE, "train", "--variant", variant, "--mesh-shape",
-        f"1,{ranks}", *([] if cuda else ["--device", "cpu"])])
-    return {"console": console, "proc": proc, "ranks": ranks,
-            "backend": "nccl" if cuda else "gloo", "workdir": workdir,
-            "t0": time.perf_counter()}
-
-
-def mesh_launch_finish(job: dict, base: dict) -> dict:
-    """Phase 19 (c), ended: every rank joined the process group, and
-    each rank's published factors, read back from the store, are held
-    to (a)'s (1, 1) run as (a)'s meshes are."""
-    from predictionio_tpu_torch.core.persistence import (
-        deserialize_models,
-        load_generation,
-    )
-    from predictionio_tpu_torch.data.storage import Storage
-
-    console, ranks, backend = job["console"], job["ranks"], job["backend"]
+    t0 = time.perf_counter()
     try:
-        console.wait("mesh_launch", job["proc"])
-        launch_s = time.perf_counter() - job["t0"]
+        proc = console.start("mesh_launch", [
+            "launch", "-n", str(ranks), "--timeout", "600", "--",
+            *CONSOLE, "train", "--variant", variant, "--mesh-shape",
+            f"1,{ranks}", *([] if cuda else ["--device", "cpu"])])
+        console.wait("mesh_launch", proc)
+        launch_s = time.perf_counter() - t0
         err = _tail(console.path("mesh_launch", "err"), 200_000)
     finally:
         console.close()
@@ -7712,7 +7779,7 @@ def mesh_launch_finish(job: dict, base: dict) -> dict:
     assert len(joined) == ranks, (joined, err[-3000:])
     # every rank publishes the all-gathered factors, as every JAX
     # process does
-    storage = Storage(env=fleet_env(job["workdir"]))
+    storage = Storage(env=fleet_env(workdir))
     insts = [i for i in storage.get_meta_data_engine_instances().get_all()
              if i.engine_id == "chip-smoke-mesh"]
     assert len(insts) == ranks, [i.status for i in insts]
@@ -7722,7 +7789,7 @@ def mesh_launch_finish(job: dict, base: dict) -> dict:
             storage.get_model_data_models(), inst.id))]
         diffs = _mesh_diff({"user": np.asarray(model.user_factors),
                             "item": np.asarray(model.item_factors)}, base)
-        _hold_to_base("launch", diffs, base)
+        _hold_to_base("launch", diffs)
     return {"nccl_ranks": ranks, "backend": backend, "launch_s": launch_s,
             "mesh_conf": inst.mesh_conf, "diff_vs_1x1": diffs}
 
@@ -7730,8 +7797,9 @@ def mesh_launch_finish(job: dict, base: dict) -> dict:
 def mesh_phase(device, workdir: str, seed: int) -> dict:
     """Phase 19: more than one device (a) sharded ALS at full width on
     MESH_SHAPES of logical devices on the card (and of distinct cards
-    where the machine has them), (b) sharded serving at phase 4's width,
-    (c) the process boundary over NCCL. Returns the numbers and the
+    where the machine has them), held row by row to (1, 1), and
+    MESH_FAULT planted to show the check fails it, (b) sharded serving
+    at phase 4's width, (c) after it, the process boundary over NCCL. Returns the numbers and the
     main path's launches: (b)'s deployed server and its
     ``create_engine_server`` runs on a (1, 2) mesh, per shard."""
     from predictionio_tpu_torch.ops import fused_topk
@@ -7754,24 +7822,23 @@ def mesh_phase(device, workdir: str, seed: int) -> dict:
                 _again, host = mesh_train(device, data, shape, devices,
                                           timed=False)
                 spread = _mesh_diff(host, base)
-                _hold_to_base("(1, 1) rerun", spread, base)
+                _hold_to_base("(1, 1) rerun", spread)
                 out["spread"] = spread
                 log(f"mesh als (1, 1) rerun against the first: "
                     f"{json.dumps(spread)}")
             else:
                 run["diff_vs_1x1"] = _mesh_diff(host, base)
-                _hold_to_base(f"mesh {shape}", run["diff_vs_1x1"], base)
+                _hold_to_base(f"mesh {shape}", run["diff_vs_1x1"])
                 out["small"][f"{shape[0]}x{shape[1]}"] = mesh_small(
                     devices[0], shape)
             out["runs"].append(run)
             log("mesh als " + json.dumps(run))
+    out["fault"] = mesh_fault(device, data, base)
+    log(f"mesh als planted fault: {json.dumps(out['fault'])}")
     del data
 
     model = make_model(N_USERS, N_ITEMS, RANK, seed)
     out["serve_kernel"] = mesh_serve_kernel(device, model, seed)
-    # (c) runs beside (b)'s served checks (its launch child is mostly
-    # process start and host packing); (b)'s timings are taken above
-    job = mesh_launch_start(device, os.path.join(workdir, "launch"))
     # the main path: a console deploy on a (1, 4) mesh, and one server
     # a form on a (1, 2) mesh in this process
     out["deploy"] = mesh_deploy(device, os.path.join(workdir, "deploy"),
@@ -7796,7 +7863,8 @@ def mesh_phase(device, workdir: str, seed: int) -> dict:
     for form in FORMS:
         assert launches.get(form, 0) > 0, f"{form}: phase 19 never launched"
     del model, table_f32
-    out["launch"] = mesh_launch_finish(job, base)
+    out["launch"] = mesh_launch(device, os.path.join(workdir, "launch"),
+                                base)
     return out
 
 
@@ -7810,6 +7878,9 @@ def log_mesh(p: dict, smi: str) -> None:
             f"train_als {run['train_als_s']:.2f} s, factor bytes per device "
             f"{run['factor_bytes_per_device']}, against 1x1 "
             f"{json.dumps(run.get('diff_vs_1x1'))} ({smi})")
+    log(f"mesh als planted fault {MESH_FAULT[0][0]}x{MESH_FAULT[0][1]} "
+        f"(blocks {MESH_FAULT[1]} swapped) against 1x1: "
+        f"{json.dumps(p['fault'])}, caught ({smi})")
     log(f"mesh als 1x1 rerun against 1x1: {json.dumps(p['spread'])}; "
         f"the JAX tests' problems on each mesh within rtol {MESH_RTOL} / "
         f"atol {MESH_ATOL}: {json.dumps(p['small'])}")

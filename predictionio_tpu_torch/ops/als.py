@@ -722,15 +722,25 @@ def make_replicated_half_step(
     inv = torch.from_numpy(inv).to(home)
     n_heavy = packed.n_stat_rows - n_slab_rows
     mesh = ctx.mesh
-    # one position per data index (model index 0), in data order
-    lead = torch.tensor([p for p in range(mesh.size)
-                         if mesh.coords(p).get(MODEL_AXIS, 0) == 0])
+    # one position per data index (model index 0), in data order: only
+    # these solve; the other positions hold the same data slice and send
+    # zeros, so every process gathers equal shapes
+    leads = [p for p in range(mesh.size)
+             if mesh.coords(p).get(MODEL_AXIS, 0) == 0]
+    lead = torch.tensor(leads)
+    solves = set(leads)
 
     def solve(y: torch.Tensor, lam: float) -> torch.Tensor:
         k = y.shape[1]
         ys = ctx.on_each(y)
         regs, parts = [], []
         for pos in mesh.local:
+            if pos not in solves:
+                regs.append(torch.zeros((c_slab, k), device=home))
+                if n_heavy:
+                    parts.append(torch.zeros((n_heavy, k * k + k + 1),
+                                             device=home))
+                continue
             yd, yty = _prepare(ys[mesh.device(pos)], compute, implicit)
             regs.append(_regular_solve(
                 yd, yty, [_at(s, pos) for s in slabs], implicit, alpha,
@@ -1295,11 +1305,11 @@ def train_als(
         else:
             user_factors = solve_u(item_factors, lam)
     if return_layout == "device":
-        # one process holds every shard here: check the padded tails
+        # one process holds every shard here: fetch only the padded tails
         assert_phantom_rows_zero(
-            fetch(user_factors)[n_users:], 0, "user factors")
+            _tail_rows(user_factors, n_users), 0, "user factors")
         assert_phantom_rows_zero(
-            fetch(item_factors)[n_items:], 0, "item factors")
+            _tail_rows(item_factors, n_items), 0, "item factors")
         return ALSFactors(
             user_factors=user_factors,
             item_factors=item_factors,
@@ -1316,6 +1326,18 @@ def train_als(
         n_users=n_users,
         n_items=n_items,
     )
+
+
+def _tail_rows(arr, n: int) -> torch.Tensor:
+    """Rows ``n:`` of a factor matrix, taken only from the row blocks
+    that hold them."""
+    if not isinstance(arr, ShardedTensor):
+        return arr[n:]
+    home = arr.device
+    parts = [block[max(0, n - start):].to(home)
+             for start, block, _ in arr.row_shards()
+             if start + block.shape[0] > n]
+    return torch.cat(parts) if parts else arr.local_shards()[0][:0]
 
 
 def _maybe_checkpoint(

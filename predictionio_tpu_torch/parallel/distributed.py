@@ -74,10 +74,9 @@ def initialize(
                 "pass device='cpu' (--device cpu) for a gloo job"
             )
         cards = torch.cuda.device_count()
-        here = _ranks_on_this_host(coordinator_address, world)
-        if here > cards:
+        if _is_loopback(coordinator_address) and world > cards:
             raise RuntimeError(
-                f"{here} ranks on this host but {cards} CUDA card(s): "
+                f"{world} ranks on this host but {cards} CUDA card(s): "
                 "NCCL needs a card per rank"
             )
         local = torch.device("cuda", rank % cards)
@@ -97,13 +96,11 @@ def initialize(
                 backend, rank, world, local)
 
 
-def _ranks_on_this_host(coordinator_address: str, world: int) -> int:
-    """All ranks when the coordinator is this host's loopback (what
-    :func:`launch_processes` starts); else ``LOCAL_WORLD_SIZE``, else 1."""
+def _is_loopback(coordinator_address: str) -> bool:
+    """A loopback coordinator (what :func:`launch_processes` starts) puts
+    every rank on this host; elsewhere NCCL refuses a shared card itself."""
     host = coordinator_address.rsplit(":", 1)[0]
-    if host in ("127.0.0.1", "localhost", "::1", "[::1]"):
-        return world
-    return int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    return host in ("127.0.0.1", "localhost", "::1", "[::1]")
 
 
 def is_initialized() -> bool:

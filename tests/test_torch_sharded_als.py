@@ -28,7 +28,11 @@ from predictionio_tpu.ops import als as jals
 from predictionio_tpu.parallel.mesh import ComputeContext as JaxContext
 from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.parallel import partition
-from predictionio_tpu_torch.parallel.mesh import ComputeContext, ShardedTensor
+from predictionio_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    ComputeContext,
+    ShardedTensor,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 N_USERS, N_ITEMS, RANK = 24, 18, 4
@@ -120,6 +124,8 @@ _CASES = {
                     dict(s_max=2, max_slab_slots=512, heavy=True)),
     "replicated-data-8": ((8, 1), (8, 1), "auto", dict(s_max=2, heavy=True)),
     "replicated-on-2x2": ((2, 2), (4, 2), "replicated", {}),
+    "replicated-heavy-on-2x2": ((2, 2), (4, 2), "replicated",
+                                dict(s_max=2, heavy=True)),
 }
 
 
@@ -197,6 +203,17 @@ def test_device_layout_stages_without_a_copy(tmp_path):
                                                  n_real=N_ITEMS + 3)
     assert staged is dev.item_factors
     assert int(mask.gather().sum()) == items.shape[0] - (N_ITEMS + 3)
+
+
+@pytest.mark.parametrize("n", [0, 5, 16, 23, 24])
+def test_tail_rows_reads_only_the_padded_tail(n):
+    ctx = _mesh((2, 2))
+    full = torch.arange(24 * 3, dtype=torch.float32).reshape(24, 3)
+    placed = ctx.sharding(MODEL_AXIS).place(full)
+    np.testing.assert_array_equal(als._tail_rows(placed, n).numpy(),
+                                  full[n:].numpy())
+    np.testing.assert_array_equal(als._tail_rows(full, n).numpy(),
+                                  full[n:].numpy())
 
 
 def test_sharded_checkpoints_resume(tmp_path):
