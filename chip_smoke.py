@@ -39,9 +39,10 @@ and PyTorch built for CUDA. In order:
    numpy, whose arrays must be identical, on the first 4,000,000
    interactions), the epoch time (median of epochs 2-5, CUDA
    events), each half-step's device split from the profiler (gather +
-   Gramian, Cholesky solve, heavy ``index_add_``), the peak device
-   memory and the epoch's bound; holds 256 sampled heavy item rows, 256
-   sampled items and (after one more user half-step) 256 sampled users
+   Gramian, Cholesky solve, the heavy sub-rows' fixed-order sums), the
+   peak device memory and the epoch's bound; holds 256 sampled heavy
+   item rows, 256 sampled items and (after one more user half-step) 256
+   sampled users
    to a relative residual of 1e-4 against their normal equations
    rebuilt in float64 on the host;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
@@ -104,7 +105,16 @@ and PyTorch built for CUDA. In order:
    documents, 4,096 hashed features), ``regression`` (10,000 x 10, three
    SGD step sizes averaged), ``leadscoring`` (10,000 leads, 500 Adam
    steps) and ``helloworld``, each trained on the card and on the CPU
-   and held within 1e-5 relative, 256 requests each; then the e2 Markov
+   and held within 1e-5 relative, 256 requests each; classification,
+   textclassification and leadscoring trained again with their rows
+   over ``data`` on (2, 1) and (4, 1) meshes of logical devices on the
+   card (each fit's per-block sums added on the home device), held to
+   the home-device run within 1e-5 relative, the padding counted in
+   ``pio_mesh_pad_rows_total``, 64 answers served from each mesh's
+   generation equal to the CPU model's, each fit's seconds beside the
+   home run's; and ``launch -n min(2, cards) -- train`` of
+   classification over NCCL (one rank on one card), every rank's
+   tables equal to the home run's; then the e2 Markov
    chain over 5,000 states, card against CPU, and a MANUAL model with a
    CUDA tensor field saved and loaded back onto the card;
 12. runs the continuous trainer on the deployment the JAX package's
@@ -116,8 +126,9 @@ and PyTorch built for CUDA. In order:
    once its checkpoint holds iteration 2; a second child resumes
    (``resumedFromIteration`` at least the iteration seen at the kill),
    ends COMPLETED and deletes the checkpoint; the same training
-   uninterrupted in this process gives the largest relative difference
-   (reported only) and the training and profiler traces in
+   uninterrupted in this process must give the resumed run's factors bit
+   for bit (the heavy sub-rows add in a fixed order), and the training
+   and profiler traces in
    ``PIO_TRACE_DIR``; the resumed generation is served and 64 answers are
    held against the plain top-k; 50 new users and 10 new items are
    ingested over HTTP, ``poll_once`` folds them in (the child
@@ -300,9 +311,10 @@ and PyTorch built for CUDA. In order:
    (1, 1), (1, 2), (2, 2) and (1, 4) of logical devices on the card
    (``devices=[cuda:0] * n``), and over distinct cards where the machine
    has them: every factor row within 1e-2 of its norm of the (1, 1)
-   run's row (a second (1, 1) run is read beside it: float32 summation
-   order, amplified; a (2, 2) run with a transposed-gather layout fault
-   planted in ``plan_shards`` must fail that check), the JAX tests' own
+   run's row, the largest deviation printed beside that bound (a
+   second (1, 1) run must equal the first bit for bit; a (2, 2) run
+   with a transposed-gather layout fault planted in ``plan_shards``
+   must fail the row check), the JAX tests' own
    problems within their rtol 1e-4 / atol 1e-5 on every mesh, phantom
    rows exactly zero, each model shard a 1/m row slice,
    ``check_factor_sharding`` on a probe, the epoch timed (CUDA events
@@ -397,6 +409,35 @@ ALS_RANGES = ("als/gather_gramian", "als/solve", "als/heavy_add")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: where this script's child processes keep their bytecode
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+#: what a console child imports before its verb's work
+WARM_IMPORTS = ("numpy", "torch", "predictionio_tpu_torch.cli.main",
+                "predictionio_tpu_torch.core.workflow",
+                "predictionio_tpu_torch.serving.engine_server",
+                "predictionio_tpu_torch.serving.event_server",
+                "predictionio_tpu_torch.models.recommendation",
+                "predictionio_tpu_torch.ops.als",
+                "predictionio_tpu_torch.ops.fused_topk")
+
+
+def cache_child_bytecode() -> subprocess.Popen:
+    """Let every child process of this script read its modules' bytecode
+    from PYCACHE, and start one that compiles WARM_IMPORTS into it (the
+    caller waits for it; this process's later imports use it too).
+    Where the environment says not to write bytecode
+    (``PYTHONDONTWRITEBYTECODE``) and the installed packages ship none,
+    each child compiles torch's sources anew (PERF.md §5:
+    ``python -m predictionio_tpu_torch.utils.child_start --pycache``)."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = PYCACHE
+    code = "".join(f"import {m}\n" for m in WARM_IMPORTS)
+    return subprocess.Popen([sys.executable, "-c", code],
+                            env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT)
 
 
 # -- inputs -----------------------------------------------------------------
@@ -2021,6 +2062,14 @@ MARKOV = (5_000, 400_000)
 #: relative (and absolute) tolerance of card against CPU for the
 #: templates' float32 products, steps and logs
 TEMPLATE_RTOL, TEMPLATE_ATOL = 1e-5, 1e-6
+#: the data-parallel classifiers: classification, textclassification and
+#: leadscoring trained again with their rows over ``data`` on these
+#: meshes of logical devices on the card, each generation serving this
+#: many answers; ``launch`` trains classification on at most this many
+#: ranks (NCCL, a card a rank)
+DP_MESHES = ((2, 1), (4, 1))
+DP_QUERIES = 64
+DP_LAUNCH_RANKS = 2
 T_BASE = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
 
 
@@ -2506,6 +2555,130 @@ def _nb_checks(models_card, models_cpu, xq, what) -> float:
     return max(worst, _close(card, cpu, f"{what} log scores"))
 
 
+def _pad_rows_total() -> float:
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.parallel.mesh import PAD_ROWS_HELP
+
+    return get_registry().counter("pio_mesh_pad_rows_total",
+                                  PAD_ROWS_HELP).value
+
+
+def _dp_tables(name: str, model) -> list:
+    """What a data-parallel run must reproduce: the naive Bayes tables,
+    or the lead weights with the bias."""
+    if name == "leadscoring":
+        return [np.append(np.asarray(model.w), np.float32(model.b))]
+    tables = getattr(model, "nb", None) or model.nb_model
+    return [tables.pi, tables.theta]
+
+
+def _dp_answers_alike(name: str, answers: list, want: list) -> None:
+    for a, w in zip(answers, want):
+        if name == "leadscoring":
+            assert a["converted"] == w["converted"], (a, w)
+            _close([a["score"]], [w["score"]], "mesh lead scores")
+            continue
+        assert a["label"] == w["label"], (a, w)
+        if "scores" in w:
+            _close([a["scores"][k] for k in sorted(w["scores"])],
+                   [w["scores"][k] for k in sorted(w["scores"])],
+                   f"mesh {name} scores")
+
+
+def dp_mesh_runs(device, engine, params, name: str, storage, n_rows: int,
+                 home, home_times: dict, queries: list, want: list) -> list:
+    """Phase 11 on a mesh: ``name`` trained again by ``run_train`` on each
+    of DP_MESHES of logical devices on the card, its rows placed over
+    ``data`` and each fit's per-block sums added on the home device. The
+    tables equal the home-device run's (``home``) within phase 11's
+    bounds, ``pio_mesh_pad_rows_total`` grows by the padding of the
+    preparator's three placements, and DP_QUERIES answers served from the
+    mesh's generation equal the CPU model's (``want``)."""
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    runs = []
+    for shape in DP_MESHES:
+        n = shape[0] * shape[1]
+        ctx = ComputeContext.create(mesh_shape=shape, devices=[device] * n)
+        engine_id = f"chip-{name}-mesh{shape[0]}x{shape[1]}"
+        before = _pad_rows_total()
+        (model,), times = _train_template(engine, params, engine_id, ctx,
+                                          storage)
+        pad = _pad_rows_total() - before
+        assert pad == 3 * ((-n_rows) % shape[0]), (name, shape, pad)
+        worst = 0.0
+        for got, ref in zip(_dp_tables(name, model),
+                            _dp_tables(name, home)):
+            worst = max(worst, _close(got, ref, f"{name} mesh {shape}"))
+        if name != "leadscoring":
+            assert list(model.label_map.keys()) == list(
+                home.label_map.keys()), name
+        with _Served(engine, params, engine_id, ctx, storage) as srv:
+            answers = [srv.query(q) for q in queries[:DP_QUERIES]]
+            p50 = srv.p50_ms()
+        _dp_answers_alike(name, answers, want[:DP_QUERIES])
+        runs.append({"mesh": list(shape), "rows": n_rows, "pad_rows": pad,
+                     "train_s": times["train_s"],
+                     "run_train_s": times["run_train_s"],
+                     "home_train_s": home_times["train_s"],
+                     "max_rel_err_vs_home": worst,
+                     "answers_checked": len(answers), "p50_ms": p50})
+        log(f"template {name} on a {shape[0]}x{shape[1]} mesh: "
+            f"{json.dumps(runs[-1])}")
+    return runs
+
+
+def dp_launch(device, tmpdir: str, events: list, home) -> dict:
+    """``launch -n min(DP_LAUNCH_RANKS, cards) -- train`` of the
+    classification example over NCCL, mesh (ranks, 1), on events in a
+    sqlite store every rank reads: every rank joined the process group
+    and published a COMPLETED instance whose tables equal the home-device
+    run's within phase 11's bounds. On one card this is one rank."""
+    from predictionio_tpu_torch.core.persistence import (
+        deserialize_models,
+        load_generation,
+    )
+
+    cuda = device.type == "cuda"
+    ranks = min(DP_LAUNCH_RANKS, torch.cuda.device_count()) if cuda else 1
+    backend = "nccl" if cuda else "gloo"
+    variant = os.path.join(ROOT, "examples", "classification",
+                           "engine.json")
+    app_name = _engine_json("classification")["datasource"]["params"][
+        "app_name"]
+    storage, app_id = _template_storage("sqlite", tmpdir, app_name)
+    _insert(storage, app_id, events)
+    env = {**os.environ, **fleet_env(tmpdir), "PIO_FS_BASEDIR": tmpdir,
+           "PYTHONPATH": ROOT}
+    console = _Console(tmpdir, env)
+    t0 = time.perf_counter()
+    try:
+        proc = console.start("dp_launch", [
+            "launch", "-n", str(ranks), "--timeout", "600", "--",
+            *CONSOLE, "train", "--variant", variant, "--mesh-shape",
+            f"{ranks},1", *([] if cuda else ["--device", "cpu"])])
+        console.wait("dp_launch", proc)
+        launch_s = time.perf_counter() - t0
+        err = _tail(console.path("dp_launch", "err"), 200_000)
+    finally:
+        console.close()
+    joined = [ln for ln in err.splitlines()
+              if f"torch.distributed initialized ({backend})" in ln]
+    assert len(joined) == ranks, (joined, err[-3000:])
+    insts = storage.get_meta_data_engine_instances().get_all()
+    assert len(insts) == ranks, [i.status for i in insts]
+    worst = 0.0
+    for inst in insts:
+        assert inst.status == "COMPLETED", inst.status
+        (model,) = [m for _t, m in deserialize_models(load_generation(
+            storage.get_model_data_models(), inst.id))]
+        for got, ref in zip(_dp_tables("classification", model),
+                            _dp_tables("classification", home)):
+            worst = max(worst, _close(got, ref, "launch classification"))
+    return {"ranks": ranks, "backend": backend, "launch_s": launch_s,
+            "mesh_conf": insts[0].mesh_conf, "max_rel_err_vs_home": worst}
+
+
 def classifier_phase(device, tmpdir: str, seed: int, name: str) -> dict:
     """classification (20,000 users' $set attributes) or
     textclassification (10,000 documents, 4 labels, 4096 hashed
@@ -2552,7 +2725,8 @@ def classifier_phase(device, tmpdir: str, seed: int, name: str) -> dict:
     nb_card = getattr(staged, "nb", None) or staged.nb_model
     nb_cpu = getattr(cpu_model, "nb", None) or cpu_model.nb_model
     assert nb_card.theta.device.type == device.type
-    worst = _nb_checks(nb_card, nb_cpu, prep.x[:TEMPLATE_QUERIES], name)
+    worst = _nb_checks(nb_card, nb_cpu,
+                       prep.x.take_rows(np.arange(TEMPLATE_QUERIES)), name)
     with _Served(engine, params, f"chip-{name}", ctx, storage) as srv:
         answers = [srv.query(q) for q in queries]
         p50 = srv.p50_ms()
@@ -2563,12 +2737,21 @@ def classifier_phase(device, tmpdir: str, seed: int, name: str) -> dict:
             _close([a["scores"][k] for k in sorted(w["scores"])],
                    [w["scores"][k] for k in sorted(w["scores"])],
                    "text scores")
-    return {"events": len(events), "insert_s": insert_s, **times,
-            "rows": int(prep.x.shape[0]), "features": int(prep.x.shape[1]),
-            "classes": len(td.label_map) if hasattr(td, "label_map")
-            else len(set(td.labels)),
-            "max_rel_err": worst, "queries": len(queries),
-            "labels": sorted({a["label"] for a in answers}), "p50_ms": p50}
+    n_rows = len(td.x) if hasattr(td, "x") else len(td.texts)
+    meshes = dp_mesh_runs(device, engine, params, name, storage, n_rows,
+                          model, times, queries, want)
+    out = {"events": len(events), "insert_s": insert_s, **times,
+           "rows": int(prep.x.shape[0]), "features": int(prep.x.shape[1]),
+           "classes": len(td.label_map) if hasattr(td, "label_map")
+           else len(set(td.labels)),
+           "max_rel_err": worst, "queries": len(queries),
+           "labels": sorted({a["label"] for a in answers}), "p50_ms": p50,
+           "meshes": meshes}
+    if name == "classification":
+        out["launch"] = dp_launch(device, os.path.join(tmpdir, "launch"),
+                                  events, model)
+        log(f"template classification launch: {json.dumps(out['launch'])}")
+    return out
 
 
 def _reg_events(seed: int):
@@ -2666,10 +2849,9 @@ def numeric_phase(device, tmpdir: str, seed: int, name: str) -> dict:
                    for _ in range(TEMPLATE_QUERIES)]
         (algo,) = algos
         p = algo.params
-        card_x = prep.x.to(device)
+        card = engine.make_preparator(params).prepare(ctx, td)
         w_card, b_card = leadscoring.fit_logistic(
-            card_x, prep.y.to(device), prep.mask.to(device),
-            p.learning_rate, p.steps, p.l2)
+            card.x, card.y, card.mask, p.learning_rate, p.steps, p.l2)
         w_cpu, b_cpu = leadscoring.fit_logistic(
             prep.x, prep.y, prep.mask, p.learning_rate, p.steps, p.l2)
         (m,) = models
@@ -2677,15 +2859,13 @@ def numeric_phase(device, tmpdir: str, seed: int, name: str) -> dict:
         worst = _close(np.append(w_card.cpu(), float(b_card)),
                        np.append(w_cpu, float(b_cpu)), "lead weights")
         loss_card = float(leadscoring.lead_loss(
-            w_card, b_card, card_x, prep.y.to(device),
-            prep.mask.to(device), p.l2))
+            w_card, b_card, card.x, card.y, card.mask, p.l2))
         loss_cpu = float(leadscoring.lead_loss(
             w_cpu, b_cpu, prep.x, prep.y, prep.mask, p.l2))
         assert abs(loss_card - loss_cpu) <= 1e-5, (loss_card, loss_cpu)
         out.update(loss_card=loss_card, loss_cpu=loss_cpu)
         t0 = time.perf_counter()
-        leadscoring.fit_logistic(card_x, prep.y.to(device),
-                                 prep.mask.to(device), p.learning_rate,
+        leadscoring.fit_logistic(card.x, card.y, card.mask, p.learning_rate,
                                  p.steps, p.l2)
         torch.cuda.synchronize()
         out["adam_fit_s"] = time.perf_counter() - t0
@@ -2702,6 +2882,10 @@ def numeric_phase(device, tmpdir: str, seed: int, name: str) -> dict:
     with _Served(engine, params, f"chip-{name}", ctx, storage) as srv:
         answers = [srv.query(q) for q in queries]
         out["p50_ms"] = srv.p50_ms()
+    if name == "leadscoring":
+        out["meshes"] = dp_mesh_runs(device, engine, params, name, storage,
+                                     len(td.x), models[0], times, queries,
+                                     want)
     for a, w in zip(answers, want):
         if name == "regression":
             _close([a], [w], "regression answers")
@@ -3085,9 +3269,11 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
         load_generation(backend, parent_id))]
     assert model.item_factors.shape == (len(model.item_map), RANK)
 
-    # the same training uninterrupted, in this process, for comparison
-    # (reported only: index_add_ on the card is not bit-deterministic)
-    # and for the training trace and the profiler trace of this process
+    # the same training uninterrupted, in this process: the resumed run
+    # solved the same slabs from the checkpoint's factors, so its factors
+    # must equal these bit for bit (the heavy sub-rows add in a fixed
+    # order); and the training trace and the profiler trace of this
+    # process
     os.environ["PIO_TRACE_DIR"] = trace_dir
     set_storage(storage)
     metrics_before = get_registry().render_prometheus()
@@ -3107,6 +3293,11 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
         float(np.abs(a - b).max() / np.abs(b).max())
         for a, b in ((model.user_factors, ref.user_factors),
                      (model.item_factors, ref.item_factors)))
+    for side, a, b in (("user", model.user_factors, ref.user_factors),
+                       ("item", model.item_factors, ref.item_factors)):
+        assert np.array_equal(a, b), (
+            f"the resumed retrain's {side} factors differ from the "
+            f"uninterrupted run's by up to {float(np.abs(a - b).max())}")
     ref_trace = os.path.join(trace_dir, f"pio_train_{ref_id}.trace.json")
     names = {e["name"] for e in json.load(open(ref_trace))["traceEvents"]}
     assert {"pio_train", "train/persist_model", "als/checkpoint"} <= names, (
@@ -7317,13 +7508,14 @@ MESH_EPOCHS = 3
 #: own problems (MESH_SMALL) on the card
 MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
 #: at full width float32 rounding is amplified past that tolerance
-#: element by element: a second (1, 1) run, whose heavy-row
-#: ``index_add_`` sums in another order, already differs past it in
-#: thousands of small item entries. So each full-width run is held row by
+#: element by element: a mesh pads its slabs and splits its batches
+#: otherwise, so cuBLAS adds in another order, and thousands of small
+#: item entries differ past it. So each full-width run is held row by
 #: row: no row may differ from its (1, 1) row by more than MESH_ROW_REL of
-#: that row's norm (plus MESH_ATOL for rows that are zero there); a second
-#: (1, 1) run is read beside it, and a planted layout fault (MESH_FAULT)
-#: must fail the same check
+#: that row's norm (plus MESH_ATOL for rows that are zero there), and a
+#: planted layout fault (MESH_FAULT) must fail the same check. A second
+#: (1, 1) run must equal the first bit for bit: the heavy sub-rows add in
+#: a fixed order
 MESH_ROW_REL = 1e-2
 #: the planted fault: real rows of these two blocks of the device-major
 #: layout trade places, where a transposed (model-major) gather puts them
@@ -7817,15 +8009,18 @@ def mesh_phase(device, workdir: str, seed: int) -> dict:
         for devices in meshes:
             run, host = mesh_train(device, data, shape, devices)
             if base is None:
-                # (1, 1) twice: the second run shows float32's spread
+                # (1, 1) twice: the second run repeats the first exactly
                 base = host
                 _again, host = mesh_train(device, data, shape, devices,
                                           timed=False)
                 spread = _mesh_diff(host, base)
-                _hold_to_base("(1, 1) rerun", spread)
                 out["spread"] = spread
                 log(f"mesh als (1, 1) rerun against the first: "
                     f"{json.dumps(spread)}")
+                for name in ("user", "item"):
+                    assert np.array_equal(host[name], base[name]), (
+                        f"(1, 1) rerun: {name} factors differ from the "
+                        f"first run by up to {spread[name]['max_abs']}")
             else:
                 run["diff_vs_1x1"] = _mesh_diff(host, base)
                 _hold_to_base(f"mesh {shape}", run["diff_vs_1x1"])
@@ -7881,9 +8076,18 @@ def log_mesh(p: dict, smi: str) -> None:
     log(f"mesh als planted fault {MESH_FAULT[0][0]}x{MESH_FAULT[0][1]} "
         f"(blocks {MESH_FAULT[1]} swapped) against 1x1: "
         f"{json.dumps(p['fault'])}, caught ({smi})")
-    log(f"mesh als 1x1 rerun against 1x1: {json.dumps(p['spread'])}; "
+    log(f"mesh als 1x1 rerun against 1x1: {json.dumps(p['spread'])} "
+        f"(bit-equal, asserted); "
         f"the JAX tests' problems on each mesh within rtol {MESH_RTOL} / "
         f"atol {MESH_ATOL}: {json.dumps(p['small'])}")
+    worst = {name: max(run["diff_vs_1x1"][name]["row_rel_max"]
+                       for run in p["runs"] if "diff_vs_1x1" in run)
+             for name in ("user", "item")}
+    log(f"mesh als largest row deviation from 1x1 over the meshes: user "
+        f"{worst['user']:.3g}, item {worst['item']:.3g} of the row's norm "
+        f"(bound {MESH_ROW_REL}; the planted fault's worst user "
+        f"{p['fault']['user']['row_rel_max']:.3g}, item "
+        f"{p['fault']['item']['row_rel_max']:.3g}) ({smi})")
     d = p["deploy"]
     log(f"mesh deploy {MESH_DEPLOY[0]}x{MESH_DEPLOY[1]}: listening in "
         f"{d['deploy_listening_s']:.2f} s, {d['answers_checked']} answers "
@@ -8163,7 +8367,7 @@ def log_ingest(ingest: dict, dase: dict) -> None:
             f"{run['launches']['f32']}")
 
 
-def log_templates(t: dict) -> None:
+def log_templates(t: dict, smi: str) -> None:
     e = t["ecommerce"]
     log(f"ecommerce: {e['events']} events in {e['insert_s']:.2f} s; read "
         f"{e['read_s']:.3f} s, train {e['train_s']:.3f} s, persist "
@@ -8186,6 +8390,19 @@ def log_templates(t: dict) -> None:
             "markov_s", "manual_round_trip_s") if key in run)
         p50 = f", request p50 {run['p50_ms']:.3f} ms" if "p50_ms" in run else ""
         log(f"{name}: {secs}{p50}; whole step {run['phase_s']:.2f} s")
+        for m in run.get("meshes", []):
+            log(f"{name} on a {m['mesh'][0]}x{m['mesh'][1]} mesh: fit "
+                f"{m['train_s']:.6f} s (home device {m['home_train_s']:.6f}"
+                f" s), run_train {m['run_train_s']:.3f} s, tables within "
+                f"{m['max_rel_err_vs_home']:.3g} of the home run's, "
+                f"{m['pad_rows']:.0f} rows padded, {m['answers_checked']} "
+                f"answers equal to the CPU model's, p50 {m['p50_ms']:.3f} ms "
+                f"({smi})")
+        if "launch" in run:
+            c = run["launch"]
+            log(f"{name} launch -n {c['ranks']} -- train over {c['backend']}"
+                f": {c['launch_s']:.2f} s, tables within "
+                f"{c['max_rel_err_vs_home']:.3g} of the home run's ({smi})")
 
 
 def log_store(s: dict, smi: str) -> None:
@@ -8281,9 +8498,14 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     log(f"ephemeral ports {_ephemeral_range()}; servers listen below them")
 
+    warm = cache_child_bytecode()
     t0 = time.perf_counter()
     _build.library("fused_topk")
     log(f"build fused_topk: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    assert warm.wait(timeout=CLI_TIMEOUT_S) == 0, "the bytecode warm-up failed"
+    log(f"child bytecode cached in {PYCACHE} (beside the build; waited "
+        f"{time.perf_counter() - t0:.2f} s more)")
     report = _build.library_path("fused_topk").with_suffix(".log")
     for line in report.read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -8379,7 +8601,7 @@ def main() -> int:
     log(f"phase similar: ok ({time.perf_counter() - t_start:.1f} s)")
 
     templates = templates_phase(device, args.seed)
-    log_templates(templates)
+    log_templates(templates, nvidia_smi_line())
     log(f"phase templates: ok ({time.perf_counter() - t_start:.1f} s)")
 
     t_phase = time.perf_counter()

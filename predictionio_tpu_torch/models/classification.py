@@ -2,8 +2,10 @@
 
 Counterpart of ``predictionio_tpu/models/classification.py``. Entities
 carry numeric attribute properties and a label property (``$set``
-events); training fits multinomial naive Bayes with one matrix product
-on the device (:func:`ops.naive_bayes.fit_multinomial`); a query
+events); the rows are placed over the mesh's ``data`` axis, and
+training fits multinomial naive Bayes with one matrix product per row
+block, summed on the home device (:func:`ops.naive_bayes.fit_multinomial`);
+a query
 ``{"features": [...]}`` answers ``{"label": ..., "scores": {...}}``, and
 the micro-batcher's two-phase path answers ``{"label": ...}`` for a
 batch from one launch.
@@ -29,7 +31,7 @@ from predictionio_tpu_torch.core import (
 from predictionio_tpu_torch.core.controller import SanityCheck
 from predictionio_tpu_torch.data.store import EventStore
 from predictionio_tpu_torch.ops import naive_bayes as nb
-from predictionio_tpu_torch.parallel.mesh import ComputeContext
+from predictionio_tpu_torch.parallel.mesh import ComputeContext, ShardedTensor
 from predictionio_tpu_torch.utils.bimap import BiMap
 
 logger = logging.getLogger(__name__)
@@ -118,9 +120,9 @@ class ClassificationDataSource(
 
 @dataclasses.dataclass
 class PreparedClassificationData:
-    x: torch.Tensor      # [n_pad, d] on the device
-    y: torch.Tensor      # [n_pad]
-    mask: torch.Tensor   # [n_pad] 1.0 real / 0.0 padding
+    x: ShardedTensor     # [n_pad, d] split over data
+    y: ShardedTensor     # [n_pad]
+    mask: ShardedTensor  # [n_pad] 1.0 real / 0.0 padding
     label_map: BiMap
     n_classes: int
 
@@ -128,15 +130,16 @@ class PreparedClassificationData:
 class ClassificationPreparator(
     Preparator[ClassificationTrainingData, PreparedClassificationData]
 ):
-    """Rows padded to the data-axis multiple and placed on the device."""
+    """Rows padded to the data-axis multiple and placed over the mesh's
+    ``data`` axis, as in the JAX package."""
 
     def prepare(
         self, ctx: ComputeContext, td: ClassificationTrainingData
     ) -> PreparedClassificationData:
         return PreparedClassificationData(
-            x=ctx.pad_rows(td.x),
-            y=ctx.pad_rows(td.y),
-            mask=ctx.pad_rows(np.ones(len(td.x), np.float32)),
+            x=ctx.shard_rows(td.x),
+            y=ctx.shard_rows(td.y),
+            mask=ctx.shard_rows(np.ones(len(td.x), np.float32)),
             label_map=td.label_map,
             n_classes=max(len(td.label_map), 1),
         )

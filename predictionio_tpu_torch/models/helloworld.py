@@ -3,8 +3,8 @@
 Counterpart of ``predictionio_tpu/models/helloworld.py``. Training data
 is (day, temperature) pairs, from "report" events on entity type "day"
 carrying a ``temperature`` property or from a ``day,temperature`` CSV;
-the model is the mean temperature per day, computed on the device with
-``index_add_``; a query ``{"day": "Mon"}`` answers ``{"temperature":
+the model is the mean temperature per day, summed on the device in a
+fixed order (no atomics); a query ``{"day": "Mon"}`` answers ``{"temperature":
 <mean>}`` (``None`` for an unknown day).
 """
 
@@ -83,12 +83,24 @@ class HelloModel:
 def segment_mean(codes: torch.Tensor, values: torch.Tensor,
                  n: int) -> torch.Tensor:
     """Mean of ``values`` per segment id in ``codes`` (``n`` segments; an
-    empty one is 0), by two ``index_add_`` sums on the values' device."""
-    total = torch.zeros(n, dtype=values.dtype, device=values.device)
-    total.index_add_(0, codes, values)
-    count = torch.zeros(n, dtype=values.dtype, device=values.device)
-    count.index_add_(0, codes, torch.ones_like(values))
-    return total / torch.clamp(count, min=1.0)
+    empty one is 0) on the values' device. The layout is planned on the
+    host: each segment's values, in input order, fill a row of an ``[n,
+    m]`` matrix padded with zeros (``m`` the largest segment), and the
+    rows are summed by one reduction of fixed shape, with no atomics, so
+    the sums are the same each run."""
+    host = codes.cpu().numpy().astype(np.int64)
+    order = np.argsort(host, kind="stable")
+    count = np.bincount(host, minlength=n)
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    col = np.arange(len(host)) - start[host[order]]
+    width = max(int(count.max()) if len(count) else 0, 1)
+    slot = np.full(n * width, len(host), np.int64)  # the zero pad
+    slot[host[order] * width + col] = order
+    padded = torch.cat([values, values.new_zeros(1)]).index_select(
+        0, torch.from_numpy(slot).to(values.device)).view(n, width)
+    total = padded.sum(dim=1)
+    cnt = torch.as_tensor(count, dtype=values.dtype, device=values.device)
+    return total / torch.clamp(cnt, min=1.0)
 
 
 class HelloAlgorithm(Algorithm):

@@ -4,11 +4,16 @@ Counterpart of ``predictionio_tpu/models/leadscoring.py``. Users carry
 ``$set`` numeric attributes and a boolean conversion label; a query
 ``{"features": [...]}`` answers ``{"score": p, "converted": p >=
 threshold}``. Features are standardized at the preparator, with the
-moments carried into the model so serving normalizes alike. Training is
-``steps`` Adam steps on the device (``torch.optim.Adam``: the optax
-defaults b1 0.9, b2 0.999, eps 1e-8 added outside the square root after
-bias correction) on the masked mean of ``binary_cross_entropy_with_logits``
-plus ``l2·‖w‖²``, with gradients from ``torch.autograd``.
+moments carried into the model so serving normalizes alike; the rows
+are placed over the mesh's ``data`` axis, as in the JAX package.
+Training is ``steps`` full-batch Adam steps on the home device
+(``torch.optim.Adam``: the optax defaults b1 0.9, b2 0.999, eps 1e-8
+added outside the square root after bias correction) on the masked mean
+of the logistic loss plus ``l2·‖w‖²``. Each step's gradient is the
+closed form, ``Σ xᵢ (σ(zᵢ) − yᵢ) mᵢ / max(Σ mᵢ, 1) + 2·l2·w`` (and the
+same sum without ``xᵢ`` for the bias): each row block gives its partial
+sums, added on the home device in block order
+(:func:`~predictionio_tpu_torch.parallel.mesh.sum_over_data`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,11 @@ from predictionio_tpu_torch.core import (
 )
 from predictionio_tpu_torch.core.controller import SanityCheck
 from predictionio_tpu_torch.data.store import EventStore
-from predictionio_tpu_torch.parallel.mesh import ComputeContext
+from predictionio_tpu_torch.parallel.mesh import (
+    ComputeContext,
+    ShardedTensor,
+    sum_over_data,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -112,16 +121,17 @@ class LeadDataSource(DataSource[LeadTrainingData, dict, dict, list]):
 
 @dataclasses.dataclass
 class LeadPrepared:
-    x: torch.Tensor    # [n_pad, d] standardized, on the device
-    y: torch.Tensor    # float32 [n_pad]
-    mask: torch.Tensor  # float32 [n_pad]
+    x: ShardedTensor     # [n_pad, d] standardized, split over data
+    y: ShardedTensor     # float32 [n_pad]
+    mask: ShardedTensor  # float32 [n_pad]
     mean: np.ndarray   # [d] training-fold feature means
     std: np.ndarray    # [d] training-fold feature stds (>= eps)
 
 
 class LeadPreparator(Preparator[LeadTrainingData, LeadPrepared]):
-    """Standardize on the host; the moments ride along so serving
-    normalizes queries alike."""
+    """Standardize on the host and place the rows over the mesh's
+    ``data`` axis; the moments ride along so serving normalizes queries
+    alike."""
 
     def prepare(
         self, ctx: ComputeContext, td: LeadTrainingData
@@ -130,9 +140,9 @@ class LeadPreparator(Preparator[LeadTrainingData, LeadPrepared]):
         std = np.maximum(td.x.std(axis=0), 1e-6)
         x = (td.x - mean) / std
         return LeadPrepared(
-            x=ctx.pad_rows(x.astype(np.float32)),
-            y=ctx.pad_rows(td.y),
-            mask=ctx.pad_rows(np.ones(len(td.x), np.float32)),
+            x=ctx.shard_rows(x.astype(np.float32)),
+            y=ctx.shard_rows(td.y),
+            mask=ctx.shard_rows(np.ones(len(td.x), np.float32)),
             mean=mean.astype(np.float32),
             std=std.astype(np.float32),
         )
@@ -161,31 +171,47 @@ class LeadModel:
         return 1.0 / (1.0 + np.exp(-z))
 
 
-def lead_loss(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-              y: torch.Tensor, mask: torch.Tensor, l2: float) -> torch.Tensor:
-    """The masked mean of the logistic loss plus ``l2·‖w‖²``."""
-    bce = torch.nn.functional.binary_cross_entropy_with_logits(
-        x @ w + b, y, reduction="none")
-    data_term = (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return data_term + l2 * (w ** 2).sum()
+Rows = torch.Tensor | ShardedTensor
 
 
-def fit_logistic(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                 learning_rate: float, steps: int,
-                 l2: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """``steps`` Adam steps from zero weights on ``x``'s device; returns
-    ``(w [d], b [])``."""
-    w = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device,
-                    requires_grad=True)
-    b = torch.zeros((), dtype=torch.float32, device=x.device,
-                    requires_grad=True)
+def lead_loss(w: torch.Tensor, b: torch.Tensor, x: Rows, y: Rows,
+              mask: Rows, l2: float) -> torch.Tensor:
+    """The masked mean of the logistic loss plus ``l2·‖w‖²``: each row
+    block's ``Σ bce·mask`` and ``Σ mask``, summed in block order."""
+
+    def block(xb, yb, mb):
+        bce = torch.nn.functional.binary_cross_entropy_with_logits(
+            xb @ w.to(xb.device) + b.to(xb.device), yb, reduction="none")
+        return (bce * mb).sum(), mb.sum()
+
+    total, count = sum_over_data(block, x, y, mask)
+    return total / torch.clamp(count, min=1.0) + l2 * (w ** 2).sum()
+
+
+def fit_logistic(x: Rows, y: Rows, mask: Rows, learning_rate: float,
+                 steps: int, l2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` Adam steps from zero weights on the rows' (home) device;
+    returns ``(w [d], b [])``. The gradient is the closed form: each row
+    block gives ``Σ x·r`` and ``Σ r`` with ``r = (σ(x·w + b) − y)·mask``,
+    the blocks are summed in order, and the sum is divided by ``max(Σ
+    mask, 1)`` before ``2·l2·w`` is added."""
+    home = x.device
+    w = torch.zeros(x.shape[1], dtype=torch.float32, device=home)
+    b = torch.zeros((), dtype=torch.float32, device=home)
     opt = torch.optim.Adam([w, b], lr=learning_rate, betas=(0.9, 0.999),
                            eps=1e-8)
+    count = torch.clamp(sum_over_data(lambda mb: mb.sum(), mask), min=1.0)
+
+    def block(xb, yb, mb):
+        r = (torch.sigmoid(xb @ w.to(xb.device) + b.to(xb.device)) - yb) * mb
+        return xb.T @ r, r.sum()
+
     for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
-        lead_loss(w, b, x, y, mask, l2).backward()
+        gw, gb = sum_over_data(block, x, y, mask)
+        w.grad = gw / count + 2.0 * l2 * w
+        b.grad = gb / count
         opt.step()
-    return w.detach(), b.detach()
+    return w, b
 
 
 class LeadScoringAlgorithm(Algorithm[LeadPrepared, LeadModel, dict, dict]):

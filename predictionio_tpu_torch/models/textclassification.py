@@ -32,7 +32,7 @@ from predictionio_tpu_torch.core.controller import SanityCheck
 from predictionio_tpu_torch.data.store import EventStore
 from predictionio_tpu_torch.models.classification import stage_nb
 from predictionio_tpu_torch.ops import naive_bayes as nb
-from predictionio_tpu_torch.parallel.mesh import ComputeContext
+from predictionio_tpu_torch.parallel.mesh import ComputeContext, ShardedTensor
 from predictionio_tpu_torch.utils.bimap import BiMap
 
 logger = logging.getLogger(__name__)
@@ -132,9 +132,9 @@ class TextPreparatorParams(Params):
 
 @dataclasses.dataclass
 class TextPrepared:
-    x: torch.Tensor     # [n_pad, n_features] hashed counts on the device
-    y: torch.Tensor     # int32 [n_pad]
-    mask: torch.Tensor  # float32 [n_pad] 1.0 real / 0.0 padding
+    x: ShardedTensor     # [n_pad, n_features] hashed counts over data
+    y: ShardedTensor     # int32 [n_pad]
+    mask: ShardedTensor  # float32 [n_pad] 1.0 real / 0.0 padding
     label_map: BiMap
     n_features: int
 
@@ -146,7 +146,8 @@ def hash_rows(texts, n_features: int) -> np.ndarray:
 
 class TextPreparator(Preparator[TextTrainingData, TextPrepared]):
     """Hash to the fixed width, pad rows to the data-axis multiple, and
-    place on the device (the fit's ``mask`` makes padded rows exact)."""
+    place them over the mesh's ``data`` axis, as in the JAX package (the
+    fit's ``mask`` makes padded rows exact)."""
 
     params_class = TextPreparatorParams
 
@@ -157,9 +158,9 @@ class TextPreparator(Preparator[TextTrainingData, TextPrepared]):
         label_map, y = BiMap.string_int_with_codes(np.asarray(td.labels))
         x = hash_rows(td.texts, n)
         return TextPrepared(
-            x=ctx.pad_rows(x),
-            y=ctx.pad_rows(y),
-            mask=ctx.pad_rows(np.ones(len(td.texts), np.float32)),
+            x=ctx.shard_rows(x),
+            y=ctx.shard_rows(y),
+            mask=ctx.shard_rows(np.ones(len(td.texts), np.float32)),
             label_map=label_map,
             n_features=n,
         )

@@ -12,7 +12,9 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
   side's factors ``[R, W, k]`` → batched Gramians (``torch.bmm``) →
   batched Cholesky solves (``torch.linalg.cholesky_ex`` +
   ``cholesky_solve``). Heavy sub-rows add their partial stats into
-  their owner's slot with ``index_add_`` before that slot is solved.
+  their owner's slot before that slot is solved, pairwise in a fixed
+  order planned on the host (:class:`HeavyOrder`: no atomics), so a
+  run repeats bit for bit.
 * :func:`train_als` alternates the two sides for ``iterations`` epochs,
   with npz checkpoints in the JAX package's format, so a checkpoint
   written by either package resumes in the other.
@@ -517,26 +519,70 @@ def _prepare(y, compute, implicit):
     return y, (yf.T @ yf if implicit else None)
 
 
-def _heavy_stats(y, heavy_groups, n_regular, n_heavy_slots, implicit, alpha,
-                 compute):
-    """Heavy sub-rows' partial stats added into their owners' slots:
-    ``(A [n_heavy_slots,k,k], b, count)``. Owners are absolute stats
-    positions; phantom sub-rows carry owner 0 and zero weights, and the
-    clamp keeps their (zero) contribution in range."""
+@dataclasses.dataclass
+class HeavyOrder:
+    """The fixed order in which one heavy group's sub-rows add into their
+    owners' slots, planned on the host. An owner's sub-rows, in ascending
+    row order and padded with zero rows to the next power of two, are
+    added pairwise, level by level (``r0+r1``, ``r2+r3``, then those
+    sums, ...), and the total is added into its slot. Owners whose
+    padded widths are equal form one bucket: one gather of ``[owners,
+    width]`` rows and ``log2(width)`` adds, all owners at once, with no
+    atomics. A chain ``((r0+r1)+r2)+...`` would need one dependent add a
+    sub-row: up to a group's whole row count, one launch each."""
+
+    #: per bucket: (slots [S] int64, rows [S * width] int64, width); a
+    #: padding row is the group's row count, the zero row appended there
+    buckets: list[tuple[torch.Tensor, torch.Tensor, int]]
+
+
+def heavy_order(owner: np.ndarray, n_regular: int,
+                device: torch.device) -> HeavyOrder:
+    """Plan :class:`HeavyOrder` for a group whose sub-row ``r`` belongs to
+    the stats position ``owner[r]``; positions from ``n_regular`` on are
+    heavy slots. Phantom sub-rows (owner 0, below ``n_regular``: zero
+    weights) are left out."""
+    owner = np.asarray(owner, np.int64)
+    local = owner - n_regular
+    real = np.nonzero(local >= 0)[0]
+    rows = real[np.argsort(local[real], kind="stable")]
+    slots, start, count = np.unique(local[rows], return_index=True,
+                                    return_counts=True)
+    width = 1 << np.ceil(np.log2(np.maximum(count, 1))).astype(np.int64)
+    pad = len(owner)
+    buckets = []
+    for w in np.unique(width).tolist():
+        sel = np.nonzero(width == w)[0]
+        mat = np.full((len(sel), w), pad, np.int64)
+        for i, o in enumerate(sel.tolist()):
+            mat[i, :count[o]] = rows[start[o]:start[o] + count[o]]
+        buckets.append((torch.from_numpy(slots[sel]).to(device),
+                        torch.from_numpy(mat.reshape(-1)).to(device), w))
+    return HeavyOrder(buckets=buckets)
+
+
+def _heavy_stats(y, heavy_groups, n_heavy_slots, implicit, alpha, compute):
+    """Heavy sub-rows' partial stats summed into their owners' slots:
+    ``(A [n_heavy_slots,k,k], b, count)``. ``heavy_groups`` are ``(idx,
+    weights, valid, order)`` with a :class:`HeavyOrder`; each slot gets
+    its sub-rows' pairwise sum group after group, with no float atomics,
+    so the sums are the same each run."""
     k = y.shape[1]
-    dev = y.device
-    ha = torch.zeros((n_heavy_slots, k, k), device=dev)
-    hb = torch.zeros((n_heavy_slots, k), device=dev)
-    hcnt = torch.zeros((n_heavy_slots,), device=dev)
-    for idx, weights, valid, owner in heavy_groups:
+    acc = torch.zeros((n_heavy_slots, k * k + k + 1), device=y.device)
+    for idx, weights, valid, order in heavy_groups:
         ga, gb, gcnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
                                    compute)
-        local = (owner - n_regular).clamp(0, n_heavy_slots - 1)
         with torch.profiler.record_function("als/heavy_add"):
-            ha.index_add_(0, local, ga)
-            hb.index_add_(0, local, gb)
-            hcnt.index_add_(0, local, gcnt)
-    return ha, hb, hcnt
+            g = torch.cat([ga.reshape(ga.shape[0], -1), gb, gcnt[:, None]],
+                          dim=1)
+            g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+            for slots, rows, width in order.buckets:
+                t = g.index_select(0, rows).view(len(slots), width, -1)
+                while t.shape[1] > 1:
+                    t = t[:, 0::2] + t[:, 1::2]
+                acc[slots] = acc.index_select(0, slots) + t[:, 0]
+    return (acc[:, :k * k].reshape(n_heavy_slots, k, k),
+            acc[:, k * k:k * k + k], acc[:, -1])
 
 
 def _regular_solve(y, yty, slab_arrays, implicit, alpha, lam, compute):
@@ -558,14 +604,14 @@ def _assemble_and_solve(
     slab's systems are solved as soon as they are built (only ``[R, k]``
     rows survive, never the whole ``[n_stat_rows, k, k]``); heavy
     sub-rows add their partial stats into a small ``[n_heavy_slots, k,
-    k]`` buffer with ``index_add_``, solved last. ``heavy_groups`` are
-    ``(idx, weights, valid, owner)`` with absolute stats positions."""
+    k]`` buffer in a fixed order, solved last. ``heavy_groups`` are
+    ``(idx, weights, valid, order)`` with a :class:`HeavyOrder`."""
     y, yty = _prepare(y, compute, implicit)
     x = _regular_solve(y, yty, slab_arrays, implicit, alpha, lam, compute)
     if not n_heavy_slots:
         return x
-    ha, hb, hcnt = _heavy_stats(y, heavy_groups, x.shape[0], n_heavy_slots,
-                                implicit, alpha, compute)
+    ha, hb, hcnt = _heavy_stats(y, heavy_groups, n_heavy_slots, implicit,
+                                alpha, compute)
     return torch.cat([x, _solve(ha, hb, hcnt, yty, lam, implicit)], dim=0)
 
 
@@ -588,14 +634,13 @@ def make_solve_side(
 
     slabs = [(put(s.idx), put(s.weights), put(s.valid))
              for s in packed.slabs]
+    n_regular = sum(s.idx.shape[0] for s in packed.slabs)
     heavy = [
         (put(h.idx), put(h.weights), put(h.valid),
-         put(owner.astype(np.int64)))
+         heavy_order(owner, n_regular, ctx.device))
         for h, owner in zip(packed.heavy, packed.heavy_owner_pos)
     ]
-    n_heavy_slots = packed.n_stat_rows - sum(
-        s.idx.shape[0] for s in packed.slabs
-    )
+    n_heavy_slots = packed.n_stat_rows - n_regular
     inv_perm = put(packed.inv_perm.astype(np.int64))
 
     def solve(y: torch.Tensor, lam: float) -> torch.Tensor:
@@ -652,20 +697,44 @@ def _at(arrays, pos: int) -> tuple:
     return tuple(a.shards[pos] for a in arrays)
 
 
+def _heavy_at(group, pos: int) -> tuple:
+    """One heavy group's ``(idx, weights, valid, order)`` at ``pos``."""
+    *arrays, orders = group
+    return (*_at(arrays, pos), orders[pos])
+
+
+def _orders_at(owner: ShardedTensor, host: np.ndarray,
+               n_regular: int) -> dict:
+    """Position → :class:`HeavyOrder` of the sub-rows it holds, planned
+    from the host copy of the placed ``owner`` column."""
+    out, made = {}, {}
+    for pos in owner.mesh.local:
+        rows = owner.sharding.block(pos, owner.shape)[0]
+        dev = owner.mesh.device(pos)
+        key = (rows.start, rows.stop, dev)
+        if key not in made:
+            made[key] = heavy_order(host[rows], n_regular, dev)
+        out[pos] = made[key]
+    return out
+
+
 def _device_slabs(ctx: ComputeContext, packed: Bucketed):
     """Stage the replicated-factor geometry per the ALS rule table: slab
     rows (and the heavy owners with their sub-rows) split over
-    ``data``."""
+    ``data``; each heavy group carries its positions' summing orders."""
+    owners = [owner.astype(np.int64) for owner in packed.heavy_owner_pos]
     placed = partition.shard_pytree(ctx, partition.ALS_REPLICATED_RULES, {
         "slabs": _slab_tree(packed.slabs),
         "heavy": [
             {"idx": h.idx, "weights": h.weights, "valid": h.valid,
-             "owner": owner.astype(np.int64)}
-            for h, owner in zip(packed.heavy, packed.heavy_owner_pos)
+             "owner": owner}
+            for h, owner in zip(packed.heavy, owners)
         ],
     })
-    heavy = tuple((d["idx"], d["weights"], d["valid"], d["owner"])
-                  for d in placed["heavy"])
+    n_regular = sum(s.idx.shape[0] for s in packed.slabs)
+    heavy = tuple((d["idx"], d["weights"], d["valid"],
+                   _orders_at(d["owner"], owner, n_regular))
+                  for d, owner in zip(placed["heavy"], owners))
     return _slab_tuples(placed["slabs"]), heavy
 
 
@@ -747,7 +816,7 @@ def make_replicated_half_step(
                 lam, compute).to(home))
             if n_heavy:
                 ha, hb, hcnt = _heavy_stats(
-                    yd, [_at(h, pos) for h in heavy], n_slab_rows, n_heavy,
+                    yd, [_heavy_at(h, pos) for h in heavy], n_heavy,
                     implicit, alpha, compute)
                 parts.append(torch.cat(
                     [ha.reshape(n_heavy, -1), hb, hcnt[:, None]],
@@ -779,7 +848,7 @@ class ShardPlan:
     :attr:`Bucketed.inv_perm` in that layout. Heavy sub-rows are
     regrouped so every sub-row's owner slot lives on the same device
     (``heavy_owner_local`` is a device-local stats position), which
-    keeps the heavy scatter-add device-local.
+    keeps the heavy sums device-local.
     """
 
     heavy: Slab | None                    # regrouped per-shard heavy slab
@@ -866,7 +935,7 @@ class ShardedSide:
     """Device-staged arrays for one solve direction (sharded mode)."""
 
     slabs: tuple            # ((idx, weights, valid), ...) — P((data,model))
-    heavy: tuple            # () or (idx, weights, valid, owner_local)
+    heavy: tuple            # () or (idx, weights, valid, {pos: order})
     inv: ShardedTensor      # [n_rows_padded] int64 — P(model)
     n_heavy_slots_local: int
 
@@ -892,7 +961,9 @@ def stage_sharded(
     heavy: tuple = ()
     if plan.heavy is not None:
         h = placed["heavy"]
-        heavy = (h["idx"], h["weights"], h["valid"], h["owner"])
+        heavy = (h["idx"], h["weights"], h["valid"], _orders_at(
+            h["owner"], plan.heavy_owner_local.astype(np.int64),
+            plan.c_local - plan.n_heavy_slots_local))
     return ShardedSide(
         slabs=_slab_tuples(placed["slabs"]),
         heavy=heavy,
@@ -930,7 +1001,7 @@ def _sharded_half(
     home = ctx.device
     stats = []
     for pos in mesh.local:
-        heavy = [_at(side.heavy, pos)] if side.heavy else []
+        heavy = [_heavy_at(side.heavy, pos)] if side.heavy else []
         stats.append(_assemble_and_solve(
             y_full[mesh.device(pos)], [_at(s, pos) for s in side.slabs],
             heavy, side.n_heavy_slots_local, implicit, alpha, lam, compute,

@@ -4,7 +4,11 @@ Counterpart of ``predictionio_tpu/ops/naive_bayes.py``. The per-class
 feature sums are ``onehot(y).T @ X``, one ``[C, n] x [n, d]`` product on
 the tensors' device, in float32 (no TF32: the counts must stay exact).
 A padding row mask (1.0 real, 0.0 padding) makes padded batches exact.
-The two models are dataclasses of tensors.
+Rows placed over the mesh's ``data`` axis (``ctx.shard_rows``) give one
+product and one class count per row block, summed on the home device in
+block order (:func:`~predictionio_tpu_torch.parallel.mesh.sum_over_data`),
+where the JAX package lets GSPMD reduce them. The two models are
+dataclasses of tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from predictionio_tpu_torch.parallel.mesh import ShardedTensor, sum_over_data
 
 
 @dataclasses.dataclass
@@ -34,22 +40,39 @@ def _onehot(y: torch.Tensor, n_classes: int, dtype, mask) -> torch.Tensor:
     return onehot
 
 
+def class_sums(
+    x: torch.Tensor | ShardedTensor,
+    y: torch.Tensor | ShardedTensor,
+    n_classes: int,
+    mask: torch.Tensor | ShardedTensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(class_count [C], feat_sum [C, d])`` of the (masked) rows: per
+    row block ``onehot.sum(0)`` and ``onehot.T @ x``, summed in block
+    order on the home device."""
+
+    def block(xb, yb, mb=None):
+        onehot = _onehot(yb, n_classes, xb.dtype, mb)   # [n, C]
+        return onehot.sum(dim=0), onehot.T @ xb
+
+    return sum_over_data(block, *((x, y) if mask is None else (x, y, mask)))
+
+
 def fit_multinomial(
-    x: torch.Tensor,
-    y: torch.Tensor,
+    x: torch.Tensor | ShardedTensor,
+    y: torch.Tensor | ShardedTensor,
     n_classes: int,
     alpha: float = 1.0,
-    mask: torch.Tensor | None = None,
+    mask: torch.Tensor | ShardedTensor | None = None,
 ) -> MultinomialNBModel:
     """Multinomial NB fit (MLlib NaiveBayes semantics, lambda=alpha).
 
     x: [n, d] non-negative features; y: [n] int labels;
-    mask: [n] 1.0 for real rows, 0.0 for padding.
+    mask: [n] 1.0 for real rows, 0.0 for padding. Tensors, or rows over
+    the mesh's ``data`` axis: ``pi`` and ``theta`` then come from the
+    summed blocks, on the home device.
     """
     d = x.shape[1]
-    onehot = _onehot(y, n_classes, x.dtype, mask)   # [n, C]
-    class_count = onehot.sum(dim=0)                  # [C]
-    feat_sum = onehot.T @ x                          # [C, d]
+    class_count, feat_sum = class_sums(x, y, n_classes, mask)
     total = class_count.sum()
     pi = torch.log(class_count + alpha) - torch.log(
         total + alpha * n_classes

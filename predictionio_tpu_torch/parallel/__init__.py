@@ -13,6 +13,7 @@ from predictionio_tpu_torch.parallel.mesh import (
     ShardedTensor,
     assert_phantom_rows_zero,
     pad_to_multiple,
+    sum_over_data,
 )
 from predictionio_tpu_torch.parallel.partition import (
     als_partition_rules,
@@ -30,6 +31,7 @@ __all__ = [
     "DATA_AXIS",
     "MODEL_AXIS",
     "ShardedTensor",
+    "sum_over_data",
     "assert_phantom_rows_zero",
     "pad_to_multiple",
     "als_partition_rules",

@@ -55,17 +55,19 @@ def pad_to_multiple(
     return np.pad(arr, widths, constant_values=fill)
 
 
+#: ``pio_mesh_pad_rows_total``'s help text (the JAX package's)
+PAD_ROWS_HELP = ("Phantom rows added when padding arrays to a mesh-axis "
+                 "multiple (shard_rows / sharded factor staging)")
+
+
 def record_padded_rows(added: int, n_rows: int, parallelism: int) -> None:
     """Telemetry for mesh-padding sites (``shard_rows``, factor staging):
     counts phantom rows in ``pio_mesh_pad_rows_total`` and warns when
     the padding exceeds the real data."""
     from predictionio_tpu_torch.obs import get_registry
 
-    get_registry().counter(
-        "pio_mesh_pad_rows_total",
-        "Phantom rows added when padding arrays to a mesh-axis "
-        "multiple (shard_rows / sharded factor staging)",
-    ).inc(added)
+    get_registry().counter("pio_mesh_pad_rows_total", PAD_ROWS_HELP).inc(
+        added)
     if n_rows < parallelism:
         logger.warning(
             "padding %d-row array to %d rows to shard over %d "
@@ -343,6 +345,11 @@ class ShardedTensor:
             out = got if out is None else torch.where(inside, got, out)
         return out
 
+    def numpy(self) -> np.ndarray:
+        """The whole global array on the host (a collective, as
+        :meth:`gather` is)."""
+        return self.gather().cpu().numpy()
+
     def gather(self) -> torch.Tensor:
         """The whole global array on the home device. A collective when
         the process group is up: every process must call it."""
@@ -368,6 +375,76 @@ class ShardedTensor:
                 out[sl] = block
                 done.add(key)
         return out
+
+
+def sum_over_data(fn: Callable, *arrays):
+    """``fn`` applied to each row block of ``arrays`` and the results
+    summed on the home device, block after block in row order.
+
+    ``arrays`` are :class:`ShardedTensor` split alike on dimension 0 only
+    (what :meth:`ComputeContext.shard_rows` makes), or plain tensors,
+    which are one block: ``fn(*arrays)``. ``fn`` returns a tensor or a
+    tuple of tensors of the same shapes for every block. Each row block
+    is computed once, by the lowest mesh position that holds it. Across
+    processes every process stacks the blocks it computed (zeros for the
+    others), the stacks are all-gathered in rank order, and each block's
+    result is taken from the process that computed it, so the sum is the
+    same, bit for bit, however the blocks are spread over processes. A
+    collective then: every process must call it."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    if not any(isinstance(a, ShardedTensor) for a in arrays):
+        return fn(*arrays)
+    first = arrays[0]
+    mesh, spec = first.mesh, first.sharding
+    for a in arrays:
+        if not isinstance(a, ShardedTensor) or a.mesh is not mesh:
+            raise ValueError("sum_over_data needs arrays placed on one "
+                             "mesh")
+        if a.shape[0] != first.shape[0] or a.sharding.axes(0) != spec.axes(
+                0) or any(a.sharding.parts(d) > 1 for d in range(1, a.ndim)):
+            raise ValueError("sum_over_data needs arrays split alike on "
+                             "dimension 0 only")
+    n_blocks = spec.parts(0)
+    rows = first.shape[0] // n_blocks
+    computer: dict[int, int] = {}
+    for pos in range(mesh.size):
+        computer.setdefault(spec.block(pos, first.shape)[0].start // rows,
+                            pos)
+    home = mesh.home
+    as_tuple = []
+
+    def run(pos: int) -> tuple:
+        out = fn(*(a.shards[pos] for a in arrays))
+        as_tuple.append(isinstance(out, tuple))
+        return tuple(t.to(home) for t in (out if as_tuple[-1] else (out,)))
+
+    local = set(mesh.local)
+    done = {block: run(pos) for block, pos in sorted(computer.items())
+            if pos in local}
+    if distributed.is_initialized():
+        # a process that computes no block still learns the shapes
+        shapes = next(iter(done.values())) if done else run(mesh.local[0])
+        per_rank = len(mesh.local)
+        results = []
+        for i, like in enumerate(shapes):
+            stack = torch.zeros((n_blocks,) + tuple(like.shape),
+                                dtype=like.dtype, device=home)
+            for block, parts in done.items():
+                stack[block] = parts[i]
+            every = distributed.all_gather_cat(stack[None])
+            results.append([every[computer[b] // per_rank, b]
+                            for b in range(n_blocks)])
+        parts_by_block = list(zip(*results))
+    elif len(done) == n_blocks:
+        parts_by_block = [done[b] for b in range(n_blocks)]
+    else:
+        raise RuntimeError("a mesh over several processes sums through "
+                           "torch.distributed")
+    total = list(parts_by_block[0])
+    for parts in parts_by_block[1:]:
+        total = [t + p for t, p in zip(total, parts)]
+    return tuple(total) if as_tuple[0] else total[0]
 
 
 def default_devices(device=None) -> list[torch.device]:

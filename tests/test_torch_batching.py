@@ -18,6 +18,8 @@ deterministic:
 * attribution: the device seconds apportioned to tenants equal the
   measured enqueue + sync seconds within 1 %, and the sync seconds are
   timed around ``collect`` (the wait for the copy back), not the launch;
+  the batchers read ``perf_counter`` from a clock the launches and
+  collects drive, so a loaded host's late wake-ups cannot move them;
 * the reference's cancel race, held at the handoff: a won cancel never
   reaches a launch, every future ends in one state, 50 times over;
 * the repair (ROADMAP.md §3): cancelled slots still queued no longer
@@ -46,11 +48,43 @@ PKGS = {
 }
 
 
+class _ThreadClock:
+    """``perf_counter`` as the batchers under test see it: each thread's
+    own time, which moves only when ``_Held`` runs ``dispatch`` or
+    ``collect`` on that thread, by exactly its ``dispatch_s`` or
+    ``collect_s``. The batchers time the launch and the collect wait
+    with ``perf_counter`` on the thread that runs them, so what they
+    measure is what the test set, however long the host really took."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def perf_counter(self) -> float:
+        return getattr(self._local, "now", 0.0)
+
+    def advance(self, seconds: float) -> None:
+        self._local.now = self.perf_counter() + seconds
+
+
+class _ClockedTime:
+    """A batching module's ``time`` with ``perf_counter`` from a
+    :class:`_ThreadClock`; everything else is the real module."""
+
+    def __init__(self, clock: _ThreadClock):
+        self.perf_counter = clock.perf_counter
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 class _Held:
     """A two-phase batch_fn whose first launch waits on ``gate`` (the
-    collector is held at the handoff) and which logs every launch."""
+    collector is held at the handoff) and which logs every launch. A
+    launch and a collect advance ``clock`` by ``dispatch_s`` and
+    ``collect_s`` and really take ``stall_s`` each."""
 
-    def __init__(self, dispatch_s=0.0, collect_s=0.0):
+    def __init__(self, dispatch_s=0.0, collect_s=0.0, clock=None,
+                 stall_s=0.0):
         self.gate = threading.Event()
         self.entered = threading.Event()
         self.launched: list[list] = []
@@ -58,6 +92,14 @@ class _Held:
         self.batcher = None
         self.dispatch_s = dispatch_s
         self.collect_s = collect_s
+        self.clock = clock
+        self.stall_s = stall_s
+
+    def _spend(self, seconds):
+        if self.stall_s:
+            time.sleep(self.stall_s)
+        if self.clock is not None:
+            self.clock.advance(seconds)
 
     def dispatch(self, items):
         if not self.entered.is_set():
@@ -65,14 +107,12 @@ class _Held:
             assert self.gate.wait(10)
         if self.batcher is not None:
             self.waits.append(self.batcher._current_wait)
-        if self.dispatch_s:
-            time.sleep(self.dispatch_s)
+        self._spend(self.dispatch_s)
         self.launched.append(list(items))
         return list(items)
 
     def collect(self, handle):
-        if self.collect_s:
-            time.sleep(self.collect_s)
+        self._spend(self.collect_s)
         return [f"R{x}" for x in handle]
 
 
@@ -244,16 +284,20 @@ def test_submit_refuses_an_already_expired_budget():
             ("default",): 1.0}
 
 
-@pytest.mark.parametrize("depth", [0, 2])
-def test_attribution_conserves_measured_device_time(depth):
-    """Per-tenant device seconds sum to the measured enqueue + sync
-    seconds (within 1 %), and the sync seconds are the collect wait: a
-    launch of ~2 ms and a copy back of ~8 ms give sync ≈ 4× enqueue."""
+def _attribution_alike(monkeypatch, depth, stall_s):
+    """Both batchers on 30 items from three tenants, their device time
+    from a :class:`_ThreadClock` (a launch 2 ms, a collect 8 ms, each
+    really taking ``stall_s``): per-tenant device seconds sum to the
+    measured enqueue + sync seconds (within 1 %), and the sync seconds
+    are the collect wait, ≈ 4× the enqueue seconds."""
     got = {}
     for pkg in PKGS:
-        fn = _Held(dispatch_s=0.002, collect_s=0.008)
-        fn.entered.set()  # nothing held: run straight through
+        clock = _ThreadClock()
         mod, _, _, reg_cls = PKGS[pkg]
+        monkeypatch.setattr(mod, "time", _ClockedTime(clock))
+        fn = _Held(dispatch_s=0.002, collect_s=0.008, clock=clock,
+                   stall_s=stall_s)
+        fn.entered.set()  # nothing held: run straight through
         registry = reg_cls()
         b = mod.MicroBatcher(mod.TwoPhaseBatchFn(fn.dispatch, fn.collect),
                              max_batch=4, max_wait_ms=1.0,
@@ -283,6 +327,26 @@ def test_attribution_conserves_measured_device_time(depth):
             "pio_device_enqueue_seconds")
         got[pkg] = slots
     assert got["torch"] == got["jax"]
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_attribution_conserves_measured_device_time(monkeypatch, depth):
+    """Per-tenant device seconds sum to the measured enqueue + sync
+    seconds (within 1 %), and the sync seconds are the collect wait: a
+    launch of 2 ms and a copy back of 8 ms give sync ≈ 4× enqueue. The
+    seconds come from a clock the launches and collects drive, not from
+    wall-clock sleeps, which overshoot under a loaded host."""
+    _attribution_alike(monkeypatch, depth, stall_s=0.0)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_attribution_holds_when_the_host_stalls(monkeypatch, depth):
+    """The interleaving that failed the attribution test under load, made
+    on purpose: every launch and collect really takes 20 ms, so a launch
+    takes as long on the host as a collect (a 2 ms sleep that overslept
+    by several ms did so). The seconds measured are still the launch's 2
+    and the collect's 8 ms, and every bound holds."""
+    _attribution_alike(monkeypatch, depth, stall_s=0.02)
 
 
 def _cancel_race_once(pkg):
