@@ -120,6 +120,7 @@ def spawn_daemon(
         # deliberately detached: the daemon outlives this process;
         # ownership is the pidfile, teardown is stop_daemon's
         # process-group SIGTERM
+        # pio-lint: disable-next=resource-leak -- detached daemon by design
         proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *argv],
             stdin=subprocess.DEVNULL,

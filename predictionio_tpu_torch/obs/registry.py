@@ -458,7 +458,7 @@ class MetricRegistry:
 #: Prometheus defines process_start_time_seconds as a unix epoch —
 #: scrapers compute uptime as time() - this on THEIR clock, so a
 #: monotonic value here would be meaningless off-host.
-_PROCESS_START_TIME = time.time()
+_PROCESS_START_TIME = time.time()  # pio-lint: disable=wall-clock -- Prometheus semantics: epoch, consumed off-host
 
 
 def _read_resident_bytes() -> float:

@@ -60,7 +60,7 @@ logger = logging.getLogger(__name__)
 #: measured by perf_counter deltas on top of it, so an NTP step after
 #: import can never reorder or stretch spans (it only offsets all
 #: absolute timestamps equally).
-_EPOCH = time.time() - time.perf_counter()
+_EPOCH = time.time() - time.perf_counter()  # pio-lint: disable=wall-clock -- one-shot epoch anchor; durations use perf_counter
 
 #: header carrying the caller's span ID on outbound hops (the trace ID
 #: itself rides X-Request-ID)

@@ -44,8 +44,9 @@ SIGNATURES = {
     },
 }
 
-_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_locks: dict[str, threading.Lock] = {}
+_lock = threading.Lock()  # guards _loaded/_build_locks only
 
 
 def _nvcc() -> str:
@@ -97,13 +98,26 @@ def build(name: str) -> Path:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed, with every C
-    function's argument and result types declared."""
+    function's argument and result types declared. One build lock per
+    library: a build (minutes of ``nvcc``) holds only its own, so a
+    library already loaded, or another library's build, never waits
+    behind it."""
     with _lock:
         lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+        if lib is not None:
+            return lib
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
+        # double-check: the thread we serialized behind may have
+        # finished this exact library
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is not None:
+                return lib
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        with _lock:
             _loaded[name] = lib
         return lib

@@ -927,6 +927,14 @@ class EngineServer:
             want_canary = self._canary_config is not None
         with self._reload_mutex:
             if not want_canary:
+                # an explicit immediate reload supersedes whatever the
+                # canary was evaluating — resolved deterministically
+                # BEFORE the swap so a late watch verdict cannot roll a
+                # freshly-loaded generation back to an ancient one. The
+                # ≤0.15 s settle-retry inside deliberately holds the
+                # reload mutex: serializing reloads behind a racing
+                # verdict applier is the point of the mutex.
+                # pio-lint: disable-next=lock-blocking -- bounded 0.15s settle; reload serialization is intentional
                 self._cancel_active_canary("superseded by manual reload")
                 self._load()
                 with self._lock:

@@ -509,7 +509,7 @@ class ServingRouter:
         # startTime is a display epoch; uptime must come from the
         # monotonic clock — an NTP step would otherwise make uptimeSec
         # jump or go negative
-        self._start_time = time.time()
+        self._start_time = time.time()  # pio-lint: disable=wall-clock -- display epoch only; uptime uses _start_monotonic
         self._start_monotonic = time.monotonic()
 
         self._healthy_gauge = self._registry.gauge(
@@ -1034,6 +1034,7 @@ class ServingRouter:
                 # whole-file writes of freshly-snapshotted state, and
                 # the stamp is a staleness hint — an extra save costs
                 # one fsync, an interposed one satisfies the check
+                # pio-lint: disable-next=check-then-act -- idempotent freshness refresh; concurrent persists write identical atomic snapshots
                 self._persist_state()
 
     def _fetch_json(self, url: str):

@@ -9,7 +9,9 @@ Run from the root of a checkout, after the fused top-k library is built
 and reads, from the parent's spawn:
 
 * ``python -c pass``: the interpreter alone;
-* a probe child that stamps the wall clock after each stage: ``import
+* a probe child that stamps ``time.monotonic()`` after each stage
+  (on Linux one clock for the parent and the child, and one that no
+  NTP step moves): ``import
   numpy``; ``import torch``; the port's modules a device verb of the
   console imports (the console, the workflow, the engine server, the
   recommendation template, ALS, the fused top-k wrapper); the CUDA
@@ -45,42 +47,42 @@ STAGES = ("numpy", "torch", "port_modules", "cuda_context",
 
 PROBE = r"""
 import json, sys, time
-marks = {"start": time.time()}
+marks = {"start": time.monotonic()}
 import numpy
-marks["numpy"] = time.time()
+marks["numpy"] = time.monotonic()
 import torch
-marks["torch"] = time.time()
+marks["torch"] = time.monotonic()
 import predictionio_tpu_torch.cli.main
 import predictionio_tpu_torch.core.workflow
 import predictionio_tpu_torch.serving.engine_server
 import predictionio_tpu_torch.models.recommendation
 import predictionio_tpu_torch.ops.als
 import predictionio_tpu_torch.ops.fused_topk
-marks["port_modules"] = time.time()
+marks["port_modules"] = time.monotonic()
 if sys.argv[1] != "imports":
     dev = torch.device(sys.argv[1])
     torch.zeros(1, device=dev)
     torch.cuda.synchronize(dev) if dev.type == "cuda" else None
-    marks["cuda_context"] = time.time()
+    marks["cuda_context"] = time.monotonic()
     if dev.type == "cuda":
         from predictionio_tpu_torch.ops import _build
         _build.library("fused_topk")
-    marks["kernel_library"] = time.time()
+    marks["kernel_library"] = time.monotonic()
     a = torch.ones(64, 64, device=dev)
     (a @ a).sum().item()
-    marks["cublas"] = time.time()
+    marks["cublas"] = time.monotonic()
     from predictionio_tpu_torch.parallel.mesh import load_cuda_linalg
     load_cuda_linalg(dev)
     spd = a + 64 * torch.eye(64, device=dev)
     torch.linalg.cholesky_ex(spd)[0].sum().item()
-    marks["cusolver"] = time.time()
-marks["exit"] = time.time()
+    marks["cusolver"] = time.monotonic()
+marks["exit"] = time.monotonic()
 print(json.dumps(marks))
 """
 
 
 def _run(argv: list, env: dict) -> tuple[float, str]:
-    t0 = time.time()
+    t0 = time.monotonic()
     out = subprocess.run(argv, env=env, capture_output=True, text=True,
                          timeout=600)
     if out.returncode:
@@ -110,7 +112,7 @@ def measure(reps: int, device: str, env: dict | None = None) -> dict:
     for _ in range(reps):
         row = {}
         t0, _out = _run([sys.executable, "-c", "pass"], env)
-        row["interpreter"] = time.time() - t0
+        row["interpreter"] = time.monotonic() - t0
         t0, out = _run([sys.executable, "-c", PROBE, device], env)
         marks = json.loads(out.strip().splitlines()[-1])
         row["probe_start"] = marks["start"] - t0
@@ -119,13 +121,13 @@ def measure(reps: int, device: str, env: dict | None = None) -> dict:
             if stage in marks:
                 row[stage] = marks[stage] - prev
                 prev = marks[stage]
-        row["probe_total"] = time.time() - t0
+        row["probe_total"] = time.monotonic() - t0
         for verb in (["version"], ["status"]
                      + ([] if device.startswith("cuda") else
                         ["--device", device])):
             t0, _out = _run([sys.executable, "-m",
                              "predictionio_tpu_torch.cli.main", *verb], env)
-            row[f"console_{verb[0]}"] = time.time() - t0
+            row[f"console_{verb[0]}"] = time.monotonic() - t0
         runs.append(row)
     median = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     return {"reps": runs, "median_s": median,
@@ -160,7 +162,7 @@ def main(argv=None) -> int:
                    PYTHONPYCACHEPREFIX=os.path.abspath(args.pycache))
         env.pop("PYTHONDONTWRITEBYTECODE", None)
         t0, _out = _run([sys.executable, "-c", PROBE, "imports"], env)
-        result["pycache_fill_s"] = time.time() - t0
+        result["pycache_fill_s"] = time.monotonic() - t0
         result["pycache"] = measure(args.reps, args.device, env)
         summary["pycache_fill_s"] = result["pycache_fill_s"]
         summary["with_pycache_median_s"] = result["pycache"]["median_s"]

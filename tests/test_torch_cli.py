@@ -22,9 +22,11 @@ equal once ids, keys and times are masked; so must the stored state
 * ``eval`` of the recommendation example's grid in both packages from
   one iteration-0 checkpoint per rank: metric values within 1e-6 and the
   same best candidate;
-* every refused verb and option exits 1 naming its ROADMAP.md item;
-  ``--mesh-shape`` / ``meshConf.shape`` past one device and ``launch``,
-  refused until the mesh was ported, now train (a (4, 2) mesh in both
+* ``lint``, refused until the linter was ported, runs (its cases are
+  ``tests/test_torch_lint.py``); ``accesskey delete`` takes a key after
+  ``--``, so a generated key that starts with ``-`` is not read as an
+  option; ``--mesh-shape`` / ``meshConf.shape`` past one device and
+  ``launch``, refused until the mesh was ported, now train (a (4, 2) mesh in both
   consoles, models within rtol 1e-3 / atol 1e-4) and launch (a rank
   line from each of two processes);
 * the replicated store tier's verbs run alike over each package's two
@@ -190,7 +192,7 @@ def _events_state(storage, app_name):
 # -- app, accesskey, channel ----------------------------------------------
 
 
-def test_app_accesskey_channel_lifecycle(both):
+def _lifecycle(both):
     steps = [
         ("app", "new", "myapp", "--description", "d"),
         ("app", "new", "other"),
@@ -222,13 +224,37 @@ def test_app_accesskey_channel_lifecycle(both):
                          (both.port_run, both.port)):
         app = storage.get_meta_data_apps().get_by_name("myapp")
         key = storage.get_meta_data_access_keys().get_by_app_id(app.id)[-1]
-        assert run(("accesskey", "delete", key.key)) == (0, "Deleted.\n", "")
+        # after "--": a generated key may start with "-"
+        assert run(("accesskey", "delete", "--", key.key)) == (
+            0, "Deleted.\n", "")
     assert _meta_state(both.port) == _meta_state(both.jax)
     both("app", "delete", "myapp")
     both("app", "list")
     assert _meta_state(both.port) == _meta_state(both.jax)
     assert [a.name for a in both.port.get_meta_data_apps().get_all()] == [
         "other"]
+
+
+def test_app_accesskey_channel_lifecycle(both):
+    _lifecycle(both)
+
+
+def test_lifecycle_with_keys_that_start_with_a_dash(both, monkeypatch):
+    """Every generated key starts with "-" (one key in 64 does): the
+    lifecycle deletes them through both consoles all the same."""
+    import secrets
+
+    made = []
+    urlsafe = secrets.token_urlsafe
+
+    def dashed(n=None):
+        made.append("-" + urlsafe(n)[1:])
+        return made[-1]
+
+    monkeypatch.setattr(secrets, "token_urlsafe", dashed)
+    _lifecycle(both)
+    # each app's key and the accesskey verb's, in both packages
+    assert len(made) == 6 and all(k.startswith("-") for k in made)
 
 
 def test_app_new_with_a_given_key(both):
@@ -830,11 +856,6 @@ def test_eval_matches_the_jax_grid(both, tmp_path, monkeypatch):
 
 # -- refusals --------------------------------------------------------------
 
-_REFUSALS = [
-    (["lint", "predictionio_tpu"], None),
-]
-
-
 @pytest.mark.parametrize("verb", ["storeserver", "minipg"])
 def test_store_verbs_serve(tmp_path, verb):
     """``storeserver`` and ``minipg`` of each console as a process: the
@@ -901,23 +922,6 @@ def test_store_verbs_serve(tmp_path, verb):
     assert results["port"][2] == [
         {"storeserver": "Store server", "minipg": "minipg"}[verb]
         + " is listening on 127.0.0.1:<port>"]
-
-
-@pytest.mark.parametrize("argv, item", _REFUSALS,
-                         ids=[" ".join(a[:2]) for a, _ in _REFUSALS])
-def test_refusals_name_their_item(capsys, argv, item):
-    set_storage(Storage(MEMORY))
-    try:
-        assert main(argv + (["--device", "cpu"] if argv[0] in (
-            "train", "shell") else [])) == 1
-    finally:
-        set_storage(None)
-    err = capsys.readouterr().err
-    if item is None:
-        assert "error: not ported: the source linter is JAX developer " \
-               "tooling (ROADMAP.md, not queued)" in err
-    else:
-        assert f"(ROADMAP.md, queue 1, item {item})" in err, err
 
 
 # -- the replicated store tier's verbs ----------------------------------------

@@ -120,7 +120,6 @@ finally:
 @pytest.mark.parametrize("argv, rc, out", [
     (["version"], 0, predictionio_tpu_torch.version.__version__ + "\n"),
     (["app", "list"], 0, ""),
-    (["lint"], 1, ""),
 ])
 def test_console_runs_with_jax_and_reference_blocked(tmp_path, argv, rc,
                                                      out):
@@ -366,3 +365,61 @@ def test_trainer_refuses_to_fall_back(monkeypatch, tmp_path):
         engine, engine.params_from_variant({}), "rec", config,
         storage=storage, ctx=ComputeContext.create(device="cpu"))
     assert trainer.decide(Watermark()) == "full"  # cold: never trained
+
+
+def test_a_loaded_library_never_waits_behind_another_build(monkeypatch):
+    """``_build.library`` holds one lock per library across its build:
+    while library ``slow`` is compiling, an already-built library loads
+    at once, a second caller of ``slow`` waits for the first build, and
+    ``slow`` is built once."""
+    import threading
+    import time
+    import types
+
+    from predictionio_tpu_torch.ops import _build
+
+    release = threading.Event()
+    building = threading.Event()
+    built = []
+
+    def build(name):
+        built.append(name)
+        if name == "slow":
+            building.set()
+            assert release.wait(30)
+        return _build.BUILD_DIR / f"lib{name}.so"
+
+    class Lib:
+        def __init__(self, path):
+            self.path = path
+            self.fns = {}
+
+        def __getattr__(self, fn):
+            return self.fns.setdefault(fn, types.SimpleNamespace())
+
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(_build, "SIGNATURES", {
+        "slow": {"f": [_build.ctypes.c_int]},
+        "ready": {"g": [_build.ctypes.c_void_p]}})
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_build_locks", {})
+    got = {}
+    first = threading.Thread(
+        target=lambda: got.setdefault("first", _build.library("slow")))
+    second = threading.Thread(
+        target=lambda: got.setdefault("second", _build.library("slow")))
+    first.start()
+    assert building.wait(30)
+    second.start()
+    start = time.monotonic()
+    lib = _build.library("ready")  # must not wait for slow's build
+    assert time.monotonic() - start < 5
+    assert lib.g.argtypes == [_build.ctypes.c_void_p]
+    assert "slow" not in _build._loaded and second.is_alive()
+    release.set()
+    first.join(30)
+    second.join(30)
+    assert got["first"] is got["second"] is _build._loaded["slow"]
+    assert got["first"].f.restype is _build.ctypes.c_int
+    assert sorted(built) == ["ready", "slow"]
