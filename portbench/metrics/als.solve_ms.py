@@ -1,0 +1,8 @@
+"""``als.solve_ms``: device milliseconds an epoch of the operations launched
+inside the program's ``als/solve`` profiler range, from the traced window."""
+
+from portbench.harness.trace import range_ms
+
+
+def read(run):
+    return range_ms(run, "als/solve")
