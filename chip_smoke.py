@@ -7695,10 +7695,11 @@ def mesh_small(device, shape) -> dict:
 
 
 class _EventTimer:
-    """The ``timer`` ``train_als`` takes: CUDA events on the home device
-    around each half-step (``train_als`` synchronizes every position's
-    device inside the step), so a half-step's time is the card's, with
-    no host gap between the two halves counted."""
+    """The ``timer`` ``train_als`` takes: CUDA events on the home device's
+    stream around each half-step, enqueued with the half-step's work (the
+    epoch loop waits for nothing inside it), read once ``train_als`` has
+    fetched its factors, so a half-step's time is the card's interval
+    from the first to the last of its work on that stream."""
 
     def __init__(self):
         self.spans: list = []

@@ -5,11 +5,13 @@ Counterpart of ``apply_checkpoint_params``, ``latest_completed_id``,
 ``run_train``, ``run_evaluation`` and ``load_deployment`` in
 ``predictionio_tpu/core/workflow.py``. A training run is one trace of
 the process tracer (``pio_train``, trace id = the instance id) whose
-spans are the ``StepTimer`` steps, the checkpoints and
+spans are the ``StepTimer`` steps, ALS's stages, the checkpoints and
 ``train/persist_model``; with ``PIO_TRACE_DIR`` set it is written there
 as ``pio_train_<id>.trace.json`` (a failed run's too), beside the
-``torch.profiler`` trace of the training step. The step times join the
-process registry as ``pio_train_step_seconds``.
+``torch.profiler`` trace of the training step, on that trace's time
+base, and its spans of the profiled window are merged into the profiler
+trace. The step times join the process registry as
+``pio_train_step_seconds``.
 """
 
 from __future__ import annotations
@@ -64,13 +66,16 @@ def _now() -> _dt.datetime:
 
 
 def _write_train_trace(
-    tracer, trace_id: str | None, instance_id: str
+    tracer, trace_id: str | None, instance_id: str, profiled=None
 ) -> None:
     """Persist the run's span timeline as Chrome trace-event JSON in
     ``PIO_TRACE_DIR`` (the directory :func:`~predictionio_tpu_torch.
     utils.profiling.trace` writes the profiler's trace to), as
-    ``pio_train_<instance id>.trace.json``. Best-effort: a full disk
-    must not fail a COMPLETED run."""
+    ``pio_train_<instance id>.trace.json``; beside the profiler trace
+    ``profiled`` (a :class:`~predictionio_tpu_torch.utils.profiling.
+    ProfilerTrace`) it is placed on that trace's time base and its
+    spans of the profiled window merged into it. Best-effort: a full
+    disk must not fail a COMPLETED run."""
     trace_dir = os.environ.get("PIO_TRACE_DIR")
     if not trace_dir or trace_id is None:
         return
@@ -80,6 +85,8 @@ def _write_train_trace(
             trace_dir, f"pio_train_{instance_id}.trace.json"
         )
         timeline = tracer.chrome_trace(trace_id=trace_id)
+        if profiled is not None:
+            timeline = profiled.overlay(timeline)
         with open(path, "w") as f:
             # default=str: span attributes are caller-supplied (numpy
             # scalars, shapes, ...) and must not fail a COMPLETED run
@@ -206,6 +213,7 @@ def run_train(
     # written to PIO_TRACE_DIR in the finally, because the timeline of a
     # FAILED run is the one most worth keeping
     root_trace_id = None
+    profiled = None
     try:
         with tracer.trace(
             "pio_train",
@@ -237,7 +245,7 @@ def run_train(
             timer = StepTimer()
             for algo in algorithms:
                 algo.timer = timer
-            with timer.step("train/total"), trace():
+            with timer.step("train/total"), trace() as profiled:
                 models = engine.train(
                     ctx, params, workflow, algorithms=algorithms,
                     timer=timer,
@@ -282,7 +290,7 @@ def run_train(
     finally:
         # the root span finalized when the with-block unwound, so the
         # trace is in the ring even when train raised
-        _write_train_trace(tracer, root_trace_id, instance_id)
+        _write_train_trace(tracer, root_trace_id, instance_id, profiled)
 
 
 def run_evaluation(

@@ -41,6 +41,7 @@ loads directly in Perfetto (https://ui.perfetto.dev) — served at
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import heapq
 import logging
@@ -78,6 +79,14 @@ def now() -> float:
 
 def new_span_id() -> str:
     return secrets.token_hex(8)
+
+
+def clock_drift() -> float:
+    """Seconds the wall clock has moved against :func:`now` since import
+    (an NTP slew or step): add it to a span's ``start`` for the wall-clock
+    reading of that moment as the wall clock reads now. A profiler that
+    stamps its events from the wall clock lines up with the spans so."""
+    return time.time() - time.perf_counter() - _EPOCH  # pio-lint: disable=wall-clock -- compared with the one-shot anchor, never a duration
 
 
 def _json_safe(value, depth: int = 3):
@@ -152,6 +161,8 @@ class Span:
         "duration",
         "attributes",
         "root",
+        "_root",
+        "_state",
         "_token",
     )
 
@@ -175,10 +186,32 @@ class Span:
         self.duration = 0.0
         self.attributes = dict(attributes) if attributes else {}
         self.root = root
+        #: a child's local root (set by ``Tracer.child``)
+        self._root: Span | None = None
+        #: per-trace state on a root span (:func:`trace_state`)
+        self._state: dict | None = None
         self._token = None
 
     def set(self, key: str, value) -> None:
         self.attributes[key] = value
+
+    @property
+    def root_span(self) -> "Span | None":
+        """The local root of this span's trace (itself for a root); None
+        for a span built by hand."""
+        return self if self.root else self._root
+
+    @contextlib.contextmanager
+    def current(self):
+        """This span as the context's current span over the block, with
+        no clock read and nothing recorded at its end: for a span whose
+        interval is set later (a device interval read after the fact)
+        and then passed to its tracer's ``record``."""
+        token = _current_span.set(self)
+        try:
+            yield self
+        finally:
+            _current_span.reset(token)
 
     def __enter__(self) -> "Span":
         self.start = now()
@@ -195,6 +228,10 @@ class Span:
         if exc_type is not None and "error" not in self.attributes:
             self.attributes["error"] = f"{exc_type.__name__}: {exc}"
         if self.root:
+            for state in (self._state or {}).values():
+                close = getattr(state, "close", None)
+                if close is not None:
+                    close(self)
             # the root bypasses record()'s span cap — a capped trace
             # must still render its root bar
             self.tracer._finalize(self)
@@ -283,7 +320,7 @@ class Tracer:
         )
 
     def child(self, parent: Span, name: str, attributes: dict | None = None):
-        return Span(
+        sp = Span(
             self,
             parent.trace_id,
             name,
@@ -291,6 +328,8 @@ class Tracer:
             trace_key=parent.trace_key,
             attributes=attributes,
         )
+        sp._root = parent.root_span
+        return sp
 
     # -- recording ---------------------------------------------------------
 
@@ -478,6 +517,26 @@ def span(name: str, **attributes):
     if parent is None:
         return NOOP
     return parent.tracer.child(parent, name, attributes or None)
+
+
+def trace_state(key: str, factory):
+    """State kept for the current trace until its root closes: the
+    object stored under ``key`` on the local root span, made by
+    ``factory()`` at first use; ``None`` off-trace (one contextvar read,
+    as for :func:`span`). As the root closes, before the trace is
+    recorded, each such object's ``close(root)`` runs, so totals kept
+    here land once per trace on the root's attributes (and wherever else
+    ``close`` publishes them), with no lock on the way."""
+    parent = _current_span.get()
+    if parent is None or parent.root_span is None:
+        return None
+    root = parent.root_span
+    if root._state is None:
+        root._state = {}
+    state = root._state.get(key)
+    if state is None:
+        state = root._state[key] = factory()
+    return state
 
 
 #: process-global tracer (every server defaults to it, like the default

@@ -18,6 +18,11 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
 * :func:`train_als` alternates the two sides for ``iterations`` epochs,
   with npz checkpoints in the JAX package's format, so a checkpoint
   written by either package resumes in the other.
+* Under an open trace (:mod:`~predictionio_tpu_torch.obs.tracing`) the
+  path records its stages as spans (``als/pack``, ``als/stage``,
+  ``als/fetch``) and, per profiler range of a half-step, host seconds,
+  calls and stream drains (:class:`RangeTotals`); with no trace open
+  each site costs one contextvar read.
 * On a mesh of more than one device the slab rows split over ``data``
   (replicated factors, the solved rows all-gathered), or, with
   ``factor_sharding="sharded"``, the factor matrices split over ``model``
@@ -31,6 +36,7 @@ Cholesky–Crout solve.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import logging
@@ -52,7 +58,7 @@ from predictionio_tpu_torch.parallel.mesh import (
     load_cuda_linalg,
 )
 from predictionio_tpu_torch.utils import native
-from predictionio_tpu_torch.utils.profiling import sync
+from predictionio_tpu_torch.utils.profiling import steps_on
 
 logger = logging.getLogger(__name__)
 
@@ -261,7 +267,9 @@ def build_bucketed(
     s_max: int = 16,
     max_slab_slots: int = 0,
 ) -> Bucketed:
-    """Pack COO → degree-bucketed slabs (vectorized host preprocessing).
+    """Pack COO → degree-bucketed slabs (vectorized host preprocessing),
+    in an ``als/pack`` span of the current trace (attributes: the side's
+    ``rows``, ``nnz``, ``heavy_rows``).
 
     Rows are assigned to buckets of ``s`` blocks (``s`` a power of two,
     ``s ≤ s_max``); a bucket's slab is a dense ``[R_b, s·block_len]``
@@ -271,6 +279,19 @@ def build_bucketed(
     No slab exceeds ``max_slab_slots`` (= R·W) slots — the HBM bound on
     the per-slab factor-gather temp (see :class:`Bucketed`).
     """
+    with tracing.span("als/pack", rows=int(n_rows),
+                      nnz=int(len(rows))) as sp:
+        packed = _pack(rows, cols, vals, n_rows, block_len, row_multiple,
+                       s_max, max_slab_slots)
+        if sp is not None:
+            sp.set("heavy_rows", packed.n_stat_rows - sum(
+                s.idx.shape[0] for s in packed.slabs))
+        return packed
+
+
+def _pack(rows, cols, vals, n_rows, block_len, row_multiple, s_max,
+          max_slab_slots) -> Bucketed:
+    """:func:`build_bucketed`'s packing."""
     if block_len < 1 or s_max < 1:
         raise ValueError("block_len and s_max must be ≥ 1")
     max_slab_slots = _resolve_max_slab_slots(max_slab_slots)
@@ -463,6 +484,85 @@ def _resolve_max_slab_slots(value: int) -> int:
     return DEFAULT_MAX_SLAB_SLOTS
 
 
+class RangeTotals:
+    """Host seconds, calls and stream drains per profiler range of a
+    half-step (``als/gather_gramian``, ``als/heavy_add``, ``als/solve``,
+    never nested in one another), for one trace (kept by
+    ``tracing.trace_state``). A
+    *drain* is a range entered with its CUDA device's current stream
+    already empty: the card had nothing queued and waited for the host.
+    Nothing is counted as a drain on the CPU. When the trace's root
+    closes, the totals become its ``als.ranges`` attribute (``GET
+    /debug/traces.json``; calls are kept there alone) and go once into
+    the process registry: ``pio_als_range_host_seconds_total{range}``
+    and, where a range ran on a CUDA device,
+    ``pio_als_stream_drains_total{range}``."""
+
+    def __init__(self):
+        #: range -> [host seconds, calls, drains]
+        self.totals: dict[str, list] = {}
+        self.cuda = False
+
+    def close(self, root) -> None:
+        reg = get_registry()
+        host = reg.counter(
+            "pio_als_range_host_seconds_total",
+            "Host seconds inside ALS's profiler ranges under an open "
+            "trace", ("range",))
+        drains = reg.counter(
+            "pio_als_stream_drains_total",
+            "ALS range entries that found the card's stream empty "
+            "(the card idle, waiting for the host), under an open trace",
+            ("range",))
+        out = {}
+        for name, (host_s, n, n_drained) in self.totals.items():
+            host.labels(name).inc(host_s)
+            out[name] = {"host_s": round(host_s, 6), "calls": n}
+            if self.cuda:
+                drains.labels(name).inc(n_drained)
+                out[name]["drains"] = n_drained
+        root.set("als.ranges", out)
+
+
+class _CountedRange:
+    """One entry of a range under an open trace: the profiler range as
+    with none open, and its host seconds, call and drain counted."""
+
+    __slots__ = ("_rf", "_row", "_device", "_t0")
+
+    def __init__(self, name: str, device: torch.device, totals: RangeTotals):
+        self._rf = torch.profiler.record_function(name)
+        row = totals.totals.get(name)
+        if row is None:
+            row = totals.totals[name] = [0.0, 0, 0]
+        self._row = row
+        self._device = device if device.type == "cuda" else None
+        if self._device is not None:
+            totals.cuda = True
+
+    def __enter__(self):
+        if self._device is not None and torch.cuda.current_stream(
+                self._device).query():
+            self._row[2] += 1
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self._row[0] += time.perf_counter() - self._t0
+        self._row[1] += 1
+        return self._rf.__exit__(*exc)
+
+
+def _range(name: str, device: torch.device):
+    """The profiler range ``name`` (what ``torch.profiler`` and the
+    benchmark's range metrics see, trace or not), counted in the current
+    trace's :class:`RangeTotals` when a trace is open."""
+    totals = tracing.trace_state("als.ranges", RangeTotals)
+    if totals is None:
+        return torch.profiler.record_function(name)
+    return _CountedRange(name, device, totals)
+
+
 def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
     """Per-row normal-equation pieces ``(A [R,k,k], b [R,k], count [R])``
     for one dense slab: the k-minor gather ``y[idx]`` then two batched
@@ -482,7 +582,7 @@ def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
         aw = aw.to(compute).float()
         bw = bw.to(compute).float()
     r, w = idx.shape
-    with torch.profiler.record_function("als/gather_gramian"):
+    with _range("als/gather_gramian", y.device):
         yg = y.index_select(0, idx.reshape(-1)).view(r, w, -1).float()
         a = torch.bmm((yg * aw.unsqueeze(-1)).transpose(1, 2), yg)
         b = torch.bmm(bw.unsqueeze(1), yg).squeeze(1)
@@ -502,7 +602,7 @@ def _solve(a, b, cnt, yty, lam, implicit):
     else:
         # MLlib-style weighted-λ regularization: λ · n_u · I
         a = a + (lam * cnt.clamp(min=1.0))[:, None, None] * eye
-    with torch.profiler.record_function("als/solve"):
+    with _range("als/solve", a.device):
         chol, info = torch.linalg.cholesky_ex(a)
         x = torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
         ok = (info == 0).unsqueeze(-1) & torch.isfinite(x)
@@ -572,7 +672,7 @@ def _heavy_stats(y, heavy_groups, n_heavy_slots, implicit, alpha, compute):
     for idx, weights, valid, order in heavy_groups:
         ga, gb, gcnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
                                    compute)
-        with torch.profiler.record_function("als/heavy_add"):
+        with _range("als/heavy_add", y.device):
             g = torch.cat([ga.reshape(ga.shape[0], -1), gb, gcnt[:, None]],
                           dim=1)
             g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
@@ -626,22 +726,23 @@ def make_solve_side(
     half-step, ``(y [I_padded, k], lam) → x [n_rows_padded, k]`` on
     ``ctx.device``. Slab indices stay int32; owners and ``inv_perm``
     become int64. Nothing waits for the card: the caller synchronises
-    where it needs the values."""
+    where it needs the values. The copy is an ``als/stage`` span."""
     compute = _resolve_compute(compute_dtype)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(ctx.device)
 
-    slabs = [(put(s.idx), put(s.weights), put(s.valid))
-             for s in packed.slabs]
-    n_regular = sum(s.idx.shape[0] for s in packed.slabs)
-    heavy = [
-        (put(h.idx), put(h.weights), put(h.valid),
-         heavy_order(owner, n_regular, ctx.device))
-        for h, owner in zip(packed.heavy, packed.heavy_owner_pos)
-    ]
-    n_heavy_slots = packed.n_stat_rows - n_regular
-    inv_perm = put(packed.inv_perm.astype(np.int64))
+    with tracing.span("als/stage", rows=packed.n_rows):
+        slabs = [(put(s.idx), put(s.weights), put(s.valid))
+                 for s in packed.slabs]
+        n_regular = sum(s.idx.shape[0] for s in packed.slabs)
+        heavy = [
+            (put(h.idx), put(h.weights), put(h.valid),
+             heavy_order(owner, n_regular, ctx.device))
+            for h, owner in zip(packed.heavy, packed.heavy_owner_pos)
+        ]
+        n_heavy_slots = packed.n_stat_rows - n_regular
+        inv_perm = put(packed.inv_perm.astype(np.int64))
 
     def solve(y: torch.Tensor, lam: float) -> torch.Tensor:
         x_stats = _assemble_and_solve(
@@ -652,15 +753,21 @@ def make_solve_side(
     return solve
 
 
-def make_train_step(solve_u, solve_i):
+def make_train_step(solve_u, solve_i, timer=None):
     """The epoch loop: ``(x, y, lam, n_iters) → (x, y)``, a user
     half-step then an item half-step per epoch, all enqueued without a
-    wait."""
+    wait. With a ``timer`` each half-step is one of its steps,
+    ``als/user_solve`` and ``als/item_solve``; a
+    :class:`~predictionio_tpu_torch.utils.profiling.StepTimer` on a CUDA
+    device times them with events and waits for nothing."""
+    step = timer.step if timer is not None else contextlib.nullcontext
 
     def run(x, y, lam, n_iters):
         for _ in range(n_iters):
-            x = solve_u(y, lam)
-            y = solve_i(x, lam)
+            with step("als/user_solve"):
+                x = solve_u(y, lam)
+            with step("als/item_solve"):
+                y = solve_i(x, lam)
         return x, y
 
     return run
@@ -675,11 +782,6 @@ def make_train_step(solve_u, solve_i):
 # ``_assemble_and_solve`` (a plain loop over the positions: logical
 # devices on one card take turns); the solved rows meet on the home
 # device, across processes through ``distributed.all_gather_cat``.
-
-
-def _sync(x) -> None:
-    for t in (x.unique_shards() if isinstance(x, ShardedTensor) else [x]):
-        sync(t)
 
 
 def _slab_tree(slabs) -> list[dict]:
@@ -781,7 +883,8 @@ def make_replicated_half_step(
     on the home device; the solved rows all-gathered into the factor
     matrix, ``(y [I_padded, k] on ctx.device, lam) → x`` there."""
     compute = _resolve_compute(compute_dtype)
-    slabs, heavy = _device_slabs(ctx, packed)
+    with tracing.span("als/stage", rows=packed.n_rows):
+        slabs, heavy = _device_slabs(ctx, packed)
     d = max(ctx.data_parallelism, 1)
     c_slab, n_slab_rows, reg_pos, is_reg = _split_layout(packed, d)
     inv = packed.inv_perm.astype(np.int64).copy()
@@ -946,8 +1049,13 @@ def stage_sharded(
     """Stage one direction's sharded geometry per the ALS rule table
     (``partition.ALS_SHARDED_RULES``): slab rows split over the combined
     (data, model) axes, the heavy owner map with its slab, the
-    device-major permutation over ``model``. The rules' axes are
-    checked against the mesh here."""
+    device-major permutation over ``model``, in an ``als/stage`` span.
+    The rules' axes are checked against the mesh here."""
+    with tracing.span("als/stage", rows=packed.n_rows):
+        return _stage_sharded(ctx, packed, plan)
+
+
+def _stage_sharded(ctx, packed, plan) -> ShardedSide:
     tree: dict = {"slabs": _slab_tree(packed.slabs)}
     if plan.heavy is not None:
         tree["heavy"] = {
@@ -1171,9 +1279,11 @@ def train_als(
     The signature and defaults are the JAX package's. ``ctx=None`` takes
     the CUDA cards and raises without one: training never drops quietly
     to the CPU (pass ``ComputeContext.create(device="cpu")`` for that).
-    Epochs are enqueued without a wait; a ``timer``
-    (:class:`~predictionio_tpu_torch.utils.profiling.StepTimer`) instead
-    times each half-step, synchronising after it. With
+    Epochs are enqueued without a wait, in one loop whether timed or
+    not: a ``timer`` (anything with a ``step(name)`` context manager,
+    such as :class:`~predictionio_tpu_torch.utils.profiling.StepTimer`)
+    times each half-step, a StepTimer on a CUDA device between CUDA
+    events that it reads (its ``resolve``) after the closing fetch. With
     ``checkpoint_dir`` + ``checkpoint_every`` the factors are written
     every N iterations (atomic npz: ``iteration``, ``item_factors``,
     ``user_factors``; the coordinator process writes), and
@@ -1320,30 +1430,14 @@ def train_als(
         make = make_solve_side if alone else make_replicated_half_step
         solve_u = make(ctx, user_packed, implicit, alpha, compute_dtype)
         solve_i = make(ctx, item_packed, implicit, alpha, compute_dtype)
-    step = make_train_step(solve_u, solve_i)
+    step = make_train_step(solve_u, solve_i, timer)
 
     ran_any = False
     # between epochs on the host, never inside a timed device window
     chaos_sleep = _train_chaos_sleep_s()
-    if timer is not None:
-        # profiling mode: each half-iteration timed apart
-        for it in range(start_iteration, iterations):
-            if chaos_sleep:
-                time.sleep(chaos_sleep)
-            with timer.step("als/user_solve"):
-                user_factors = solve_u(item_factors, lam)
-                _sync(user_factors)
-            with timer.step("als/item_solve"):
-                item_factors = solve_i(user_factors, lam)
-                _sync(item_factors)
-            ran_any = True
-            _maybe_checkpoint(
-                ckpt_path, checkpoint_every, it + 1, iterations,
-                user_factors, item_factors, n_users, n_items, fetch,
-            )
-    else:
-        checkpointing = bool(ckpt_path) and checkpoint_every > 0
-        it = start_iteration
+    checkpointing = bool(ckpt_path) and checkpoint_every > 0
+    it = start_iteration
+    with steps_on(ctx.device):
         while it < iterations:
             # chunk boundaries at absolute multiples of checkpoint_every,
             # so a resume from a foreign iteration count stays on schedule
@@ -1375,25 +1469,27 @@ def train_als(
             user_factors = place(padded_u)
         else:
             user_factors = solve_u(item_factors, lam)
-    if return_layout == "device":
-        # one process holds every shard here: fetch only the padded tails
-        assert_phantom_rows_zero(
-            _tail_rows(user_factors, n_users), 0, "user factors")
-        assert_phantom_rows_zero(
-            _tail_rows(item_factors, n_items), 0, "item factors")
-        return ALSFactors(
-            user_factors=user_factors,
-            item_factors=item_factors,
-            n_users=n_users,
-            n_items=n_items,
-        )
-    user_full = fetch(user_factors)
-    item_full = fetch(item_factors)
-    assert_phantom_rows_zero(user_full, n_users, "user factors")
-    assert_phantom_rows_zero(item_full, n_items, "item factors")
+    with tracing.span("als/fetch"):
+        if return_layout == "device":
+            # one process holds every shard here: fetch only the padded
+            # tails
+            assert_phantom_rows_zero(
+                _tail_rows(user_factors, n_users), 0, "user factors")
+            assert_phantom_rows_zero(
+                _tail_rows(item_factors, n_items), 0, "item factors")
+        else:
+            user_factors = fetch(user_factors)
+            item_factors = fetch(item_factors)
+            assert_phantom_rows_zero(user_factors, n_users, "user factors")
+            assert_phantom_rows_zero(item_factors, n_items, "item factors")
+            user_factors = user_factors[:n_users]
+            item_factors = item_factors[:n_items]
+    resolve = getattr(timer, "resolve", None)
+    if resolve is not None:
+        resolve()
     return ALSFactors(
-        user_factors=user_full[:n_users],
-        item_factors=item_full[:n_items],
+        user_factors=user_factors,
+        item_factors=item_factors,
         n_users=n_users,
         n_items=n_items,
     )

@@ -786,7 +786,12 @@ def test_run_train_trace_file_matches_jax(tmp_path, monkeypatch):
         path = trace_dir / f"pio_train_{iid}.trace.json"
         assert path.exists(), sorted(os.listdir(trace_dir))
         links[name] = _trace_links(path)
-    assert links["torch"] == links["jax"]
+    # the port's tree is JAX's plus ALS's stage spans, under the parent
+    # JAX gives the half-steps (ROADMAP, Design notes)
+    (half_parent,) = {p for n, p in links["jax"] if n == "als/user_solve"}
+    added = [("als/pack", half_parent)] * 2 + [
+        ("als/stage", half_parent)] * 2 + [("als/fetch", half_parent)]
+    assert links["torch"] == sorted(links["jax"] + added)
     names = {n for n, _ in links["torch"]}
     assert {"pio_train", "train/total", "als/checkpoint",
             "train/persist_model"} <= names
@@ -797,6 +802,12 @@ def test_run_train_trace_file_matches_jax(tmp_path, monkeypatch):
     (prof,) = [p for p in os.listdir(torch_dir) if p.startswith("torch_")]
     trace = json.loads((torch_dir / prof).read_text())
     assert trace["traceEvents"]
+    # with the run's spans of the profiled window merged in
+    merged = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"
+              and isinstance(e.get("pid"), int)
+              and e["pid"] >= profiling.ProfilerTrace.PID_BASE}
+    assert {"train/total", "als/pack", "als/user_solve",
+            "als/fetch"} <= merged
 
 
 def test_run_train_publishes_step_histogram_and_checkpoints(

@@ -515,7 +515,7 @@ def test_train_chaos_parses_alike(monkeypatch, raw):
     assert als._train_chaos_sleep_s() == jax_als._train_chaos_sleep_s()
 
 
-def test_train_chaos_sleeps_between_epochs(monkeypatch):
+def test_train_chaos_sleeps_between_epochs(monkeypatch, tmp_path):
     slept = []
     monkeypatch.setenv("PIO_TRAIN_CHAOS", "epoch_sleep:0.001")
     monkeypatch.setattr(als.time, "sleep", slept.append)
@@ -525,6 +525,7 @@ def test_train_chaos_sleeps_between_epochs(monkeypatch):
                   np.ones(30, np.float32), 5, 4, rank=2, iterations=4)
     assert slept == [0.001]  # one fused dispatch without checkpoints
     slept.clear()
+    # a timer times the same loop: one dispatch, one sleep
     als.train_als(ComputeContext.create(device="cpu"),
                   rng.integers(0, 5, 30), rng.integers(0, 4, 30),
                   np.ones(30, np.float32), 5, 4, rank=2, iterations=4,
@@ -532,7 +533,13 @@ def test_train_chaos_sleeps_between_epochs(monkeypatch):
                   timer=__import__(
                       "predictionio_tpu_torch.utils.profiling",
                       fromlist=["StepTimer"]).StepTimer())
-    assert slept == [0.001] * 4  # one per timed epoch
+    assert slept == [0.001]
+    slept.clear()
+    als.train_als(ComputeContext.create(device="cpu"),
+                  rng.integers(0, 5, 30), rng.integers(0, 4, 30),
+                  np.ones(30, np.float32), 5, 4, rank=2, iterations=4,
+                  checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert slept == [0.001] * 4  # one per checkpointed epoch
 
 
 def test_trainer_refuses_to_fall_back(tmp_path, monkeypatch):
