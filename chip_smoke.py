@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. In order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the fused score + top-k kernel library from
-   ``predictionio_tpu_torch/csrc`` and prints the build seconds and the
-   compiler's register/spill report;
+2. builds the port's kernel libraries from ``predictionio_tpu_torch/csrc``
+   (the fused score + top-k, and ALS's batched solve) and prints the
+   build seconds and the compiler's register/spill report;
 3. holds the kernel in all three forms (float32, bfloat16, int8 + scale)
    against its plain PyTorch version on the card, over batch sizes (each
    side of every query-tile width), catalog sizes (one ragged), ``num``
@@ -44,7 +44,11 @@ and PyTorch built for CUDA. In order:
    item rows, 256 sampled items and (after one more user half-step) 256
    sampled users
    to a relative residual of 1e-4 against their normal equations
-   rebuilt in float64 on the host;
+   rebuilt in float64 on the host; every ``_solve`` call of the timed
+   epochs must launch the solve kernel once; then times that kernel on
+   one epoch's systems (165,237 rows, rank 32, implicit) beside its
+   bound, its plain version and ``cholesky_ex`` + ``cholesky_solve``,
+   each row within 1e-4 of the plain version's;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
    users × 5,000 items, the same generator) into a memory event store,
    then (``train_and_serve``) the port's ``run_train`` on
@@ -332,10 +336,11 @@ and PyTorch built for CUDA. In order:
    fetch go through NCCL even at N = 1) on an engine reading the ml20m
    interactions, run after (b), every rank's published factors held to
    (a)'s (1, 1) run as (a)'s meshes are;
-20. prints one ``{"kernels": [...]}`` line (launches summed over phases
-   4 and 7-19; phase 16's ``--workers`` children, which the package
-   re-execs, by their ``pio_batches_total``) and, last, the device
-   line.
+20. prints one ``{"kernels": [...]}`` line (the top-k's launches summed
+   over phases 4 and 7-19; phase 16's ``--workers`` children, which the
+   package re-execs, by their ``pio_batches_total``; the solve's
+   launches in phase 6's timed epochs, both forms of the gathers) and,
+   last, the device line.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without CUDA, or without the repository beside it, it exits 1.
@@ -382,6 +387,8 @@ PEAK_FP32_FLOPS = 67e12
 TIME_BATCHES = (1, 8, 64, 256)
 CUDA_SOURCE = "predictionio_tpu_torch/csrc/fused_topk.cu"
 TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
+SOLVE_SOURCE = "predictionio_tpu_torch/csrc/als_solve.cu"
+SOLVE_FORMULATION = "predictionio_tpu/ops/als.py:_chol_solve_batched"
 #: training at bench.py's "ml20m" shape (users, items, interactions)
 ML20M = (138_493, 26_744, 20_000_000)
 TRAIN_EPOCHS = 5
@@ -1094,11 +1101,16 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
                     ("users", user_max)):
         assert r <= RESIDUAL_TOL, f"{compute}: {what} residual {r:.3g}"
 
-    # the epoch, timed apart (CUDA events, no wait between epochs)
+    # the epoch, timed apart (CUDA events, no wait between epochs); each
+    # _solve call of an epoch (a slab's, or a side's heavy slots) is one
+    # launch of the solve kernel
     step = als.make_train_step(solve_u, solve_i)
     x = torch.zeros((packed_u.n_rows_padded, RANK), device=device)
     y = items_dev.clone()
     torch.cuda.synchronize()
+    solves = sum(len(p.slabs) + (p.n_stat_rows > sum(
+        s.idx.shape[0] for s in p.slabs)) for p in (packed_u, packed_i))
+    launched = als.SOLVE_LAUNCHES
     epoch_ms = []
     for _ in range(TRAIN_EPOCHS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1108,6 +1120,10 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         stop.record()
         epoch_ms.append((start, stop))
     torch.cuda.synchronize()
+    launched = als.SOLVE_LAUNCHES - launched
+    assert launched == TRAIN_EPOCHS * solves, (
+        f"{compute}: {launched} solve launches in {TRAIN_EPOCHS} epochs, "
+        f"not {solves} an epoch")
     epoch_ms = [a.elapsed_time(b) for a, b in epoch_ms]
     split_u = profile_half_step(solve_u, y, TRAIN_REG)
     split_i = profile_half_step(solve_i, x, TRAIN_REG)
@@ -1117,6 +1133,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     return {
         "compute": compute,
         "train_als_s": train_s,
+        "solve_launches": launched,
+        "solve_launches_per_epoch": launched / TRAIN_EPOCHS,
         "epoch_ms": epoch_ms,
         "epoch_ms_median_2_5": median,
         "peak_bytes": peak,
@@ -1131,6 +1149,58 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
                             "users": user_med},
         "residual_check_s": check_s,
     }
+
+
+def time_solve(device, seed: int) -> dict:
+    """The solve kernel on one epoch's systems at the ml20m shape (every
+    user and item row, rank 32, implicit), against its bound (the bytes
+    the solve needs, each once over HBM bandwidth: the lower triangle of
+    each system of a, which is all that the kernel and cholesky_ex read,
+    b, x and yty, and cnt only in explicit mode; the Cholesky and two
+    triangular solves over the fp32 peak),
+    the plain version on the card, and ``torch.linalg.cholesky_ex`` +
+    ``torch.cholesky_solve`` on the regularised systems (the library)."""
+    from predictionio_tpu_torch.ops import als
+
+    n_users, n_items, _ = ML20M
+    rows, k = n_users + n_items, RANK
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    ys = torch.randn((rows, 16, k), generator=g, device=device) / k ** 0.5
+    a = torch.bmm(ys.transpose(1, 2), ys)
+    del ys
+    b = torch.randn((rows, k), generator=g, device=device)
+    cnt = torch.full((rows,), 16.0, device=device)
+    y = torch.randn((4096, k), generator=g, device=device) / k ** 0.5
+    yty = y.T @ y
+    implicit = True
+
+    def kernel():
+        return als._solve_kernel(a, b, cnt, yty, TRAIN_REG, implicit)
+
+    ms = time_ms(kernel, reps=20)
+    plain_ms = time_ms(lambda: als._solve_plain(a, b, cnt, yty, TRAIN_REG,
+                                                implicit), reps=3, warmup=1)
+    spd = a + yty + TRAIN_REG * torch.eye(k, device=device)
+    library_ms = time_ms(lambda: torch.cholesky_solve(
+        b[..., None], torch.linalg.cholesky_ex(spd)[0]), reps=3, warmup=1)
+    want = als._solve_plain(a, b, cnt, yty, TRAIN_REG, implicit)
+    err = float(((kernel() - want).norm(dim=1)
+                 / want.norm(dim=1)).max())
+    assert err <= 1e-4, f"solve kernel against the plain version: {err:.3g}"
+    nbytes = (rows * k * (k + 1) // 2 + 2 * b.numel() + yty.numel()
+              + (0 if implicit else cnt.numel())) * 4
+    flops = rows * (k ** 3 / 3 + 2 * k * k)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    out = {"rows": rows, "k": k, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_rel_err": err}
+    log(f"time als_solve R={rows} k={k} kernel_ms={ms:.4f} "
+        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}) "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_share={out['bound_ms'] / ms:.3f} max_rel_err={err:.3g}")
+    return out
 
 
 def train_phase(device, seed: int) -> dict:
@@ -1153,6 +1223,9 @@ def train_phase(device, seed: int) -> dict:
         run = train_full_width(device, data, packs, compute, seed)
         log("train " + json.dumps(run))
         out[compute] = run
+    out["solve"] = time_solve(device, seed)
+    out["solve"]["launches"] = sum(
+        out[c]["solve_launches"] for c in ("float32", "bfloat16"))
     return out
 
 
@@ -8500,17 +8573,19 @@ def main() -> int:
     log(f"ephemeral ports {_ephemeral_range()}; servers listen below them")
 
     warm = cache_child_bytecode()
-    t0 = time.perf_counter()
-    _build.library("fused_topk")
-    log(f"build fused_topk: {time.perf_counter() - t0:.2f} s")
+    for lib in ("fused_topk", "als_solve"):
+        t0 = time.perf_counter()
+        _build.library(lib)
+        log(f"build {lib}: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     assert warm.wait(timeout=CLI_TIMEOUT_S) == 0, "the bytecode warm-up failed"
     log(f"child bytecode cached in {PYCACHE} (beside the build; waited "
         f"{time.perf_counter() - t0:.2f} s more)")
-    report = _build.library_path("fused_topk").with_suffix(".log")
-    for line in report.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    for lib in ("fused_topk", "als_solve"):
+        report = _build.library_path(lib).with_suffix(".log")
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {lib}: {line.strip()}")
 
     worst = check_kernels(device, N_ITEMS, RAGGED_ITEMS, RANK, args.seed,
                           fused_topk.NUM_CAP)
@@ -8543,7 +8618,7 @@ def main() -> int:
     del model, table_f32
     log(f"phase timings: ok ({time.perf_counter() - t_start:.1f} s)")
 
-    train_phase(device, args.seed)
+    solve = train_phase(device, args.seed)["solve"]
     log(f"phase train: ok ({time.perf_counter() - t_start:.1f} s)")
 
     with tempfile.TemporaryDirectory(prefix="chip-smoke-dase-") as store:
@@ -8714,6 +8789,19 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    kernels.append({
+        "name": "als_solve",
+        "route": "cuda",
+        "source": SOLVE_SOURCE,
+        "replaces": SOLVE_FORMULATION,
+        "launches": solve["launches"],
+        "max_rel_err": solve["max_rel_err"],
+        "ms": solve["ms"],
+        "plain_ms": solve["plain_ms"],
+        "bound_ms": solve["bound_ms"],
+        "bound_by": solve["bound_by"],
+        "library_ms": solve["library_ms"],
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

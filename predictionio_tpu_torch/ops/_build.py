@@ -29,6 +29,8 @@ NVCC_FLAGS = (
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_INT64 = ctypes.c_longlong
+_FLOAT = ctypes.c_float
 #: C signatures, per library: every pointer and the stream as c_void_p
 #: (a pointer passed without argtypes is cut to 32 bits)
 SIGNATURES = {
@@ -40,6 +42,12 @@ SIGNATURES = {
         "pio_topk_pass2": [
             _VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _INT, _INT,
             _VOIDP, _VOIDP,
+        ],
+    },
+    "als_solve": {
+        "pio_als_solve": [
+            _VOIDP, _INT64, _VOIDP, _INT64, _VOIDP, _INT64, _VOIDP, _FLOAT,
+            _INT, _VOIDP, _INT, _INT, _INT, _VOIDP,
         ],
     },
 }

@@ -10,7 +10,9 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
   blocks are split into sub-rows.
 * Device side, one half-iteration is, per slab: gather the opposite
   side's factors ``[R, W, k]`` → batched Gramians (``torch.bmm``) →
-  batched Cholesky solves (``torch.linalg.cholesky_ex`` +
+  batched Cholesky solves (:func:`_solve`: on the card one launch of
+  the hand-written kernel ``csrc/als_solve.cu``, which allocates nothing
+  and never waits; on the CPU ``torch.linalg.cholesky_ex`` +
   ``cholesky_solve``). Heavy sub-rows add their partial stats into
   their owner's slot before that slot is solved, pairwise in a fixed
   order planned on the host (:class:`HeavyOrder`: no atomics), so a
@@ -21,7 +23,8 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
 * Under an open trace (:mod:`~predictionio_tpu_torch.obs.tracing`) the
   path records its stages as spans (``als/pack``, ``als/stage``,
   ``als/fetch``) and, per profiler range of a half-step, host seconds,
-  calls and stream drains (:class:`RangeTotals`); with no trace open
+  calls, stream drains and the systems solved (:class:`RangeTotals`);
+  with no trace open
   each site costs one contextvar read.
 * On a mesh of more than one device the slab rows split over ``data``
   (replicated factors, the solved rows all-gathered), or, with
@@ -29,9 +32,9 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
   and the stats rows over every device (:func:`plan_shards`), each
   position solving its rows and the results gathered device-major.
 
-The JAX package's TPU formulations of the same math are not ported: the
-k-major gather layout (``PIO_ALS_GATHER_LAYOUT``) and the unrolled
-Cholesky–Crout solve.
+The JAX package's k-major gather layout (``PIO_ALS_GATHER_LAYOUT``), a
+TPU formulation of the same math, is not ported; its unrolled
+Cholesky–Crout solve (``_chol_solve_batched``) is the CUDA kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import dataclasses
 import logging
 import math
 import os
+import threading
 import time
 from typing import Callable
 
@@ -55,7 +59,6 @@ from predictionio_tpu_torch.parallel.mesh import (
     ComputeContext,
     ShardedTensor,
     assert_phantom_rows_zero,
-    load_cuda_linalg,
 )
 from predictionio_tpu_torch.utils import native
 from predictionio_tpu_torch.utils.profiling import steps_on
@@ -488,18 +491,18 @@ class RangeTotals:
     """Host seconds, calls and stream drains per profiler range of a
     half-step (``als/gather_gramian``, ``als/heavy_add``, ``als/solve``,
     never nested in one another), for one trace (kept by
-    ``tracing.trace_state``). A
+    ``tracing.trace_state``), and the systems ``als/solve`` solved. A
     *drain* is a range entered with its CUDA device's current stream
     already empty: the card had nothing queued and waited for the host.
     Nothing is counted as a drain on the CPU. When the trace's root
     closes, the totals become its ``als.ranges`` attribute (``GET
     /debug/traces.json``; calls are kept there alone) and go once into
-    the process registry: ``pio_als_range_host_seconds_total{range}``
-    and, where a range ran on a CUDA device,
-    ``pio_als_stream_drains_total{range}``."""
+    the process registry: ``pio_als_range_host_seconds_total{range}``,
+    ``pio_als_solve_systems_total`` and, where a range ran on a CUDA
+    device, ``pio_als_stream_drains_total{range}``."""
 
     def __init__(self):
-        #: range -> [host seconds, calls, drains]
+        #: range -> [host seconds, calls, drains, systems or None]
         self.totals: dict[str, list] = {}
         self.cuda = False
 
@@ -514,27 +517,37 @@ class RangeTotals:
             "ALS range entries that found the card's stream empty "
             "(the card idle, waiting for the host), under an open trace",
             ("range",))
+        solved = reg.counter(
+            "pio_als_solve_systems_total",
+            "Systems ALS's batched solve solved under an open trace")
         out = {}
-        for name, (host_s, n, n_drained) in self.totals.items():
+        for name, (host_s, n, n_drained, systems) in self.totals.items():
             host.labels(name).inc(host_s)
             out[name] = {"host_s": round(host_s, 6), "calls": n}
             if self.cuda:
                 drains.labels(name).inc(n_drained)
                 out[name]["drains"] = n_drained
+            if systems is not None:
+                solved.inc(systems)
+                out[name]["systems"] = systems
         root.set("als.ranges", out)
 
 
 class _CountedRange:
     """One entry of a range under an open trace: the profiler range as
-    with none open, and its host seconds, call and drain counted."""
+    with none open, and its host seconds, call, drain and systems
+    counted."""
 
     __slots__ = ("_rf", "_row", "_device", "_t0")
 
-    def __init__(self, name: str, device: torch.device, totals: RangeTotals):
+    def __init__(self, name: str, device: torch.device, totals: RangeTotals,
+                 systems: int | None = None):
         self._rf = torch.profiler.record_function(name)
         row = totals.totals.get(name)
         if row is None:
-            row = totals.totals[name] = [0.0, 0, 0]
+            row = totals.totals[name] = [0.0, 0, 0, None]
+        if systems is not None:
+            row[3] = (row[3] or 0) + systems
         self._row = row
         self._device = device if device.type == "cuda" else None
         if self._device is not None:
@@ -553,14 +566,15 @@ class _CountedRange:
         return self._rf.__exit__(*exc)
 
 
-def _range(name: str, device: torch.device):
+def _range(name: str, device: torch.device, systems: int | None = None):
     """The profiler range ``name`` (what ``torch.profiler`` and the
     benchmark's range metrics see, trace or not), counted in the current
-    trace's :class:`RangeTotals` when a trace is open."""
+    trace's :class:`RangeTotals` when a trace is open; ``systems``, the
+    rows a solve takes, summed from shapes on the host."""
     totals = tracing.trace_state("als.ranges", RangeTotals)
     if totals is None:
         return torch.profiler.record_function(name)
-    return _CountedRange(name, device, totals)
+    return _CountedRange(name, device, totals, systems)
 
 
 def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
@@ -589,12 +603,36 @@ def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
     return a, b, mask.sum(dim=1)
 
 
+#: launches of the batched solve kernel (``csrc/als_solve.cu``): one per
+#: :func:`_solve` call on a CUDA tensor, and nowhere else
+SOLVE_LAUNCHES = 0
+_solve_lock = threading.Lock()
+#: the largest rank the kernel solves (its tiles hold K = 32, 64 or 128)
+SOLVE_MAX_K = 128
+
+
 def _solve(a, b, cnt, yty, lam, implicit):
-    """Regularize and solve the batch of ``k × k`` systems. A system
-    that is not positive definite (explicit mode with ``lam=0`` on an
-    empty row, say) solves to zeros, as in the JAX package: its
-    ``cholesky_ex`` info is nonzero, and whatever ``cholesky_solve``
-    made of it is dropped, as is any non-finite element."""
+    """Regularize and solve the batch of ``k × k`` systems ``a [R, k,
+    k]``, ``b [R, k]`` (implicit: ``(a + yty) + lam·I``; explicit: ``a +
+    (lam·max(cnt, 1))·I``): ``x [R, k]`` float32. A system that is not
+    positive definite (explicit mode with ``lam=0`` on an empty row,
+    say) solves to zeros, as in the JAX package, and any non-finite
+    element of ``x`` becomes zero. A CUDA tensor launches the kernel
+    (:func:`_solve_kernel`, or raises); a CPU tensor takes the plain
+    version (:func:`_solve_plain`)."""
+    with _range("als/solve", a.device, systems=a.shape[0]):
+        if a.device.type == "cuda":
+            return _solve_kernel(a, b, cnt, yty, lam, implicit)
+        if a.device.type != "cpu":
+            raise ValueError(f"_solve runs on cuda or cpu, not {a.device}")
+        return _solve_plain(a, b, cnt, yty, lam, implicit)
+
+
+def _solve_plain(a, b, cnt, yty, lam, implicit):
+    """The plain version: the regularized systems in memory, then
+    ``cholesky_ex``; a system whose info is nonzero solves to zeros,
+    whatever ``cholesky_solve`` made of it, as does any non-finite
+    element."""
     k = a.shape[-1]
     eye = torch.eye(k, dtype=a.dtype, device=a.device)
     if implicit:
@@ -602,12 +640,64 @@ def _solve(a, b, cnt, yty, lam, implicit):
     else:
         # MLlib-style weighted-λ regularization: λ · n_u · I
         a = a + (lam * cnt.clamp(min=1.0))[:, None, None] * eye
-    with _range("als/solve", a.device):
-        chol, info = torch.linalg.cholesky_ex(a)
-        x = torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
-        ok = (info == 0).unsqueeze(-1) & torch.isfinite(x)
-        return torch.where(ok, x, torch.zeros((), dtype=x.dtype,
-                                              device=x.device))
+    chol, info = torch.linalg.cholesky_ex(a)
+    x = torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
+    ok = (info == 0).unsqueeze(-1) & torch.isfinite(x)
+    return torch.where(ok, x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _system_stride(t: torch.Tensor, name: str, shape: tuple,
+                   device: torch.device) -> int:
+    """Floats from one system of ``t`` to the next; each system must be
+    float32 and contiguous (a heavy slot's view of its packed row is:
+    only the stride between systems differs). Read from the strides
+    alone, with no tensor made: this runs on every launch."""
+    if t.dtype != torch.float32 or t.shape != shape or t.device != device:
+        raise ValueError(
+            f"_solve: {name} must be {list(shape)} float32 on {device}, "
+            f"got {list(t.shape)} {t.dtype} on {t.device}")
+    strides = t.stride()
+    want = 1
+    for dim in range(len(shape) - 1, 0, -1):
+        if shape[dim] > 1 and strides[dim] != want:
+            raise ValueError(f"_solve: each system of {name} must be "
+                             f"contiguous, got strides {strides}")
+        want *= shape[dim]
+    return strides[0]
+
+
+def _solve_kernel(a, b, cnt, yty, lam, implicit):
+    """One launch of ``csrc/als_solve.cu`` on the current stream: the
+    output is the one allocation, and nothing waits for the card."""
+    global SOLVE_LAUNCHES
+    dev = a.device
+    r, k = a.shape[0], a.shape[-1]
+    if not 1 <= k <= SOLVE_MAX_K:
+        raise ValueError(f"_solve: rank {k} is outside the kernel's "
+                         f"1..{SOLVE_MAX_K}")
+    x = torch.empty((r, k), dtype=torch.float32, device=dev)
+    if r == 0:
+        return x
+    sa = _system_stride(a, "a", (r, k, k), dev)
+    sb = _system_stride(b, "b", (r, k), dev)
+    sc = _system_stride(cnt, "cnt", (r,), dev)
+    if implicit and (yty.dtype != torch.float32 or yty.shape != (k, k)
+                     or yty.device != dev or not yty.is_contiguous()):
+        raise ValueError(f"_solve: yty must be a contiguous [{k}, {k}] "
+                         f"float32 tensor on {dev}")
+    from predictionio_tpu_torch.ops import _build
+
+    rc = _build.library("als_solve").pio_als_solve(
+        a.data_ptr(), sa, b.data_ptr(), sb, cnt.data_ptr(), sc,
+        yty.data_ptr() if implicit else None, lam, int(implicit),
+        x.data_ptr(), r, k, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ALS solve launch failed: CUDA error {rc}")
+    with _solve_lock:
+        SOLVE_LAUNCHES += 1
+    return x
 
 
 def _prepare(y, compute, implicit):
@@ -1320,8 +1410,6 @@ def train_als(
             "default host layout on multi-process meshes"
         )
     ctx = ctx or ComputeContext.create(batch="als")
-    for dev in ctx.local_devices:
-        load_cuda_linalg(dev)
     sharded = factor_sharding == "sharded" or (
         factor_sharding == "auto" and ctx.model_parallelism > 1
     )

@@ -104,7 +104,7 @@ def load_cuda_linalg(device: torch.device) -> None:
     device, under a lock. torch loads its CUDA linalg library (and the
     device's cuSOLVER handle) at that first call, and the load is not
     thread-safe: two threads making it together (the candidates of an
-    evaluation, each training ALS) fail with "lazy wrapper should be
+    evaluation, each fitting on the card) fail with "lazy wrapper should be
     called at most once". Callers of ``torch.linalg`` on the card call
     this for every device of their mesh; on the CPU it does nothing."""
     global _linalg_loaded

@@ -53,25 +53,37 @@ def _train(ctx, coo, **kw):
 def _counters() -> dict:
     out = {}
     for family, data in get_registry().to_dict().items():
-        if family.startswith(("pio_als_range_", "pio_als_stream_")):
+        if family.startswith(("pio_als_range_", "pio_als_stream_",
+                              "pio_als_solve_")):
             for sample in data["samples"]:
-                out[(family, sample["labels"]["range"])] = sample["value"]
+                out[(family, sample["labels"].get("range"))] = \
+                    sample["value"]
     return out
+
+
+def _packs(coo) -> tuple:
+    rows, cols, vals = coo
+    return (als.build_bucketed(rows, cols, vals, N_USERS, **PACKING),
+            als.build_bucketed(cols, rows, vals, N_ITEMS, **PACKING))
 
 
 def _expected_calls(coo, iterations: int) -> dict:
     """Range entries a one-device run makes: per half-step, one gather
     and one solve a slab, one gather and one add a heavy group, one
     solve of the heavy slots."""
-    rows, cols, vals = coo
     calls = dict.fromkeys(RANGES, 0)
-    for packed in (als.build_bucketed(rows, cols, vals, N_USERS, **PACKING),
-                   als.build_bucketed(cols, rows, vals, N_ITEMS, **PACKING)):
+    for packed in _packs(coo):
         assert packed.heavy, "the data must give heavy rows"
         calls["als/gather_gramian"] += len(packed.slabs) + len(packed.heavy)
         calls["als/heavy_add"] += len(packed.heavy)
         calls["als/solve"] += len(packed.slabs) + 1
     return {k: v * iterations for k, v in calls.items()}
+
+
+def _expected_systems(coo, iterations: int) -> int:
+    """Systems a one-device run solves: every stats row of both sides
+    (each slab's rows, then the heavy slots), each epoch."""
+    return iterations * sum(p.n_stat_rows for p in _packs(coo))
 
 
 def test_open_trace_records_stages_and_range_counts(coo, cpu):
@@ -94,19 +106,57 @@ def test_open_trace_records_stages_and_range_counts(coo, cpu):
     ranges = root["attributes"]["als.ranges"]
     want = _expected_calls(coo, 3)
     assert {k: v["calls"] for k, v in ranges.items()} == want
-    # nothing counts as a drain off a CUDA device
-    assert all(set(v) == {"host_s", "calls"} and v["host_s"] >= 0
-               for v in ranges.values())
+    # nothing counts as a drain off a CUDA device; the solve counts the
+    # systems it solved
+    assert all(set(v) == {"host_s", "calls"} | (
+        {"systems"} if name == "als/solve" else set()) and v["host_s"] >= 0
+        for name, v in ranges.items())
+    assert ranges["als/solve"]["systems"] == _expected_systems(coo, 3)
     after = _counters()
     for name in want:
         key = ("pio_als_range_host_seconds_total", name)
         assert after[key] - before.get(key, 0) == pytest.approx(
             ranges[name]["host_s"], abs=1e-5)
     assert not any(k[0] == "pio_als_stream_drains_total" for k in after)
+    key = ("pio_als_solve_systems_total", None)
+    assert after[key] - before.get(key, 0) == _expected_systems(coo, 3)
 
     untraced = _train(cpu, coo)
     np.testing.assert_array_equal(untraced.user_factors, traced.user_factors)
     np.testing.assert_array_equal(untraced.item_factors, traced.item_factors)
+
+
+@pytest.mark.parametrize("iterations", [1, 2])
+def test_solve_counts_its_systems_an_epoch(coo, cpu, iterations):
+    """``als/solve``'s ``systems`` is the rows its calls took, summed on
+    the host from the shapes: per epoch, each side's slab rows and heavy
+    slots, in as many calls as the packing has slabs (plus one for each
+    side's heavy slots); the registry counter rises by the same."""
+    before = _counters()
+    solved = []
+    real = als._solve_plain
+
+    def plain(a, *args):
+        solved.append(a.shape[0])
+        return real(a, *args)
+
+    tracer = tracing.Tracer()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(als, "_solve_plain", plain)
+        with tracer.trace("train"):
+            rows, cols, vals = coo
+            als.train_als(cpu, rows, cols, vals, N_USERS, N_ITEMS,
+                          rank=RANK, iterations=iterations, reg=0.1,
+                          **PACKING)
+    (rec,) = tracer.to_dict()["traces"]
+    (root,) = [s for s in rec["spans"] if s["name"] == "train"]
+    got = root["attributes"]["als.ranges"]["als/solve"]
+    want = _expected_systems(coo, iterations)
+    assert got["systems"] == sum(solved) == want
+    assert got["calls"] == len(solved) == \
+        _expected_calls(coo, iterations)["als/solve"]
+    key = ("pio_als_solve_systems_total", None)
+    assert _counters()[key] - before.get(key, 0) == want
 
 
 def test_no_trace_records_nothing(coo, cpu, monkeypatch):

@@ -21,10 +21,13 @@ Tolerance: scores within 1e-4 absolute + 1e-5 relative (the kernel sums
 the k products in order, cuBLAS in another). Indices are equal except
 where two items' plain scores tie within that tolerance, where the two
 summation orders may rank them either way; planted exact ties must come
-lower index first. ALS (``ops/als.py``, torch ops only) runs the same
-code on both devices; what differs on the card is cuSOLVER's batched
-Cholesky, cuBLAS's batched products and ``index_add_``'s atomics, so
-float32 factors agree within rtol 1e-3 / atol 1e-4 after three epochs.
+lower index first. ALS (``ops/als.py``) runs the same code on both
+devices but for the solve, the kernel of ``csrc/als_solve.cu`` on the
+card (held to a float64 solve, to the plain version's zeros, to its own
+bits run to run, and captured in a CUDA graph) against the plain
+version's LAPACK Cholesky on the CPU; with cuBLAS's batched products in
+another summation order, float32 factors agree within rtol 1e-3 / atol
+1e-4 after three epochs.
 With bf16 gathers each half-step rounds the factors to bf16, and two
 float32 values a last bit apart can round one bf16 step (2^-8) apart;
 through explicit mode's less well conditioned solves that grows to
@@ -132,24 +135,183 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         fused_topk.fused_top_k_dot(q, items, 5, mask[:10])
 
 
+def _card_systems(r: int, k: int, seed: int, device):
+    """``r`` rank-``k`` systems as ALS builds them, made on ``device``: a
+    Gramian of ``4k`` rows of N(0, 1/k) each, ``YᵀY`` of ``8k`` such
+    rows, counts 0..29 and a normal ``b``. At λ = 0.05 both modes'
+    regularised systems have condition numbers of a few units."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ys = torch.randn((r, 4 * k, k), generator=g, device=device) / k ** .5
+    a = torch.bmm(ys.transpose(1, 2), ys)
+    del ys
+    y = torch.randn((8 * k, k), generator=g, device=device) / k ** .5
+    cnt = torch.randint(0, 30, (r,), generator=g, device=device).float()
+    b = torch.randn((r, k), generator=g, device=device)
+    return a, b, cnt, y.T @ y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 203, 50_001])
+@pytest.mark.parametrize("implicit", [True, False],
+                         ids=["implicit", "explicit"])
+@pytest.mark.parametrize("k", [1, 8, 10, 16, 32, 33, 64, 128])
+def test_als_solve_kernel_matches_float64_on_card(cuda_device, k, implicit,
+                                                  rows):
+    """The kernel against ``torch.linalg.solve`` in float64 of the same
+    regularised float32 systems: each row's relative error at most 1e-5
+    up to k = 32, and 1e-5·k/32 above, since a Cholesky's rounding error
+    grows with the k products summed into each element. Blocks of 8
+    (k ≤ 32), 3 (k ≤ 64) or 1 system, and a ragged last block; the one
+    launch is counted."""
+    from predictionio_tpu_torch.ops import als
+
+    a, b, cnt, yty = _card_systems(rows, k, 11 + k, cuda_device)
+    lam = 0.05
+    eye = torch.eye(k, device=cuda_device)
+    reg = (a + yty + lam * eye if implicit else
+           a + (lam * cnt.clamp(min=1.0))[:, None, None] * eye)
+    want = torch.linalg.solve(reg.double(), b.double())
+    before = als.SOLVE_LAUNCHES
+    got = als._solve(a, b, cnt, yty if implicit else None, lam, implicit)
+    assert als.SOLVE_LAUNCHES == before + 1
+    assert got.shape == (rows, k) and got.dtype == torch.float32
+    err = (got.double() - want).norm(dim=1) / want.norm(dim=1)
+    assert float(err.max()) <= 1e-5 * max(1.0, k / 32), float(err.max())
+
+
 @pytest.mark.gpu
 def test_als_solve_zeroes_non_pd_systems_on_card(cuda_device):
+    """Explicit mode at λ = 0: the identity, an indefinite diagonal, an
+    all-zero empty row, an SPD system, a dense indefinite system, and an
+    SPD system whose ``b`` holds a NaN. The kernel's zeros are the plain
+    version's, element by element, and its other values agree."""
     from predictionio_tpu_torch.ops import als
 
     rng = np.random.default_rng(3)
     m = rng.standard_normal((3, 3)).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
     a = torch.from_numpy(np.stack([
         np.eye(3), np.diag([1.0, -1.0, 1.0]), np.zeros((3, 3)),
+        m @ m.T + np.eye(3), q @ np.diag([3.0, -1.0, 2.0]) @ q.T,
         m @ m.T + np.eye(3),
     ]).astype(np.float32))
-    b = torch.ones(4, 3)
-    cnt = torch.tensor([3.0, 3.0, 0.0, 3.0])
+    b = torch.ones(6, 3)
+    b[5, 1] = float("nan")
+    cnt = torch.tensor([3.0, 3.0, 0.0, 3.0, 3.0, 3.0])
     want = als._solve(a, b, cnt, None, 0.0, False)
     got = als._solve(a.to(cuda_device), b.to(cuda_device),
                      cnt.to(cuda_device), None, 0.0, False).cpu()
     assert torch.equal(got[:3], torch.tensor(
         [[1.0, 1.0, 1.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]))
-    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal(got[4:], torch.zeros(2, 3))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_als_solve_repeats_bit_for_bit_on_card(cuda_device):
+    """Two launches on the same systems give the same bits (no atomics,
+    a fixed order of every sum)."""
+    from predictionio_tpu_torch.ops import als
+
+    a, b, cnt, yty = _card_systems(20_001, 32, 5, cuda_device)
+    one = als._solve(a, b, cnt, yty, 0.01, True)
+    two = als._solve(a, b, cnt, yty, 0.01, True)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.gpu
+def test_als_solve_takes_heavy_slot_views_on_card(cuda_device):
+    """The heavy slots' systems arrive as views of one packed row per
+    slot (``_heavy_stats``): the kernel reads them where they lie, and
+    gives the bits it gives for the same systems laid out whole."""
+    from predictionio_tpu_torch.ops import als
+
+    k, n = 32, 1_001
+    a, b, cnt, yty = _card_systems(n, k, 6, cuda_device)
+    acc = torch.cat([a.reshape(n, -1), b, cnt[:, None]], dim=1)
+    views = (acc[:, :k * k].reshape(n, k, k), acc[:, k * k:k * k + k],
+             acc[:, -1])
+    for implicit in (True, False):
+        whole = als._solve(a, b, cnt, yty, 0.01, implicit)
+        assert torch.equal(als._solve(*views, yty, 0.01, implicit), whole)
+
+
+@pytest.mark.gpu
+def test_als_solve_refuses_rank_129_on_card(cuda_device):
+    from predictionio_tpu_torch.ops import als
+
+    k = als.SOLVE_MAX_K + 1
+    with pytest.raises(ValueError, match="1..128"):
+        als._solve(torch.zeros(2, k, k, device=cuda_device),
+                   torch.zeros(2, k, device=cuda_device),
+                   torch.ones(2, device=cuda_device), None, 0.1, False)
+
+
+@pytest.mark.gpu
+def test_als_solve_captures_in_a_cuda_graph(cuda_device):
+    """``_solve`` on the card inside ``torch.cuda.graph``: a capture
+    fails on a synchronize, and the library path's allocations and
+    stream waits would end it. The captured launch replays to the eager
+    result's bits."""
+    from predictionio_tpu_torch.ops import als
+
+    a, b, cnt, yty = _card_systems(4_099, 32, 8, cuda_device)
+    eager = als._solve(a, b, cnt, yty, 0.01, True)
+    torch.cuda.synchronize()
+    before = als.SOLVE_LAUNCHES
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x = als._solve(a, b, cnt, yty, 0.01, True)
+    assert als.SOLVE_LAUNCHES == before + 1
+    x.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, eager)
+
+
+@pytest.mark.gpu
+def test_als_solve_keeps_the_callers_device_on_cards(cuda_device):
+    """A solve on another card than the current one launches there and
+    leaves the thread's current device as it was: the mesh layouts solve
+    on each of their cards in turn from one thread, and what follows
+    (events, ``torch.cuda.synchronize()``, ``device="cuda"``) must still
+    reach the caller's card. Then ALS on a (1, 2) and a (2, 1) mesh of
+    two cards matches one card (the tolerance of the logical meshes)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: with one the solve never "
+                    "switches device")
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    other = torch.device("cuda", 1)
+    a, b, cnt, yty = _card_systems(257, 32, 9, cuda_device)
+    here = als._solve(a, b, cnt, yty, 0.01, True)
+    for current, dev in ((0, other), (1, cuda_device)):
+        with torch.cuda.device(current):
+            x = als._solve(a.to(dev), b.to(dev), cnt.to(dev), yty.to(dev),
+                           0.01, True)
+            assert torch.cuda.current_device() == current
+            assert torch.equal(x.cpu(), here.cpu())
+    assert torch.cuda.current_device() == 0
+
+    rng = np.random.default_rng(23)
+    rows = rng.integers(0, 40, 900).astype(np.int32)
+    cols = rng.integers(0, 30, 900).astype(np.int32)
+    vals = rng.integers(1, 5, 900).astype(np.float32)
+    kw = dict(n_users=40, n_items=30, rank=8, iterations=3, reg=0.1,
+              block_len=4, s_max=2)
+    one = als.train_als(ComputeContext.create(devices=[cuda_device]), rows,
+                        cols, vals, **kw)
+    for shape in ((1, 2), (2, 1)):
+        ctx = ComputeContext.create(mesh_shape=shape,
+                                    devices=[cuda_device, other])
+        got = als.train_als(ctx, rows, cols, vals, **kw)
+        assert torch.cuda.current_device() == 0
+        np.testing.assert_allclose(got.user_factors, one.user_factors,
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got.item_factors, one.item_factors,
+                                   rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -655,10 +817,12 @@ def test_console_train_then_deploy_on_card(cuda_device, tmp_path):
 @pytest.mark.gpu
 def test_first_linalg_call_from_threads_in_a_fresh_process(cuda_device):
     """An evaluation trains its candidates in threads; in a fresh process
-    their first CUDA linalg calls come together, and torch's lazy load of
-    its linalg library is not thread-safe. ``train_als`` makes that
-    first call once under a lock, so four concurrent trainings in a new
-    process all finish."""
+    their first CUDA calls come together. torch's lazy load of its linalg
+    library is not thread-safe (``load_cuda_linalg`` makes that first
+    call under a lock), and since the solve is a kernel of its own
+    ``train_als`` calls no ``torch.linalg`` on the card: the solve's
+    library loads once under its build lock. Four concurrent trainings
+    in a new process all finish."""
     import pathlib
     import subprocess
     import sys
