@@ -8,8 +8,9 @@ and PyTorch built for CUDA. In order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the port's kernel libraries from ``predictionio_tpu_torch/csrc``
-   (the fused score + top-k, and ALS's batched solve) and prints the
-   build seconds and the compiler's register/spill report;
+   (the fused score + top-k, ALS's batched solve and its gather-Gramian)
+   and prints the build seconds and the compiler's register/spill
+   report;
 3. holds the kernel in all three forms (float32, bfloat16, int8 + scale)
    against its plain PyTorch version on the card, over batch sizes (each
    side of every query-tile width), catalog sizes (one ragged), ``num``
@@ -48,7 +49,11 @@ and PyTorch built for CUDA. In order:
    epochs must launch the solve kernel once; then times that kernel on
    one epoch's systems (165,237 rows, rank 32, implicit) beside its
    bound, its plain version and ``cholesky_ex`` + ``cholesky_solve``,
-   each row within 1e-4 of the plain version's;
+   each row within 1e-4 of the plain version's; every ``_slab_stats``
+   call of the timed epochs must launch the gather-Gramian kernel once,
+   and that kernel is timed on one epoch's slabs beside its bound and
+   its plain version (``index_select`` + ``bmm``), A and b within 1e-4
+   of the plain version's, the counts equal;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
    users × 5,000 items, the same generator) into a memory event store,
    then (``train_and_serve``) the port's ``run_train`` on
@@ -389,6 +394,8 @@ CUDA_SOURCE = "predictionio_tpu_torch/csrc/fused_topk.cu"
 TPU_KERNEL = "predictionio_tpu/ops/pallas_topk.py:213"
 SOLVE_SOURCE = "predictionio_tpu_torch/csrc/als_solve.cu"
 SOLVE_FORMULATION = "predictionio_tpu/ops/als.py:_chol_solve_batched"
+GRAMIAN_SOURCE = "predictionio_tpu_torch/csrc/als_gramian.cu"
+GRAMIAN_FORMULATION = "predictionio_tpu/ops/als.py:_slab_stats"
 #: training at bench.py's "ml20m" shape (users, items, interactions)
 ML20M = (138_493, 26_744, 20_000_000)
 TRAIN_EPOCHS = 5
@@ -1103,14 +1110,17 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
 
     # the epoch, timed apart (CUDA events, no wait between epochs); each
     # _solve call of an epoch (a slab's, or a side's heavy slots) is one
-    # launch of the solve kernel
+    # launch of the solve kernel, each _slab_stats call (a slab's, or a
+    # heavy group's) one of the gather-Gramian kernel
     step = als.make_train_step(solve_u, solve_i)
     x = torch.zeros((packed_u.n_rows_padded, RANK), device=device)
     y = items_dev.clone()
     torch.cuda.synchronize()
     solves = sum(len(p.slabs) + (p.n_stat_rows > sum(
         s.idx.shape[0] for s in p.slabs)) for p in (packed_u, packed_i))
+    stats = sum(len(p.slabs) + len(p.heavy) for p in (packed_u, packed_i))
     launched = als.SOLVE_LAUNCHES
+    gramians = als.GRAMIAN_LAUNCHES
     epoch_ms = []
     for _ in range(TRAIN_EPOCHS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1121,9 +1131,13 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         epoch_ms.append((start, stop))
     torch.cuda.synchronize()
     launched = als.SOLVE_LAUNCHES - launched
+    gramians = als.GRAMIAN_LAUNCHES - gramians
     assert launched == TRAIN_EPOCHS * solves, (
         f"{compute}: {launched} solve launches in {TRAIN_EPOCHS} epochs, "
         f"not {solves} an epoch")
+    assert gramians == TRAIN_EPOCHS * stats, (
+        f"{compute}: {gramians} gather-Gramian launches in {TRAIN_EPOCHS} "
+        f"epochs, not {stats} an epoch")
     epoch_ms = [a.elapsed_time(b) for a, b in epoch_ms]
     split_u = profile_half_step(solve_u, y, TRAIN_REG)
     split_i = profile_half_step(solve_i, x, TRAIN_REG)
@@ -1135,6 +1149,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         "train_als_s": train_s,
         "solve_launches": launched,
         "solve_launches_per_epoch": launched / TRAIN_EPOCHS,
+        "gramian_launches": gramians,
+        "gramian_launches_per_epoch": gramians / TRAIN_EPOCHS,
         "epoch_ms": epoch_ms,
         "epoch_ms_median_2_5": median,
         "peak_bytes": peak,
@@ -1203,6 +1219,66 @@ def time_solve(device, seed: int) -> dict:
     return out
 
 
+def time_gramian(device, packs, seed: int) -> dict:
+    """The gather-Gramian kernel on one epoch's slabs at the ml20m shape
+    (``packs``: both sides as phase 6 packs them, every slab and heavy
+    group, one launch each; rank 32, implicit, float32 factors from the
+    seed), against its bound (each slot's id, weight and flag, each
+    factor matrix, and each stats row's A, b and count once over HBM
+    bandwidth; or A's lower triangle and b, 2(k(k+1)/2 + k) FLOPs a
+    rating, over the fp32 peak: the larger), the plain version
+    (``index_select`` + ``bmm``) on the card, and the largest error
+    against it: per slab, the largest difference in A (in b) over A's
+    (b's) largest element."""
+    from predictionio_tpu_torch.ops import als
+
+    k = RANK
+    g = torch.Generator(device=device).manual_seed(seed + 9)
+    sides = []
+    for packed, other in ((packs[0], packs[1]), (packs[1], packs[0])):
+        y = torch.randn((other.n_rows_padded, k), generator=g,
+                        device=device) / k ** 0.5
+        slabs = [tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                       for t in (s.idx, s.weights, s.valid))
+                 for s in packed.slabs + packed.heavy]
+        sides.append((y, slabs))
+
+    def run(stats):
+        return [stats(y, *slab, True, TRAIN_ALPHA, None)
+                for y, slabs in sides for slab in slabs]
+
+    ms = time_ms(lambda: run(als._slab_stats_kernel), reps=10)
+    plain_ms = time_ms(lambda: run(als._slab_stats_plain), reps=2, warmup=1)
+    err = 0.0
+    for y, slabs in sides:
+        for slab in slabs:
+            got = als._slab_stats_kernel(y, *slab, True, TRAIN_ALPHA, None)
+            want = als._slab_stats_plain(y, *slab, True, TRAIN_ALPHA, None)
+            for p, q in zip(got[:2], want[:2]):
+                err = max(err, float((p - q).abs().max()
+                                     / q.abs().max().clamp(min=1e-30)))
+            assert torch.equal(got[2], want[2]), "counts differ"
+    assert err <= 1e-4, f"gather-Gramian against the plain version: {err:.3g}"
+    n_slabs = sum(len(slabs) for _y, slabs in sides)
+    slots = sum(p.padded_nnz for p in packs)
+    ratings = sum(int(s.valid.sum()) for p in packs for s in p.slabs + p.heavy)
+    stat_rows = sum(s.idx.shape[0] for p in packs for s in p.slabs + p.heavy)
+    nbytes = (slots * 12 + stat_rows * (k * k + k + 1) * 4
+              + sum(y.numel() * 4 for y, _slabs in sides))
+    flops = ratings * 2 * (k * (k + 1) // 2 + k)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    out = {"slabs": n_slabs, "slots": slots, "ratings": ratings, "k": k,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_rel_err": err}
+    log(f"time als_gramian slabs={n_slabs} slots={slots} ratings={ratings} "
+        f"k={k} kernel_ms={ms:.4f} bound_ms={out['bound_ms']:.4f} "
+        f"({out['bound_by']}) plain_ms={plain_ms:.4f} "
+        f"bound_share={out['bound_ms'] / ms:.3f} max_rel_err={err:.3g}")
+    return out
+
+
 def train_phase(device, seed: int) -> dict:
     n_users, n_items, nnz = ML20M
     t0 = time.perf_counter()
@@ -1226,6 +1302,12 @@ def train_phase(device, seed: int) -> dict:
     out["solve"] = time_solve(device, seed)
     out["solve"]["launches"] = sum(
         out[c]["solve_launches"] for c in ("float32", "bfloat16"))
+    out["gramian"] = time_gramian(device, packs["native"], seed)
+    out["gramian"]["launches"] = sum(
+        out[c]["gramian_launches"] for c in ("float32", "bfloat16"))
+    log(f"train launches in the timed epochs: solve "
+        f"{out['solve']['launches']}, gather-Gramian "
+        f"{out['gramian']['launches']}")
     return out
 
 
@@ -7810,6 +7892,7 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
                                 devices=devices)
     timer = _EventTimer() if timed else None
     _sync_all(devices)
+    gramians = als.GRAMIAN_LAUNCHES
     t0 = time.perf_counter()
     f = als.train_als(ctx, rows, cols, vals, n_users, n_items, rank=RANK,
                       iterations=MESH_EPOCHS, reg=TRAIN_REG,
@@ -7817,6 +7900,8 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
                       return_layout="device")
     _sync_all(devices)
     train_s = time.perf_counter() - t0
+    gramians = als.GRAMIAN_LAUNCHES - gramians
+    assert gramians > 0, f"{shape}: the gather-Gramian never launched"
     sharded = isinstance(f.item_factors, ShardedTensor)
     m = ctx.model_parallelism
     per_device = [0] * ctx.n_devices
@@ -7846,6 +7931,7 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
         "devices": sorted({str(d) for d in devices}),
         "sharded": sharded,
         "train_als_s": train_s,
+        "gramian_launches": gramians,
         "factor_bytes_per_device": per_device,
     }
     if timed:
@@ -8573,7 +8659,7 @@ def main() -> int:
     log(f"ephemeral ports {_ephemeral_range()}; servers listen below them")
 
     warm = cache_child_bytecode()
-    for lib in ("fused_topk", "als_solve"):
+    for lib in ("fused_topk", "als_solve", "als_gramian"):
         t0 = time.perf_counter()
         _build.library(lib)
         log(f"build {lib}: {time.perf_counter() - t0:.2f} s")
@@ -8581,7 +8667,7 @@ def main() -> int:
     assert warm.wait(timeout=CLI_TIMEOUT_S) == 0, "the bytecode warm-up failed"
     log(f"child bytecode cached in {PYCACHE} (beside the build; waited "
         f"{time.perf_counter() - t0:.2f} s more)")
-    for lib in ("fused_topk", "als_solve"):
+    for lib in ("fused_topk", "als_solve", "als_gramian"):
         report = _build.library_path(lib).with_suffix(".log")
         for line in report.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -8618,7 +8704,9 @@ def main() -> int:
     del model, table_f32
     log(f"phase timings: ok ({time.perf_counter() - t_start:.1f} s)")
 
-    solve = train_phase(device, args.seed)["solve"]
+    train = train_phase(device, args.seed)
+    solve, gramian = train["solve"], train["gramian"]
+    del train
     log(f"phase train: ok ({time.perf_counter() - t_start:.1f} s)")
 
     with tempfile.TemporaryDirectory(prefix="chip-smoke-dase-") as store:
@@ -8801,6 +8889,18 @@ def main() -> int:
         "bound_ms": solve["bound_ms"],
         "bound_by": solve["bound_by"],
         "library_ms": solve["library_ms"],
+    })
+    kernels.append({
+        "name": "als_gramian",
+        "route": "cuda",
+        "source": GRAMIAN_SOURCE,
+        "replaces": GRAMIAN_FORMULATION,
+        "launches": gramian["launches"],
+        "max_rel_err": gramian["max_rel_err"],
+        "ms": gramian["ms"],
+        "plain_ms": gramian["plain_ms"],
+        "bound_ms": gramian["bound_ms"],
+        "bound_by": gramian["bound_by"],
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -50,6 +50,13 @@ SIGNATURES = {
             _INT, _VOIDP, _INT, _INT, _INT, _VOIDP,
         ],
     },
+    "als_gramian": {
+        "pio_als_gramian": [
+            _VOIDP, _INT64, _INT64, _INT, _VOIDP, _INT64, _VOIDP, _INT64,
+            _VOIDP, _INT64, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOIDP,
+            _VOIDP, _VOIDP, _INT, _VOIDP,
+        ],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -8,24 +8,26 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
   native fill pass of ``native/alspack.cc``): every row of a bucket owns
   one dense ``[s * block_len]`` slot row; rows heavier than ``s_max``
   blocks are split into sub-rows.
-* Device side, one half-iteration is, per slab: gather the opposite
-  side's factors ``[R, W, k]`` → batched Gramians (``torch.bmm``) →
-  batched Cholesky solves (:func:`_solve`: on the card one launch of
-  the hand-written kernel ``csrc/als_solve.cu``, which allocates nothing
-  and never waits; on the CPU ``torch.linalg.cholesky_ex`` +
-  ``cholesky_solve``). Heavy sub-rows add their partial stats into
-  their owner's slot before that slot is solved, pairwise in a fixed
-  order planned on the host (:class:`HeavyOrder`: no atomics), so a
-  run repeats bit for bit.
+* Device side, one half-iteration is, per slab: each row's normal
+  equations from the opposite side's factors (:func:`_slab_stats`: on
+  the card one launch of the hand-written kernel ``csrc/als_gramian.cu``,
+  which gathers the factors on chip and never writes the ``[R, W, k]``
+  slab; on the CPU the gather and ``torch.bmm``) → batched Cholesky
+  solves (:func:`_solve`: on the card one launch of the hand-written
+  kernel ``csrc/als_solve.cu``; on the CPU ``torch.linalg.cholesky_ex``
+  + ``cholesky_solve``). Neither kernel allocates or waits. Heavy
+  sub-rows add their partial stats into their owner's slot before that
+  slot is solved, pairwise in a fixed order planned on the host
+  (:class:`HeavyOrder`: no atomics), so a run repeats bit for bit.
 * :func:`train_als` alternates the two sides for ``iterations`` epochs,
   with npz checkpoints in the JAX package's format, so a checkpoint
   written by either package resumes in the other.
 * Under an open trace (:mod:`~predictionio_tpu_torch.obs.tracing`) the
   path records its stages as spans (``als/pack``, ``als/stage``,
   ``als/fetch``) and, per profiler range of a half-step, host seconds,
-  calls, stream drains and the systems solved (:class:`RangeTotals`);
-  with no trace open
-  each site costs one contextvar read.
+  calls, stream drains, the systems solved and the slab slots summed
+  (:class:`RangeTotals`); with no trace open each site costs one
+  contextvar read.
 * On a mesh of more than one device the slab rows split over ``data``
   (replicated factors, the solved rows all-gathered), or, with
   ``factor_sharding="sharded"``, the factor matrices split over ``model``
@@ -165,10 +167,12 @@ class Bucketed:
     own one zero-initialized slot each, after all regular slab rows).
 
     Slabs (regular and heavy) are split so no single slab exceeds
-    ``max_slab_slots`` slots: the per-slab factor gather materializes a
-    ``[R·W, k]`` temp (256 MB in float32 at k = 32 and the default 2M
-    slots). Splitting bounds the peak temp; the concatenated stats
-    layout (and therefore ``inv_perm``) is unchanged by the split.
+    ``max_slab_slots`` slots: the plain version's per-slab factor gather
+    materializes a ``[R·W, k]`` temp (256 MB in float32 at k = 32 and
+    the default 2M slots; the card's kernel writes none, and there the
+    split sets the launches a half-step makes). Splitting bounds the
+    peak temp; the concatenated stats layout (and therefore
+    ``inv_perm``) is unchanged by the split.
     """
 
     slabs: list[Slab]
@@ -487,22 +491,35 @@ def _resolve_max_slab_slots(value: int) -> int:
     return DEFAULT_MAX_SLAB_SLOTS
 
 
+#: counts kept beside a range's host time, summed from shapes on the host:
+#: the name in ``als.ranges`` -> its registry counter and help
+RANGE_COUNTS = {
+    "systems": ("pio_als_solve_systems_total",
+                "Systems ALS's batched solve solved under an open trace"),
+    "slots": ("pio_als_gramian_slots_total",
+              "Slab slots ALS's gather-Gramian summed under an open trace"),
+}
+
+
 class RangeTotals:
     """Host seconds, calls and stream drains per profiler range of a
     half-step (``als/gather_gramian``, ``als/heavy_add``, ``als/solve``,
     never nested in one another), for one trace (kept by
-    ``tracing.trace_state``), and the systems ``als/solve`` solved. A
-    *drain* is a range entered with its CUDA device's current stream
-    already empty: the card had nothing queued and waited for the host.
-    Nothing is counted as a drain on the CPU. When the trace's root
-    closes, the totals become its ``als.ranges`` attribute (``GET
-    /debug/traces.json``; calls are kept there alone) and go once into
-    the process registry: ``pio_als_range_host_seconds_total{range}``,
-    ``pio_als_solve_systems_total`` and, where a range ran on a CUDA
-    device, ``pio_als_stream_drains_total{range}``."""
+    ``tracing.trace_state``), and the :data:`RANGE_COUNTS` a range
+    takes: the systems ``als/solve`` solved and the slab slots
+    ``als/gather_gramian`` summed. A *drain* is a range entered with its
+    CUDA device's current stream already empty: the card had nothing
+    queued and waited for the host. Nothing is counted as a drain on the
+    CPU. When the trace's root closes, the totals become its
+    ``als.ranges`` attribute (``GET /debug/traces.json``; calls are kept
+    there alone) and go once into the process registry:
+    ``pio_als_range_host_seconds_total{range}``,
+    ``pio_als_solve_systems_total``, ``pio_als_gramian_slots_total``
+    and, where a range ran on a CUDA device,
+    ``pio_als_stream_drains_total{range}``."""
 
     def __init__(self):
-        #: range -> [host seconds, calls, drains, systems or None]
+        #: range -> [host seconds, calls, drains, {count name: total}]
         self.totals: dict[str, list] = {}
         self.cuda = False
 
@@ -517,37 +534,34 @@ class RangeTotals:
             "ALS range entries that found the card's stream empty "
             "(the card idle, waiting for the host), under an open trace",
             ("range",))
-        solved = reg.counter(
-            "pio_als_solve_systems_total",
-            "Systems ALS's batched solve solved under an open trace")
         out = {}
-        for name, (host_s, n, n_drained, systems) in self.totals.items():
+        for name, (host_s, n, n_drained, counts) in self.totals.items():
             host.labels(name).inc(host_s)
             out[name] = {"host_s": round(host_s, 6), "calls": n}
             if self.cuda:
                 drains.labels(name).inc(n_drained)
                 out[name]["drains"] = n_drained
-            if systems is not None:
-                solved.inc(systems)
-                out[name]["systems"] = systems
+            for key, total in counts.items():
+                reg.counter(*RANGE_COUNTS[key]).inc(total)
+                out[name][key] = total
         root.set("als.ranges", out)
 
 
 class _CountedRange:
     """One entry of a range under an open trace: the profiler range as
-    with none open, and its host seconds, call, drain and systems
+    with none open, and its host seconds, call, drain and counts
     counted."""
 
     __slots__ = ("_rf", "_row", "_device", "_t0")
 
     def __init__(self, name: str, device: torch.device, totals: RangeTotals,
-                 systems: int | None = None):
+                 counts: dict):
         self._rf = torch.profiler.record_function(name)
         row = totals.totals.get(name)
         if row is None:
-            row = totals.totals[name] = [0.0, 0, 0, None]
-        if systems is not None:
-            row[3] = (row[3] or 0) + systems
+            row = totals.totals[name] = [0.0, 0, 0, {}]
+        for key, n in counts.items():
+            row[3][key] = row[3].get(key, 0) + n
         self._row = row
         self._device = device if device.type == "cuda" else None
         if self._device is not None:
@@ -566,25 +580,43 @@ class _CountedRange:
         return self._rf.__exit__(*exc)
 
 
-def _range(name: str, device: torch.device, systems: int | None = None):
+def _range(name: str, device: torch.device, **counts: int):
     """The profiler range ``name`` (what ``torch.profiler`` and the
     benchmark's range metrics see, trace or not), counted in the current
-    trace's :class:`RangeTotals` when a trace is open; ``systems``, the
-    rows a solve takes, summed from shapes on the host."""
+    trace's :class:`RangeTotals` when a trace is open; ``counts``, of
+    :data:`RANGE_COUNTS` (the rows a solve takes, the slots a
+    gather-Gramian sums), summed from shapes on the host."""
     totals = tracing.trace_state("als.ranges", RangeTotals)
     if totals is None:
         return torch.profiler.record_function(name)
-    return _CountedRange(name, device, totals, systems)
+    return _CountedRange(name, device, totals, counts)
 
 
 def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
     """Per-row normal-equation pieces ``(A [R,k,k], b [R,k], count [R])``
-    for one dense slab: the k-minor gather ``y[idx]`` then two batched
-    products. ``y`` arrives already cast to ``compute``, so the gather
-    moves low-precision bytes; the gathered rows (and the weights,
-    rounded to ``compute`` as the JAX package rounds them) are upcast
-    to float32 before any product, where a product of two bf16 values is
-    exact, so only the summation order differs from the JAX package."""
+    for one dense slab, in the ``als/gather_gramian`` range (its
+    ``slots``, ``R·W``, counted under an open trace). ``y`` arrives
+    already cast to ``compute``. A CUDA ``y`` launches the kernel
+    (:func:`_slab_stats_kernel`, or raises); a CPU ``y`` takes the plain
+    version (:func:`_slab_stats_plain`)."""
+    if y.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"_slab_stats runs on cuda or cpu, not {y.device}")
+    with _range("als/gather_gramian", y.device, slots=idx.numel()):
+        if y.device.type == "cuda":
+            return _slab_stats_kernel(y, idx, weights, valid, implicit,
+                                      alpha, compute)
+        return _slab_stats_plain(y, idx, weights, valid, implicit, alpha,
+                                 compute)
+
+
+def _slab_stats_plain(y, idx, weights, valid, implicit, alpha,
+                      compute=None):
+    """The plain version: the k-minor gather ``y[idx]`` then two batched
+    products. The gather moves ``compute``'s bytes; the gathered rows
+    (and the weights, rounded to ``compute`` as the JAX package rounds
+    them) are upcast to float32 before any product, where a product of
+    two bf16 values is exact, so only the summation order differs from
+    the JAX package."""
     mask = valid  # a real 0-valued explicit rating still counts
     if implicit:
         aw = alpha * weights * mask          # C − I (zero on padding)
@@ -596,11 +628,82 @@ def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
         aw = aw.to(compute).float()
         bw = bw.to(compute).float()
     r, w = idx.shape
-    with _range("als/gather_gramian", y.device):
-        yg = y.index_select(0, idx.reshape(-1)).view(r, w, -1).float()
-        a = torch.bmm((yg * aw.unsqueeze(-1)).transpose(1, 2), yg)
-        b = torch.bmm(bw.unsqueeze(1), yg).squeeze(1)
+    yg = y.index_select(0, idx.reshape(-1)).view(r, w, -1).float()
+    a = torch.bmm((yg * aw.unsqueeze(-1)).transpose(1, 2), yg)
+    b = torch.bmm(bw.unsqueeze(1), yg).squeeze(1)
     return a, b, mask.sum(dim=1)
+
+
+#: launches of the gather-Gramian kernel (``csrc/als_gramian.cu``): one
+#: per :func:`_slab_stats` call on a CUDA tensor, and nowhere else
+GRAMIAN_LAUNCHES = 0
+_gramian_lock = threading.Lock()
+
+
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """Elements from one row of a 2-d ``t`` to the next; each row must be
+    contiguous."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"_slab_stats: {name} must be 2-d with contiguous "
+                         f"rows, got {list(t.shape)} strides {t.stride()}")
+    return t.stride(0)
+
+
+def _slab_stats_kernel(y, idx, weights, valid, implicit, alpha, compute):
+    """One launch of ``csrc/als_gramian.cu`` on the current stream: the
+    three outputs are the only allocations, and nothing waits for the
+    card. ``y``'s dtype picks the load (float32 or bf16), ``k`` the
+    kernel's tile, ``implicit`` the weights; ``compute`` (bf16) rounds
+    them as the plain version does."""
+    global GRAMIAN_LAUNCHES
+    dev = y.device
+    if y.dim() != 2 or not 1 <= y.shape[1] <= SOLVE_MAX_K:
+        raise ValueError(f"_slab_stats: rank {list(y.shape)[1:]} is outside "
+                         f"the kernel's 1..{SOLVE_MAX_K}")
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"_slab_stats: y must be float32 or bfloat16, got "
+                         f"{y.dtype}")
+    if compute not in (None, torch.bfloat16):
+        raise ValueError(f"_slab_stats: compute {compute} is neither None "
+                         "nor bfloat16")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"_slab_stats: idx must be int32, got {idx.dtype}")
+    if (weights.dtype, valid.dtype) != (torch.float32, torch.float32):
+        raise ValueError("_slab_stats: weights and valid must be float32, "
+                         f"got {weights.dtype} and {valid.dtype}")
+    if idx.dim() != 2 or weights.shape != idx.shape \
+            or valid.shape != idx.shape:
+        raise ValueError("_slab_stats: idx, weights and valid must share one "
+                         f"[R, W] shape, got {list(idx.shape)}, "
+                         f"{list(weights.shape)} and {list(valid.shape)}")
+    for name, t in (("idx", idx), ("weights", weights), ("valid", valid)):
+        if t.device != dev:
+            raise ValueError(f"_slab_stats: {name} is on {t.device}, y on "
+                             f"{dev}")
+    sy = _row_stride(y, "y")
+    si = _row_stride(idx, "idx")
+    sw = _row_stride(weights, "weights")
+    sv = _row_stride(valid, "valid")
+    (r, w), k = idx.shape, y.shape[1]
+    a = torch.empty((r, k, k), dtype=torch.float32, device=dev)
+    b = torch.empty((r, k), dtype=torch.float32, device=dev)
+    cnt = torch.empty((r,), dtype=torch.float32, device=dev)
+    if r == 0:
+        return a, b, cnt
+    from predictionio_tpu_torch.ops import _build
+
+    rc = _build.library("als_gramian").pio_als_gramian(
+        y.data_ptr(), sy, y.shape[0], int(y.dtype == torch.bfloat16),
+        idx.data_ptr(), si, weights.data_ptr(), sw, valid.data_ptr(), sv,
+        r, w, k, alpha, int(implicit), int(compute is not None),
+        a.data_ptr(), b.data_ptr(), cnt.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ALS gather-Gramian launch failed: CUDA error "
+                           f"{rc}")
+    with _gramian_lock:
+        GRAMIAN_LAUNCHES += 1
+    return a, b, cnt
 
 
 #: launches of the batched solve kernel (``csrc/als_solve.cu``): one per

@@ -54,7 +54,7 @@ def _counters() -> dict:
     out = {}
     for family, data in get_registry().to_dict().items():
         if family.startswith(("pio_als_range_", "pio_als_stream_",
-                              "pio_als_solve_")):
+                              "pio_als_solve_", "pio_als_gramian_")):
             for sample in data["samples"]:
                 out[(family, sample["labels"].get("range"))] = \
                     sample["value"]
@@ -86,6 +86,12 @@ def _expected_systems(coo, iterations: int) -> int:
     return iterations * sum(p.n_stat_rows for p in _packs(coo))
 
 
+def _expected_slots(coo, iterations: int) -> int:
+    """Slab slots a one-device run sums: every slot of both sides' slabs
+    and heavy groups, each epoch."""
+    return iterations * sum(p.padded_nnz for p in _packs(coo))
+
+
 def test_open_trace_records_stages_and_range_counts(coo, cpu):
     before = _counters()
     tracer = tracing.Tracer()
@@ -107,11 +113,12 @@ def test_open_trace_records_stages_and_range_counts(coo, cpu):
     want = _expected_calls(coo, 3)
     assert {k: v["calls"] for k, v in ranges.items()} == want
     # nothing counts as a drain off a CUDA device; the solve counts the
-    # systems it solved
-    assert all(set(v) == {"host_s", "calls"} | (
-        {"systems"} if name == "als/solve" else set()) and v["host_s"] >= 0
-        for name, v in ranges.items())
+    # systems it solved, the gather-Gramian the slab slots it summed
+    counted = {"als/solve": {"systems"}, "als/gather_gramian": {"slots"}}
+    assert all(set(v) == {"host_s", "calls"} | counted.get(name, set())
+               and v["host_s"] >= 0 for name, v in ranges.items())
     assert ranges["als/solve"]["systems"] == _expected_systems(coo, 3)
+    assert ranges["als/gather_gramian"]["slots"] == _expected_slots(coo, 3)
     after = _counters()
     for name in want:
         key = ("pio_als_range_host_seconds_total", name)
@@ -120,6 +127,8 @@ def test_open_trace_records_stages_and_range_counts(coo, cpu):
     assert not any(k[0] == "pio_als_stream_drains_total" for k in after)
     key = ("pio_als_solve_systems_total", None)
     assert after[key] - before.get(key, 0) == _expected_systems(coo, 3)
+    key = ("pio_als_gramian_slots_total", None)
+    assert after[key] - before.get(key, 0) == _expected_slots(coo, 3)
 
     untraced = _train(cpu, coo)
     np.testing.assert_array_equal(untraced.user_factors, traced.user_factors)

@@ -22,12 +22,15 @@ the k products in order, cuBLAS in another). Indices are equal except
 where two items' plain scores tie within that tolerance, where the two
 summation orders may rank them either way; planted exact ties must come
 lower index first. ALS (``ops/als.py``) runs the same code on both
-devices but for the solve, the kernel of ``csrc/als_solve.cu`` on the
-card (held to a float64 solve, to the plain version's zeros, to its own
-bits run to run, and captured in a CUDA graph) against the plain
-version's LAPACK Cholesky on the CPU; with cuBLAS's batched products in
-another summation order, float32 factors agree within rtol 1e-3 / atol
-1e-4 after three epochs.
+devices but for the solve and the half-step statistics: on the card the
+kernels of ``csrc/als_solve.cu`` (held to a float64 solve, to the plain
+version's zeros, to its own bits run to run, and captured in a CUDA
+graph) and ``csrc/als_gramian.cu`` (held to the plain version's math in
+float64 within the worst-case error of float32 sums in slot order, to
+its own bits run to run, and, under the heavy sums, to a loop in their
+fixed order), on the CPU the plain versions' LAPACK Cholesky and
+batched products; with the statistics summed in another order, float32
+factors agree within rtol 1e-3 / atol 1e-4 after three epochs.
 With bf16 gathers each half-step rounds the factors to bf16, and two
 float32 values a last bit apart can round one bf16 step (2^-8) apart;
 through explicit mode's less well conditioned solves that grows to
@@ -314,6 +317,152 @@ def test_als_solve_keeps_the_callers_device_on_cards(cuda_device):
                                    rtol=1e-4, atol=1e-5)
 
 
+def _gramian_slab(r: int, w: int, n_y: int, k: int, seed: int, device,
+                  y_dtype=torch.float32):
+    """A slab as ``_fill_flat`` lays one out, on ``device``: row 0 all
+    padding, row 1 one slot, row 2 full, row 3 flags with holes (the
+    kernel takes any), the rest a random count of ratings and then
+    padding; ids over ``n_y`` factor rows of N(0, 1/k), values 1..5."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, w + 1, r)
+    n[:3] = (0, 1, w)
+    valid = (np.arange(w)[None, :] < n[:, None]).astype(np.float32)
+    valid[3] = rng.integers(0, 2, w)
+    idx = (rng.integers(0, n_y, (r, w)) * valid).astype(np.int32)
+    weights = (rng.integers(1, 6, (r, w)) * valid).astype(np.float32)
+    y = (rng.standard_normal((n_y, k)) / k ** .5).astype(np.float32)
+    return (torch.from_numpy(y).to(device, y_dtype),
+            *(torch.from_numpy(t).to(device) for t in (idx, weights, valid)))
+
+
+def _stats64(y, idx, weights, valid, implicit, alpha, compute):
+    """The plain version's math with float64 products and sums: the
+    weights formed (and rounded to ``compute``) in float32 as
+    ``_slab_stats_plain`` forms them, the factors widened exactly; and
+    each element's sum of its terms' magnitudes."""
+    mask = valid
+    if implicit:
+        aw, bw = alpha * weights * mask, mask + alpha * weights * mask
+    else:
+        aw, bw = mask, weights * mask
+    if compute is not None:
+        aw, bw = aw.to(compute).float(), bw.to(compute).float()
+    yg = y.float()[idx.long()].double()
+    aw, bw = aw.double(), bw.double()
+    a = torch.einsum("rw,rwi,rwj->rij", aw, yg, yg)
+    b = torch.einsum("rw,rwi->ri", bw, yg)
+    mag_a = torch.einsum("rw,rwi,rwj->rij", aw.abs(), yg.abs(), yg.abs())
+    mag_b = torch.einsum("rw,rwi->ri", bw.abs(), yg.abs())
+    return a, b, mask.double().sum(dim=1), mag_a, mag_b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("y_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("implicit", [True, False],
+                         ids=["implicit", "explicit"])
+@pytest.mark.parametrize("width", [64, 256, 1024])
+@pytest.mark.parametrize("k", [1, 7, 32, 33, 64, 100, 128])
+def test_als_gramian_kernel_matches_float64_on_card(cuda_device, k, width,
+                                                    implicit, y_dtype):
+    """The kernel against the plain version's math in float64: each
+    element of A and b within (W + 2)·2⁻²⁴ of the sum of its terms'
+    magnitudes, the worst-case error of W float32 products summed in
+    order (the kernel sums each row's slots in slot order, bmm in
+    another); the count and the all-padding row exact; A exactly
+    symmetric. Rows of 4 (k ≤ 32), 2 (k ≤ 64) or 1 a block, a ragged
+    last block; with bf16 factors the weights are rounded to bf16 as
+    the plain version rounds them. The one launch is counted."""
+    from predictionio_tpu_torch.ops import als
+
+    compute = torch.bfloat16 if y_dtype == torch.bfloat16 else None
+    y, idx, weights, valid = _gramian_slab(37, width, 3000, k, 13 + k,
+                                           cuda_device, y_dtype)
+    before = als.GRAMIAN_LAUNCHES
+    a, b, cnt = als._slab_stats(y, idx, weights, valid, implicit, 2.0,
+                                compute)
+    assert als.GRAMIAN_LAUNCHES == before + 1
+    assert (a.shape, b.shape, cnt.shape) == ((37, k, k), (37, k), (37,))
+    want_a, want_b, want_c, mag_a, mag_b = _stats64(
+        y, idx, weights, valid, implicit, 2.0, compute)
+    tol = (width + 2) * 2.0 ** -24
+    assert bool(((a.double() - want_a).abs() <= tol * mag_a).all())
+    assert bool(((b.double() - want_b).abs() <= tol * mag_b).all())
+    assert torch.equal(cnt.double(), want_c)
+    assert torch.equal(a, a.transpose(1, 2))
+    assert not a[0].any() and not b[0].any() and float(cnt[0]) == 0.0
+
+
+@pytest.mark.gpu
+def test_als_gramian_repeats_bit_for_bit_on_card(cuda_device):
+    """Two launches on the same slab give the same bits (no atomics, a
+    fixed order of every sum), in both load types."""
+    from predictionio_tpu_torch.ops import als
+
+    for y_dtype, compute in ((torch.float32, None),
+                             (torch.bfloat16, torch.bfloat16)):
+        y, idx, weights, valid = _gramian_slab(4_099, 256, 26_744, 32, 3,
+                                               cuda_device, y_dtype)
+        one = als._slab_stats(y, idx, weights, valid, True, 1.0, compute)
+        two = als._slab_stats(y, idx, weights, valid, True, 1.0, compute)
+        for p, q in zip(one, two):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_als_heavy_stats_on_card_are_the_loop_in_heavy_order(cuda_device,
+                                                             compute):
+    """``_heavy_stats`` on the card against a Python loop over each
+    group's sub-rows, the kernel's stats of each, summed pairwise in its
+    :class:`HeavyOrder` (padded to a power of two, level by level) and
+    added into the owner's slot group after group: the same bits."""
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(17)
+    rows = rng.integers(0, 200, 8000).astype(np.int32)
+    cols = (rng.zipf(1.3, 8000) % 90).astype(np.int32)
+    vals = rng.integers(1, 6, 8000).astype(np.float32)
+    packed = als.build_bucketed(cols, rows, vals, 90, block_len=8, s_max=2,
+                                max_slab_slots=512)
+    n_regular = sum(s.idx.shape[0] for s in packed.slabs)
+    n_heavy = packed.n_stat_rows - n_regular
+    assert len(packed.heavy) > 1 and n_heavy > 1
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+
+    groups = [(put(h.idx), put(h.weights), put(h.valid),
+               als.heavy_order(owner, n_regular, cuda_device))
+              for h, owner in zip(packed.heavy, packed.heavy_owner_pos)]
+    y = torch.from_numpy((rng.standard_normal((200, 16)) / 4).astype(
+        np.float32)).to(cuda_device)
+    if compute is not None:
+        y = y.to(compute)
+    for implicit in (True, False):
+        got = als._heavy_stats(y, groups, n_heavy, implicit, 1.5, compute)
+        k = y.shape[1]
+        acc = torch.zeros((n_heavy, k * k + k + 1), device=cuda_device)
+        for idx, weights, valid, order in groups:
+            ga, gb, gc = als._slab_stats(y, idx, weights, valid, implicit,
+                                         1.5, compute)
+            g = torch.cat([ga.reshape(len(gc), -1), gb, gc[:, None]], dim=1)
+            g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+            for slots, members, width in order.buckets:
+                members = members.view(len(slots), width).tolist()
+                for slot, sub in zip(slots.tolist(), members):
+                    level = [g[m] for m in sub]
+                    while len(level) > 1:
+                        level = [level[i] + level[i + 1]
+                                 for i in range(0, len(level), 2)]
+                    acc[slot] = acc[slot] + level[0]
+        want = (acc[:, :k * k].reshape(n_heavy, k, k), acc[:, k * k:-1],
+                acc[:, -1])
+        for p, q in zip(got, want):
+            assert torch.equal(p, q)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("compute", [None, "bfloat16"], ids=["f32", "bf16"])
 @pytest.mark.parametrize("implicit", [True, False],
@@ -331,8 +480,10 @@ def test_als_on_card_matches_cpu(cuda_device, implicit, compute):
               compute_dtype=compute, max_slab_slots=512)
     want = als.train_als(ComputeContext.create(device="cpu"), rows, cols,
                          vals, 300, 120, **kw)
+    before = als.GRAMIAN_LAUNCHES
     got = als.train_als(ComputeContext.create(device=cuda_device), rows,
                         cols, vals, 300, 120, return_layout="device", **kw)
+    assert als.GRAMIAN_LAUNCHES > before  # the statistics on the kernel
     assert got.item_factors.device.type == "cuda"
     for g, w in ((got.user_factors, want.user_factors),
                  (got.item_factors, want.item_factors)):
