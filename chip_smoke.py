@@ -425,6 +425,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def topk_launches(since: dict | None = None) -> dict:
+    """The fused top-k kernel's launches per form, read from the port's
+    launch table (``ops._build.LAUNCHES``), less the counts in
+    ``since``."""
+    from predictionio_tpu_torch.ops import _build
+
+    since = since or {}
+    return {f: _build.LAUNCHES[f"fused_topk.{f}"] - since.get(f, 0)
+            for f in FORMS}
+
+
 #: where this script's child processes keep their bytecode
 PYCACHE = os.path.join(ROOT, "build", "pycache")
 #: what a console child imports before its verb's work
@@ -717,7 +728,7 @@ def serve_and_check(storage, model, table_f32, quantize: str, device,
         assert status["warmed"] is True, status
         if ctx is not None:
             assert status["modelSharded"] == (ctx.model_parallelism > 1)
-        after_warmup = fused_topk.LAUNCHES[form]
+        after_warmup = topk_launches()[form]
         seq, conc, batch = query_plan(n_users, n_items, seed)
         answers, lat = [], []
         for q in seq:
@@ -731,7 +742,7 @@ def serve_and_check(storage, model, table_f32, quantize: str, device,
         out, batch_s = _post(base, "/batch/queries.json", batch)
         assert all(r["status"] == 200 for r in out), out[:3]
         answers += [(q, r["prediction"]) for q, r in zip(batch, out)]
-        launched = fused_topk.LAUNCHES[form] - after_warmup
+        launched = topk_launches()[form] - after_warmup
         assert launched > 0, f"{form}: no kernel launch while serving"
     finally:
         es.close()
@@ -1054,7 +1065,7 @@ def epoch_bound(packed_u, packed_i, n_users: int, n_items: int,
 def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     """One ALS run through ``train_als`` at full width, its residual
     checks, then the epoch timed and profiled on the same geometry."""
-    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import _build, als
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
     rows, cols, vals = data
@@ -1119,8 +1130,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     solves = sum(len(p.slabs) + (p.n_stat_rows > sum(
         s.idx.shape[0] for s in p.slabs)) for p in (packed_u, packed_i))
     stats = sum(len(p.slabs) + len(p.heavy) for p in (packed_u, packed_i))
-    launched = als.SOLVE_LAUNCHES
-    gramians = als.GRAMIAN_LAUNCHES
+    launched = _build.LAUNCHES["als_solve"]
+    gramians = _build.LAUNCHES["als_gramian"]
     epoch_ms = []
     for _ in range(TRAIN_EPOCHS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1130,8 +1141,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         stop.record()
         epoch_ms.append((start, stop))
     torch.cuda.synchronize()
-    launched = als.SOLVE_LAUNCHES - launched
-    gramians = als.GRAMIAN_LAUNCHES - gramians
+    launched = _build.LAUNCHES["als_solve"] - launched
+    gramians = _build.LAUNCHES["als_gramian"] - gramians
     assert launched == TRAIN_EPOCHS * solves, (
         f"{compute}: {launched} solve launches in {TRAIN_EPOCHS} epochs, "
         f"not {solves} an epoch")
@@ -1332,7 +1343,6 @@ def train_and_serve(device, storage, app_name: str, engine_id: str,
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.engine_server import (
         create_engine_server,
@@ -1363,7 +1373,7 @@ def train_and_serve(device, storage, app_name: str, engine_id: str,
     assert np.isfinite(model.item_factors).all()
     assert np.isfinite(model.user_factors).all()
 
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     es, http = create_engine_server(
         engine, params, engine_id, host="127.0.0.1", port=0,
         storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
@@ -1391,7 +1401,7 @@ def train_and_serve(device, storage, app_name: str, engine_id: str,
         answers += [(q, r["prediction"]) for q, r in zip(batch, out)]
     finally:
         es.close()
-    launches = dict(fused_topk.LAUNCHES)
+    launches = topk_launches(topk0)
     assert launches["f32"] > 0, "the trained model served without the kernel"
 
     n_checked, n_ties, max_err = check_answers(answers, model, device)
@@ -1817,7 +1827,6 @@ def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
     grid = eval_grid(app_name)
@@ -1834,7 +1843,7 @@ def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
         return real_find(*args, **kwargs)
 
     events.find = counting_find
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     set_storage(storage)
     try:
         t0 = time.perf_counter()
@@ -1845,7 +1854,7 @@ def eval_phase(device, storage, app_name: str, out_dir: str) -> dict:
     finally:
         set_storage(None)
         del events.find
-    launches = dict(fused_topk.LAUNCHES)
+    launches = topk_launches(topk0)
     instance = storage.get_meta_data_evaluation_instances().get(iid)
     assert instance.status == "EVALCOMPLETED", instance.status
     with open(best_path) as f:
@@ -2119,7 +2128,7 @@ def similar_phase(device, store_dir: str, seed: int) -> dict:
         assert np.isfinite(m.item_factors).all()
 
     queries = similar_queries(view.item_map.keys(), seed)
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     es, http = create_engine_server(
         engine, params, "chip-smoke-similar", host="127.0.0.1", port=0,
         storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
@@ -2134,7 +2143,7 @@ def similar_phase(device, store_dir: str, seed: int) -> dict:
             lat.append(s)
     finally:
         es.close()
-    launches = dict(fused_topk.LAUNCHES)
+    launches = topk_launches(topk0)
     # one launch an algorithm for every query naming a known item
     assert launches["f32"] == 2 * (len(queries) - 1), launches
 
@@ -2468,7 +2477,7 @@ def ecommerce_phase(device, tmpdir: str, seed: int) -> dict:
     assert np.isfinite(model.user_factors).all()
     queries = _ecomm_queries(model.user_map.keys(), model.item_map.keys(),
                              seed)
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     served = []
     with _Served(engine, params, "chip-ecomm", ctx, storage) as srv:
         for j, q in enumerate(queries):
@@ -2477,7 +2486,7 @@ def ecommerce_phase(device, tmpdir: str, seed: int) -> dict:
             ans = srv.query(q)
             served.append((q, ans, _rules_now(storage, app_id, q["user"])))
         p50 = srv.p50_ms()
-    launches = dict(fused_topk.LAUNCHES)
+    launches = topk_launches(topk0)
     known = sum(q["user"] in model.user_map for q in queries)
     assert launches["f32"] == known, (launches, known)
 
@@ -3317,7 +3326,6 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
     )
     from predictionio_tpu_torch.obs import get_registry
     from predictionio_tpu_torch.ops import als as als_ops
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.engine_server import (
         create_engine_server,
@@ -3465,7 +3473,7 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
 
     # 2. the resumed generation served; from here the kernel's launches
     # count for this phase
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     es, http_srv = create_engine_server(
         engine, params, TRAINER_ENGINE, host="127.0.0.1", port=0,
         storage=storage, ctx=ctx, max_batch=64, max_wait_ms=2.0,
@@ -3616,7 +3624,7 @@ def trainer_phase(device, workdir: str, seed: int) -> dict:
         sampler_stop.set()
         es.close()
         server.shutdown()
-    launches = dict(fused_topk.LAUNCHES)
+    launches = topk_launches(topk0)
     assert launches["f32"] >= 1, "phase 12 served without the kernel"
     out["launches"] = launches
 
@@ -3672,7 +3680,6 @@ def cli_child(out_path: str, argv: list) -> int:
     made are written to ``OUT`` with the exit code when ``main`` returns
     (into ``OUT/<pid>.json`` where ``OUT`` is a directory)."""
     from predictionio_tpu_torch.cli.main import main as console
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel import mesh
 
     devices = []
@@ -3684,13 +3691,13 @@ def cli_child(out_path: str, argv: list) -> int:
         return ctx
 
     mesh.ComputeContext.create = staticmethod(create)
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     rc = console(argv)
     if os.path.isdir(out_path):
         # a directory holds one file a process (phase 16's replicas)
         out_path = os.path.join(out_path, f"{os.getpid()}.json")
     with open(out_path, "w") as f:
-        json.dump({"rc": rc, "launches": dict(fused_topk.LAUNCHES),
+        json.dump({"rc": rc, "launches": topk_launches(topk0),
                    "devices": devices}, f)
     return rc
 
@@ -4376,7 +4383,6 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.canary import CanaryConfig
     from predictionio_tpu_torch.serving.engine_server import (
@@ -4394,7 +4400,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     old_grace = os.environ.get("PIO_DRAIN_GRACE_S")
     os.environ["PIO_DRAIN_GRACE_S"] = str(DRAIN_GRACE_S)
     counts, restore = _count_submits()
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     t0 = time.perf_counter()
     es, http = create_engine_server(
         engine, params, "chip-smoke", host="127.0.0.1", port=0,
@@ -4429,7 +4435,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
 
         before = _slot_totals(registry)
         counts.update(ok=0, refused=0, expired=0)
-        launches0 = dict(fused_topk.LAUNCHES)
+        launches0 = topk_launches()
         wasted0 = _family(registry, "pio_shed_wasted_dispatch_total")
         stages, results = [], []
         for i, n_threads in enumerate(SERVER_STAGES):
@@ -4450,7 +4456,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         deadline = time.perf_counter() + 30
         while True:
             after = _slot_totals(registry)
-            launched = fused_topk.LAUNCHES["f32"] - launches0["f32"]
+            launched = topk_launches()["f32"] - launches0["f32"]
             delta = {k: after[k] - before[k] for k in after}
             victims = delta["shed"] - counts["refused"]
             settled = counts["ok"] + counts["expired"] == (
@@ -4509,7 +4515,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
             return {"user": f"u{u}", "num": 10}, {
                 "X-PIO-Criticality": "critical"}, "cache"
 
-        launches0 = fused_topk.LAUNCHES["f32"]
+        launches0 = topk_launches()["f32"]
         before = _slot_totals(registry)
         cached = _closed_loop(port, CACHE_THREADS, 0.0, seed + 5,
                               cache_request, n_requests=CACHE_REQUESTS)
@@ -4522,7 +4528,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         misses = sum(1 for r in cached if r[3]["X-PIO-Cache"] == "miss")
         cache_out = {
             "requests": len(cached), "by_state": by_state, "misses": misses,
-            "launches": fused_topk.LAUNCHES["f32"] - launches0,
+            "launches": topk_launches()["f32"] - launches0,
             "launched_slots": _slot_totals(registry)["launched_slots"]
             - before["launched_slots"],
             "check": check_top10(cached, user_f, item_f),
@@ -4566,7 +4572,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
             return out_
 
         es._shadow_score = shadow_score
-        launches0 = fused_topk.LAUNCHES["f32"]
+        launches0 = topk_launches()["f32"]
         batches0 = _family(registry, "pio_batches_total")
         t0 = time.perf_counter()
         status, _seen, raw, _s = client.post("/reload", {"canary": True})
@@ -4594,7 +4600,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
             "shadow_scores": shadow_calls[0],
             "mean_divergence": mean_div,
             "served_during": len(canary_answers) + len(more),
-            "launches": fused_topk.LAUNCHES["f32"] - launches0,
+            "launches": topk_launches()["f32"] - launches0,
             "serving_batches": _family(registry, "pio_batches_total")
             - batches0,
             "check_gen2": check_top10(after_promo, user_f, item2_f),
@@ -4701,7 +4707,7 @@ def server_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         else:
             os.environ["PIO_DRAIN_GRACE_S"] = old_grace
         es.close()
-    out["launches"] = dict(fused_topk.LAUNCHES)
+    out["launches"] = topk_launches(topk0)
     return out
 
 # -- phase 15: many tenants, one card ------------------------------------------
@@ -4972,7 +4978,6 @@ def _pool_pass(device, storage, models, form: str, seed: int, budget: int,
     )
     from predictionio_tpu_torch.obs import MetricRegistry
     from predictionio_tpu_torch.obs.context import get_request_id
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.config import ServerConfig
     from predictionio_tpu_torch.serving.engine_server import (
@@ -5038,7 +5043,7 @@ def _pool_pass(device, storage, models, form: str, seed: int, budget: int,
         {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
     out: dict = {"form": name, "tls": tls is not None}
     base_alloc = alloc()
-    launches0 = dict(fused_topk.LAUNCHES)
+    launches0 = topk_launches()
     EngineServer._tenant_loader = timed_loader
     es = None
     try:
@@ -5171,7 +5176,7 @@ def _pool_pass(device, storage, models, form: str, seed: int, budget: int,
         if es is not None:
             es.close()
         pool.close()
-    out["launched"] = {f: fused_topk.LAUNCHES[f] - launches0[f]
+    out["launched"] = {f: topk_launches()[f] - launches0[f]
                        for f in FORMS}
     assert out["launched"][name] > 0, f"{name}: no launch while pooled"
     out["alloc_after_close"] = alloc() - base_alloc
@@ -5333,7 +5338,6 @@ def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
                n_items: int = N_ITEMS) -> dict:
     """Phase 15: many tenants on one card (JAX scripts/serving_bench.py
     --density and scripts/density_smoke.py, over HTTP)."""
-    from predictionio_tpu_torch.ops import fused_topk
 
     out: dict = {"tenants": POOL_TENANTS}
     storage = _pool_storage(workdir)
@@ -5347,7 +5351,7 @@ def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     budget = int(POOL_BUDGET_TENANTS * f32_bytes)
     out["budget_bytes"] = budget
     tls_files = _make_cert(workdir)
-    fused_topk.reset_launch_counts()
+    topk0 = topk_launches()
     passes = {}
     for form in ("", "bf16", "int8"):
         t_pass = time.perf_counter()
@@ -5370,7 +5374,7 @@ def pool_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     assert passes["int8"]["tenants_resident"] >= (
         2 * passes["f32"]["tenants_resident"]), passes
     out["feedback"] = _feedback_check(device, storage, models["t1"], seed)
-    out["launches"] = dict(fused_topk.LAUNCHES)
+    out["launches"] = topk_launches(topk0)
     if device.type == "cuda":
         out["card_total_bytes"] = torch.cuda.mem_get_info(device)[1]
     return out
@@ -6821,7 +6825,6 @@ def _wide(storage, tag: str, model, blob: bytes, iid: str, device,
     from predictionio_tpu_torch.models.recommendation import (
         recommendation_engine,
     )
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.engine_server import (
         create_engine_server,
@@ -6846,7 +6849,6 @@ def _wide(storage, tag: str, model, blob: bytes, iid: str, device,
            "table_bytes": model.user_factors.nbytes
            + model.item_factors.nbytes,
            "put_mb_s": mb / put_s, "get_mb_s": mb / get_s}
-    fused_topk.reset_launch_counts()
     t0 = time.perf_counter()
     es, http = create_engine_server(
         engine, params, STORE_WIDE_ENGINE, host="127.0.0.1", port=0,
@@ -6892,7 +6894,6 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         MiniMySQLServer,
     )
     from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
-    from predictionio_tpu_torch.ops import fused_topk
 
     dev = [] if device.type == "cuda" else ["--device", device.type]
     want_device = str(torch.device(device.type, 0) if device.type == "cuda"
@@ -6953,12 +6954,13 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         iid = _wide_instance(pg, dt.datetime.now(dt.timezone.utc))
         blob = serialize_models(iid, [ALSAlgorithm()], [model])
         server_pid = _daemon_pids(base_a)["minipg"]
+        topk0 = topk_launches()
         with _RssPeak([os.getpid(), server_pid]) as rss:
             wide = {"pg": _wide(pg, "minipg", model, blob, iid, device,
                                 seed)}
         wide["pg"].pop("server")[0].close()
         for form in FORMS:
-            launches[form] += fused_topk.LAUNCHES[form]
+            launches[form] += topk_launches(topk0)[form]
         wide["pg"]["server_peak_rss_mb"] = rss.peaks[server_pid]
         wide["pg"]["this_peak_rss_mb"] = rss.peaks[os.getpid()]
         text = console.run("a_stop_all", ["stop-all"])
@@ -7074,6 +7076,7 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         iid = _wide_instance(hs, dt.datetime.now(dt.timezone.utc))
         blob = serialize_models(iid, [ALSAlgorithm()], [model])
         server_pid = _daemon_pids(base_c)["storeserver"]
+        topk0 = topk_launches()
         with _RssPeak([os.getpid(), server_pid]) as rss:
             wide["http"] = _wide(hs, "storeserver", model, blob, iid,
                                  device, seed)
@@ -7112,7 +7115,7 @@ def store_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         servers.remove(es.close)
         es.close()
         for form in FORMS:
-            launches[form] += fused_topk.LAUNCHES[form]
+            launches[form] += topk_launches(topk0)[form]
         out["d"] = wide
         log(f"store (d) {json.dumps(wide)}")
 
@@ -7295,7 +7298,6 @@ def replicated_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
     )
     from predictionio_tpu_torch.obs import timeline as timeline_mod
     from predictionio_tpu_torch.obs.timeline import merge_timelines
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
     from predictionio_tpu_torch.serving.engine_server import (
         create_engine_server,
@@ -7496,7 +7498,7 @@ def replicated_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
             params = engine.params_from_variant({
                 "datasource": {"params": {"app_name": "unused"}},
                 "algorithms": [{"name": "als", "params": {}}]})
-            fused_topk.reset_launch_counts()
+            topk0 = topk_launches()
             t0 = time.perf_counter()
             wide_es, wide_http = create_engine_server(
                 engine, params, STORE_WIDE_ENGINE, host="127.0.0.1", port=0,
@@ -7517,7 +7519,7 @@ def replicated_phase(device, workdir: str, seed: int, n_users: int = N_USERS,
         finally:
             wide_es.close()
         for form in FORMS:
-            launches[form] += fused_topk.LAUNCHES[form]
+            launches[form] += topk_launches(topk0)[form]
         hints0 = clients[0].hints[clients[0].peers[0].name]
         d["hinted_for_the_dead_node"] = hints0.pending()
         assert d["hinted_for_the_dead_node"] >= 3, d  # instance, blob, manifest
@@ -7880,7 +7882,7 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
     events): phantom rows exactly zero, each model shard a 1/m row slice,
     ``check_factor_sharding`` on a probe. Returns the numbers and the
     host factors (the caller holds them to (1, 1))."""
-    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import _build, als
     from predictionio_tpu_torch.parallel.mesh import (
         ComputeContext,
         ShardedTensor,
@@ -7892,7 +7894,7 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
                                 devices=devices)
     timer = _EventTimer() if timed else None
     _sync_all(devices)
-    gramians = als.GRAMIAN_LAUNCHES
+    gramians = _build.LAUNCHES["als_gramian"]
     t0 = time.perf_counter()
     f = als.train_als(ctx, rows, cols, vals, n_users, n_items, rank=RANK,
                       iterations=MESH_EPOCHS, reg=TRAIN_REG,
@@ -7900,7 +7902,7 @@ def mesh_train(device, data, shape, devices, timed: bool = True):
                       return_layout="device")
     _sync_all(devices)
     train_s = time.perf_counter() - t0
-    gramians = als.GRAMIAN_LAUNCHES - gramians
+    gramians = _build.LAUNCHES["als_gramian"] - gramians
     assert gramians > 0, f"{shape}: the gather-Gramian never launched"
     sharded = isinstance(f.item_factors, ShardedTensor)
     m = ctx.model_parallelism
@@ -7976,10 +7978,10 @@ def mesh_serve_kernel(device, model, seed: int) -> dict:
             for b in SERVE_BATCHES:
                 g = torch.Generator(device=device).manual_seed(seed + b)
                 q = torch.randn(b, RANK, generator=g, device=device)
-                before = fused_topk.LAUNCHES[form]
+                before = topk_launches()[form]
                 got = similarity.top_k_dot(q, table, 10, mask)
                 torch.cuda.synchronize()
-                launches = fused_topk.LAUNCHES[form] - before
+                launches = topk_launches()[form] - before
                 assert launches == m, (shape, form, b, launches)
                 want = fused_topk.fused_top_k_dot_reference(q, items, 10,
                                                             None, scale)
@@ -8154,7 +8156,6 @@ def mesh_phase(device, workdir: str, seed: int) -> dict:
     at phase 4's width, (c) after it, the process boundary over NCCL. Returns the numbers and the
     main path's launches: (b)'s deployed server and its
     ``create_engine_server`` runs on a (1, 2) mesh, per shard."""
-    from predictionio_tpu_torch.ops import fused_topk
     from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
     out = {"runs": [], "small": {}}
@@ -8206,12 +8207,12 @@ def mesh_phase(device, workdir: str, seed: int) -> dict:
                                     devices=[device] * SERVE_MESHES[0][1])
         out["servers"] = []
         for quantize in ("", "int8", "bf16"):
-            before = dict(fused_topk.LAUNCHES)
+            before = topk_launches()
             run = serve_and_check(storage, model, table_f32, quantize,
                                   device, seed, N_USERS, ctx=ctx)
             for form in FORMS:
                 launches[form] = launches.get(form, 0) + (
-                    fused_topk.LAUNCHES[form] - before[form])
+                    topk_launches()[form] - before[form])
             out["servers"].append(run)
             log("mesh server " + json.dumps(run))
     out["launches"] = launches
@@ -8682,13 +8683,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as store:
         storage, blob_bytes = publish(model, store)
         log(f"published generation: {blob_bytes} bytes")
-        fused_topk.reset_launch_counts()
+        topk0 = topk_launches()
         runs = [
             serve_and_check(storage, model, table_f32, quantize, device,
                             args.seed, N_USERS)
             for quantize in ("", "int8", "bf16")
         ]
-        launches = dict(fused_topk.LAUNCHES)
+        launches = topk_launches(topk0)
     for run in runs:
         log("serve " + json.dumps(run))
     for form in FORMS:

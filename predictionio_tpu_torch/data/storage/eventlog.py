@@ -8,7 +8,7 @@ COO arrays (no per-event Python objects, no host-side re-interning):
 the training read at scale.
 
 The library is the same C++ source as the JAX package's, built by the
-port's own loader (:mod:`predictionio_tpu_torch.utils.native`) into
+port's own loader (:mod:`predictionio_tpu_torch.ops._build`) into
 ``build/native/``. The on-disk format is the library's, so a log written
 by either package is read by the other.
 """
@@ -37,68 +37,10 @@ from predictionio_tpu_torch.data.storage.base import (
     EventsBackend,
     PartialBatchError,
 )
-from predictionio_tpu_torch.utils import native
+from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.utils.bimap import BiMap
 
 logger = logging.getLogger(__name__)
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _load_library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = native.load("eventlog")  # builds into build/native/
-        c = ctypes
-        lib.pio_log_open.restype = c.c_void_p
-        lib.pio_log_open.argtypes = [c.c_char_p]
-        lib.pio_log_close.argtypes = [c.c_void_p]
-        lib.pio_log_sync.restype = c.c_int  # 0 ok, -1 flush/fsync failed
-        lib.pio_log_sync.argtypes = [c.c_void_p]
-        lib.pio_intern.restype = c.c_uint32
-        lib.pio_intern.argtypes = [c.c_void_p, c.c_char_p, c.c_uint32]
-        lib.pio_dict_reload.argtypes = [c.c_void_p]
-        lib.pio_dict_size.restype = c.c_uint64
-        lib.pio_dict_size.argtypes = [c.c_void_p]
-        lib.pio_dict_get.restype = c.c_uint32
-        lib.pio_dict_get.argtypes = [
-            c.c_void_p, c.c_uint32, c.c_char_p, c.c_uint32
-        ]
-        lib.pio_append.restype = c.c_int
-        lib.pio_append.argtypes = [
-            c.c_void_p, c.c_uint8, c.c_double, c.c_double,
-            c.c_uint32, c.c_uint32, c.c_uint32, c.c_int32, c.c_int32,
-            c.c_char_p, c.c_uint32, c.c_char_p, c.c_uint32,
-        ]
-        lib.pio_scan.restype = c.c_void_p
-        lib.pio_scan.argtypes = [
-            c.c_void_p, c.c_double, c.c_double,
-            c.POINTER(c.c_uint32), c.c_uint32,
-            c.c_int64, c.c_int64, c.c_int64, c.c_int64, c.c_int,
-            c.c_char_p, c.c_uint32,
-        ]
-        for name, rtype in [
-            ("pio_result_n", c.c_uint64),
-            ("pio_result_event_time", c.POINTER(c.c_double)),
-            ("pio_result_creation_time", c.POINTER(c.c_double)),
-            ("pio_result_event", c.POINTER(c.c_uint32)),
-            ("pio_result_entity_type", c.POINTER(c.c_uint32)),
-            ("pio_result_entity_id", c.POINTER(c.c_uint32)),
-            ("pio_result_target_entity_type", c.POINTER(c.c_int32)),
-            ("pio_result_target_entity_id", c.POINTER(c.c_int32)),
-            ("pio_result_varlen", c.POINTER(c.c_uint8)),
-            ("pio_result_varlen_len", c.c_uint64),
-        ]:
-            fn = getattr(lib, name)
-            fn.restype = rtype
-            fn.argtypes = [c.c_void_p]
-        lib.pio_result_free.argtypes = [c.c_void_p]
-        _lib = lib
-        return lib
-
 
 _NAN = float("nan")
 
@@ -127,7 +69,7 @@ class _Log:
     """
 
     def __init__(self, path: str):
-        self.lib = _load_library()
+        self.lib = _build.library("eventlog")  # builds into build/native/
         os.makedirs(path, exist_ok=True)
         self.handle = self.lib.pio_log_open(path.encode())
         if not self.handle:

@@ -47,7 +47,6 @@ import dataclasses
 import logging
 import math
 import os
-import threading
 import time
 from typing import Callable
 
@@ -55,6 +54,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.obs import get_registry, tracing
+from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.parallel import distributed, partition
 from predictionio_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
@@ -62,7 +62,6 @@ from predictionio_tpu_torch.parallel.mesh import (
     ShardedTensor,
     assert_phantom_rows_zero,
 )
-from predictionio_tpu_torch.utils import native
 from predictionio_tpu_torch.utils.profiling import steps_on
 
 logger = logging.getLogger(__name__)
@@ -192,21 +191,12 @@ class Bucketed:
 
 def _load_alspack():
     """ctypes handle to the native fill pass, built on first use into
-    ``build/native/`` by :mod:`predictionio_tpu_torch.utils.native`
+    ``build/native/`` by :mod:`~predictionio_tpu_torch.ops._build`
     (which raises when the build fails); None when ``PIO_NO_NATIVE=1``
     asks for the numpy path, which gives identical arrays."""
     if os.environ.get("PIO_NO_NATIVE", "").strip() in ("1", "true"):
         return None
-    lib = native.load("alspack")
-    c = ctypes
-    lib.pio_alspack_fill.restype = None
-    lib.pio_alspack_fill.argtypes = [
-        c.POINTER(c.c_int32), c.POINTER(c.c_int32),
-        c.POINTER(c.c_float), c.c_int64, c.POINTER(c.c_int64),
-        c.POINTER(c.c_int64), c.POINTER(c.c_int32),
-        c.POINTER(c.c_float), c.POINTER(c.c_float),
-    ]
-    return lib
+    return _build.library("alspack")
 
 
 def _fill_flat(rows, cols, vals, off_of_row, total_flat, deg):
@@ -599,10 +589,9 @@ def _slab_stats(y, idx, weights, valid, implicit, alpha, compute=None):
     already cast to ``compute``. A CUDA ``y`` launches the kernel
     (:func:`_slab_stats_kernel`, or raises); a CPU ``y`` takes the plain
     version (:func:`_slab_stats_plain`)."""
-    if y.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"_slab_stats runs on cuda or cpu, not {y.device}")
+    kernel = _build.on_card("_slab_stats", y.device)
     with _range("als/gather_gramian", y.device, slots=idx.numel()):
-        if y.device.type == "cuda":
+        if kernel:
             return _slab_stats_kernel(y, idx, weights, valid, implicit,
                                       alpha, compute)
         return _slab_stats_plain(y, idx, weights, valid, implicit, alpha,
@@ -634,28 +623,12 @@ def _slab_stats_plain(y, idx, weights, valid, implicit, alpha,
     return a, b, mask.sum(dim=1)
 
 
-#: launches of the gather-Gramian kernel (``csrc/als_gramian.cu``): one
-#: per :func:`_slab_stats` call on a CUDA tensor, and nowhere else
-GRAMIAN_LAUNCHES = 0
-_gramian_lock = threading.Lock()
-
-
-def _row_stride(t: torch.Tensor, name: str) -> int:
-    """Elements from one row of a 2-d ``t`` to the next; each row must be
-    contiguous."""
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
-        raise ValueError(f"_slab_stats: {name} must be 2-d with contiguous "
-                         f"rows, got {list(t.shape)} strides {t.stride()}")
-    return t.stride(0)
-
-
 def _slab_stats_kernel(y, idx, weights, valid, implicit, alpha, compute):
     """One launch of ``csrc/als_gramian.cu`` on the current stream: the
     three outputs are the only allocations, and nothing waits for the
     card. ``y``'s dtype picks the load (float32 or bf16), ``k`` the
     kernel's tile, ``implicit`` the weights; ``compute`` (bf16) rounds
     them as the plain version does."""
-    global GRAMIAN_LAUNCHES
     dev = y.device
     if y.dim() != 2 or not 1 <= y.shape[1] <= SOLVE_MAX_K:
         raise ValueError(f"_slab_stats: rank {list(y.shape)[1:]} is outside "
@@ -680,36 +653,26 @@ def _slab_stats_kernel(y, idx, weights, valid, implicit, alpha, compute):
         if t.device != dev:
             raise ValueError(f"_slab_stats: {name} is on {t.device}, y on "
                              f"{dev}")
-    sy = _row_stride(y, "y")
-    si = _row_stride(idx, "idx")
-    sw = _row_stride(weights, "weights")
-    sv = _row_stride(valid, "valid")
+    sy = _build.lead_stride(y, "_slab_stats", "y")
+    si = _build.lead_stride(idx, "_slab_stats", "idx")
+    sw = _build.lead_stride(weights, "_slab_stats", "weights")
+    sv = _build.lead_stride(valid, "_slab_stats", "valid")
     (r, w), k = idx.shape, y.shape[1]
     a = torch.empty((r, k, k), dtype=torch.float32, device=dev)
     b = torch.empty((r, k), dtype=torch.float32, device=dev)
     cnt = torch.empty((r,), dtype=torch.float32, device=dev)
     if r == 0:
         return a, b, cnt
-    from predictionio_tpu_torch.ops import _build
-
-    rc = _build.library("als_gramian").pio_als_gramian(
+    _build.launch(
+        "als_gramian", "pio_als_gramian", dev,
         y.data_ptr(), sy, y.shape[0], int(y.dtype == torch.bfloat16),
         idx.data_ptr(), si, weights.data_ptr(), sw, valid.data_ptr(), sv,
         r, w, k, alpha, int(implicit), int(compute is not None),
-        a.data_ptr(), b.data_ptr(), cnt.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ALS gather-Gramian launch failed: CUDA error "
-                           f"{rc}")
-    with _gramian_lock:
-        GRAMIAN_LAUNCHES += 1
+        a.data_ptr(), b.data_ptr(), cnt.data_ptr(), dev.index)
+    _build.count("als_gramian")
     return a, b, cnt
 
 
-#: launches of the batched solve kernel (``csrc/als_solve.cu``): one per
-#: :func:`_solve` call on a CUDA tensor, and nowhere else
-SOLVE_LAUNCHES = 0
-_solve_lock = threading.Lock()
 #: the largest rank the kernel solves (its tiles hold K = 32, 64 or 128)
 SOLVE_MAX_K = 128
 
@@ -723,11 +686,10 @@ def _solve(a, b, cnt, yty, lam, implicit):
     element of ``x`` becomes zero. A CUDA tensor launches the kernel
     (:func:`_solve_kernel`, or raises); a CPU tensor takes the plain
     version (:func:`_solve_plain`)."""
+    kernel = _build.on_card("_solve", a.device)
     with _range("als/solve", a.device, systems=a.shape[0]):
-        if a.device.type == "cuda":
+        if kernel:
             return _solve_kernel(a, b, cnt, yty, lam, implicit)
-        if a.device.type != "cpu":
-            raise ValueError(f"_solve runs on cuda or cpu, not {a.device}")
         return _solve_plain(a, b, cnt, yty, lam, implicit)
 
 
@@ -750,30 +712,11 @@ def _solve_plain(a, b, cnt, yty, lam, implicit):
                                           device=x.device))
 
 
-def _system_stride(t: torch.Tensor, name: str, shape: tuple,
-                   device: torch.device) -> int:
-    """Floats from one system of ``t`` to the next; each system must be
-    float32 and contiguous (a heavy slot's view of its packed row is:
-    only the stride between systems differs). Read from the strides
-    alone, with no tensor made: this runs on every launch."""
-    if t.dtype != torch.float32 or t.shape != shape or t.device != device:
-        raise ValueError(
-            f"_solve: {name} must be {list(shape)} float32 on {device}, "
-            f"got {list(t.shape)} {t.dtype} on {t.device}")
-    strides = t.stride()
-    want = 1
-    for dim in range(len(shape) - 1, 0, -1):
-        if shape[dim] > 1 and strides[dim] != want:
-            raise ValueError(f"_solve: each system of {name} must be "
-                             f"contiguous, got strides {strides}")
-        want *= shape[dim]
-    return strides[0]
-
-
 def _solve_kernel(a, b, cnt, yty, lam, implicit):
     """One launch of ``csrc/als_solve.cu`` on the current stream: the
-    output is the one allocation, and nothing waits for the card."""
-    global SOLVE_LAUNCHES
+    output is the one allocation, and nothing waits for the card. Each
+    system must be float32 and contiguous (a heavy slot's view of its
+    packed row is: only the stride between systems differs)."""
     dev = a.device
     r, k = a.shape[0], a.shape[-1]
     if not 1 <= k <= SOLVE_MAX_K:
@@ -782,24 +725,25 @@ def _solve_kernel(a, b, cnt, yty, lam, implicit):
     x = torch.empty((r, k), dtype=torch.float32, device=dev)
     if r == 0:
         return x
-    sa = _system_stride(a, "a", (r, k, k), dev)
-    sb = _system_stride(b, "b", (r, k), dev)
-    sc = _system_stride(cnt, "cnt", (r,), dev)
+    for name, t, shape in (("a", a, (r, k, k)), ("b", b, (r, k)),
+                           ("cnt", cnt, (r,))):
+        if t.dtype != torch.float32 or t.shape != shape or t.device != dev:
+            raise ValueError(
+                f"_solve: {name} must be {list(shape)} float32 on {dev}, "
+                f"got {list(t.shape)} {t.dtype} on {t.device}")
+    sa = _build.lead_stride(a, "_solve", "a")
+    sb = _build.lead_stride(b, "_solve", "b")
+    sc = _build.lead_stride(cnt, "_solve", "cnt")
     if implicit and (yty.dtype != torch.float32 or yty.shape != (k, k)
                      or yty.device != dev or not yty.is_contiguous()):
         raise ValueError(f"_solve: yty must be a contiguous [{k}, {k}] "
                          f"float32 tensor on {dev}")
-    from predictionio_tpu_torch.ops import _build
-
-    rc = _build.library("als_solve").pio_als_solve(
+    _build.launch(
+        "als_solve", "pio_als_solve", dev,
         a.data_ptr(), sa, b.data_ptr(), sb, cnt.data_ptr(), sc,
         yty.data_ptr() if implicit else None, lam, int(implicit),
-        x.data_ptr(), r, k, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ALS solve launch failed: CUDA error {rc}")
-    with _solve_lock:
-        SOLVE_LAUNCHES += 1
+        x.data_ptr(), r, k, dev.index)
+    _build.count("als_solve")
     return x
 
 

@@ -27,23 +27,20 @@ is 128 MiB for float32 and 4.3 GFLOP at B = 64.
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import torch
 
+from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     ShardedTensor,
 )
 
-#: per-form launch counts on the CUDA path: one per wrapper call that
-#: launches the kernel, and nowhere else
-LAUNCHES = {"f32": 0, "bf16": 0, "int8": 0}
-_launches_lock = threading.Lock()
-
 _FORMS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 _DTYPE_CODE = {"f32": 0, "bf16": 1, "int8": 2}
+#: each form's row of the launch table (``_build.LAUNCHES``)
+_LAUNCH_KEY = {form: f"fused_topk.{form}" for form in _DTYPE_CODE}
 #: the most a kernel round ranks (its lists live in shared memory); a
 #: larger ``num`` runs further rounds
 NUM_CAP = 1024
@@ -66,12 +63,6 @@ SMEM_LIMIT = 232_448
 #: kSmemBudget: pass 1's dynamic shared memory, so that two blocks (plus
 #: their static arrays) share one SM
 SMEM_BUDGET = 112_640
-
-
-def reset_launch_counts() -> None:
-    with _launches_lock:
-        for form in LAUNCHES:
-            LAUNCHES[form] = 0
 
 
 def _as_mask(mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -120,13 +111,9 @@ def fused_top_k_dot(
     :func:`sharded_top_k_dot`."""
     if isinstance(items, ShardedTensor):
         return sharded_top_k_dot(queries, items, num, mask, scale)
-    if queries.device.type == "cpu":
-        return fused_top_k_dot_reference(queries, items, num, mask, scale)
-    if queries.device.type != "cuda":
-        raise ValueError(
-            f"fused_top_k_dot runs on cuda or cpu, not {queries.device}"
-        )
-    return _launch(queries, items, num, mask, scale)
+    if _build.on_card("fused_top_k_dot", queries.device):
+        return _launch(queries, items, num, mask, scale)
+    return fused_top_k_dot_reference(queries, items, num, mask, scale)
 
 
 def _block_of(x, pos: int, cols: slice, rows: slice, dev):
@@ -362,10 +349,6 @@ def _launch(queries, items, num, mask, scale):
     if num <= 0 or batch == 0:
         return out_s, out_i
 
-    from predictionio_tpu_torch.ops import _build
-
-    lib = _build.library("fused_topk")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     vec = int(
         (k * items.element_size()) % 16 == 0 and items.data_ptr() % 16 == 0
@@ -379,28 +362,22 @@ def _launch(queries, items, num, mask, scale):
         plan = plan_pass1(batch, n_items, rn, k, items.element_size(), n_sms)
         partial = torch.empty((batch, plan.splits, rn), dtype=torch.int64,
                               device=dev)
-        rc = lib.pio_topk_pass1(
-            plan.qt, queries.data_ptr(), items.data_ptr(),
-            _DTYPE_CODE[form],
+        _build.launch(
+            "fused_topk", "pio_topk_pass1", dev,
+            plan.qt, queries.data_ptr(), items.data_ptr(), _DTYPE_CODE[form],
             scale.data_ptr() if scale is not None else None,
             mask.data_ptr() if mask is not None else None, mask_kind,
             bound.data_ptr() if off > 0 else None, partial.data_ptr(),
             batch, n_items, k, rn, plan.region, plan.split_len, plan.splits,
-            vec, stream,
+            vec,
         )
-        if rc != 0:
-            raise RuntimeError(f"fused top-k pass 1 launch failed: CUDA "
-                               f"error {rc}")
         # pass 2 offers one chunk of kThreads keys at a time
-        rc = lib.pio_topk_pass2(
+        _build.launch(
+            "fused_topk", "pio_topk_pass2", dev,
             partial.data_ptr(), batch, plan.splits, rn,
             _pow2_at_least(rn + _THREADS),
             out_s.data_ptr(), out_i.data_ptr(), num, off,
-            bound.data_ptr() if bound is not None else None, stream,
+            bound.data_ptr() if bound is not None else None,
         )
-        if rc != 0:
-            raise RuntimeError(f"fused top-k pass 2 launch failed: CUDA "
-                               f"error {rc}")
-    with _launches_lock:
-        LAUNCHES[form] += 1
+    _build.count(_LAUNCH_KEY[form])
     return out_s, out_i

@@ -29,17 +29,11 @@ def _build_profiled():
     """The kernel library built with the phase counters."""
     from predictionio_tpu_torch.ops import _build
 
-    out = _build.BUILD_DIR / "libfused_topk_profile.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DPIO_TOPK_PROFILE",
-           "-o", str(out), str(_build.CSRC / "fused_topk.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in _build.SIGNATURES["fused_topk"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+    out = _build.compile_into(
+        _build.KERNEL_BUILD / "libfused_topk_profile.so",
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DPIO_TOPK_PROFILE"],
+        _build.source_path("fused_topk"))
+    lib = _build.declare(ctypes.CDLL(str(out)), "fused_topk")
     lib.pio_topk_phase_cycles.argtypes = [ctypes.c_void_p]
     lib.pio_topk_phase_cycles.restype = ctypes.c_int
     return lib

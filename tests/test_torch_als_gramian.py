@@ -55,9 +55,9 @@ def test_cpu_stats_are_the_plain_version_and_launch_nothing(k, implicit,
     y, idx, weights, valid = _slab(9, 64, 50, k)
     if compute is not None:
         y = y.to(compute)
-    before = als.GRAMIAN_LAUNCHES
+    before = _build.LAUNCHES["als_gramian"]
     got = als._slab_stats(y, idx, weights, valid, implicit, 2.0, compute)
-    assert als.GRAMIAN_LAUNCHES == before
+    assert _build.LAUNCHES["als_gramian"] == before
     want = als._slab_stats_plain(y, idx, weights, valid, implicit, 2.0,
                                  compute)
     for g, w in zip(got, want):
@@ -115,10 +115,10 @@ def test_what_the_kernel_does_not_take_is_refused_before_a_build(
 
     monkeypatch.setattr(_build, "library", no_build)
     y, idx, weights, valid, compute = _refused_inputs(case)
-    before = als.GRAMIAN_LAUNCHES
+    before = _build.LAUNCHES["als_gramian"]
     with pytest.raises(ValueError, match="_slab_stats"):
         als._slab_stats_kernel(y, idx, weights, valid, True, 1.0, compute)
-    assert als.GRAMIAN_LAUNCHES == before
+    assert _build.LAUNCHES["als_gramian"] == before
 
 
 def test_the_loader_declares_the_sources_c_signature():
@@ -128,7 +128,8 @@ def test_the_loader_declares_the_sources_c_signature():
     for param in params.split(","):
         ctype = re.sub(r"\s+", " ", param.strip()).rsplit(" ", 1)[0]
         want.append(C_TYPES[ctype.replace(" *", "*")])
-    assert _build.SIGNATURES["als_gramian"]["pio_als_gramian"] == want
+    assert _build.SIGNATURES["als_gramian"]["pio_als_gramian"] == (
+        ctypes.c_int, want)
     assert "als_gramian" not in _build._loaded  # nothing built on the CPU
 
 

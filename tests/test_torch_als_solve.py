@@ -41,9 +41,9 @@ def _systems(r: int, k: int, seed: int = 0):
 @pytest.mark.parametrize("k", [1, 8, 33])
 def test_cpu_solve_is_the_plain_version_and_launches_nothing(k, implicit):
     a, b, cnt, yty = _systems(50, k)
-    before = als.SOLVE_LAUNCHES
+    before = _build.LAUNCHES["als_solve"]
     got = als._solve(a, b, cnt, yty, 0.05, implicit)
-    assert als.SOLVE_LAUNCHES == before
+    assert _build.LAUNCHES["als_solve"] == before
     assert torch.equal(got, als._solve_plain(a, b, cnt, yty, 0.05, implicit))
     reg = (yty.double() + 0.05 * torch.eye(k, dtype=torch.float64)
            if implicit else
@@ -79,32 +79,34 @@ def test_a_heavy_slots_view_is_taken_as_it_lies():
     acc = torch.zeros((n, k * k + k + 1))
     a = acc[:, :k * k].reshape(n, k, k)
     b, cnt = acc[:, k * k:k * k + k], acc[:, -1]
-    dev = acc.device
-    assert als._system_stride(a, "a", (n, k, k), dev) == k * k + k + 1
-    assert als._system_stride(b, "b", (n, k), dev) == k * k + k + 1
-    assert als._system_stride(cnt, "cnt", (n,), dev) == k * k + k + 1
+    assert _build.lead_stride(a, "_solve", "a") == k * k + k + 1
+    assert _build.lead_stride(b, "_solve", "b") == k * k + k + 1
+    assert _build.lead_stride(cnt, "_solve", "cnt") == k * k + k + 1
     whole = torch.zeros((n, k, k))
-    assert als._system_stride(whole, "a", (n, k, k), dev) == k * k
+    assert _build.lead_stride(whole, "_solve", "a") == k * k
 
 
 @pytest.mark.parametrize("case", ["transposed", "float64", "shape",
                                   "device", "strided-rows"])
-def test_layouts_the_kernel_does_not_take_are_refused(case):
+def test_layouts_the_kernel_does_not_take_are_refused(case, monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "library", no_build)
     k, n = 4, 3
-    t = torch.zeros((n, k, k))
-    dev = t.device
+    a, b, cnt = torch.zeros((n, k, k)), torch.zeros((n, k)), torch.zeros(n)
     if case == "transposed":
-        t = t.transpose(1, 2)
+        a = a.transpose(1, 2)
     elif case == "float64":
-        t = t.double()
+        a = a.double()
     elif case == "shape":
-        t = torch.zeros((n, k, k + 1))
-    elif case == "device":
-        t = torch.zeros((n, k, k), device="meta")
+        a = torch.zeros((n, k, k + 1))
+    elif case == "device":  # a's device is the launch's: b is elsewhere
+        b = torch.zeros((n, k), device="meta")
     else:
-        t = torch.zeros((n, k, 2 * k))[:, :, ::2]
+        a = torch.zeros((n, k, 2 * k))[:, :, ::2]
     with pytest.raises(ValueError, match="_solve"):
-        als._system_stride(t, "a", (n, k, k), dev)
+        als._solve_kernel(a, b, cnt, torch.zeros(k, k), 0.1, True)
 
 
 def test_the_loader_declares_the_sources_c_signature():
@@ -114,7 +116,8 @@ def test_the_loader_declares_the_sources_c_signature():
     for param in params.split(","):
         ctype = re.sub(r"\s+", " ", param.strip()).rsplit(" ", 1)[0]
         want.append(C_TYPES[ctype.replace(" *", "*")])
-    assert _build.SIGNATURES["als_solve"]["pio_als_solve"] == want
+    assert _build.SIGNATURES["als_solve"]["pio_als_solve"] == (
+        ctypes.c_int, want)
     assert "als_solve" not in _build._loaded  # nothing built on the CPU
 
 

@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from predictionio_tpu_torch.ops import fused_topk
+from predictionio_tpu_torch.ops import _build, fused_topk
 from predictionio_tpu_torch.ops.quantize import quantize_factors
 
 FORMS = ("f32", "bf16", "int8")
@@ -99,10 +99,10 @@ def test_kernel_matches_plain_version_at_row_widths(cuda_device, form, k):
 def _check_against_plain(cuda_device, form, batch, k, num):
     q, items, mask, scale = _inputs(form, batch, 20_011, k, num,
                                     cuda_device)
-    before = fused_topk.LAUNCHES[form]
+    before = _build.LAUNCHES[f"fused_topk.{form}"]
     ks, ki = fused_topk.fused_top_k_dot(q, items, num, mask, scale)
     torch.cuda.synchronize()
-    assert fused_topk.LAUNCHES[form] == before + 1
+    assert _build.LAUNCHES[f"fused_topk.{form}"] == before + 1
     ps, pi = fused_topk.fused_top_k_dot_reference(q, items, num, mask,
                                                   scale)
     np.testing.assert_allclose(ks.cpu(), ps.cpu(), rtol=1e-5, atol=1e-4)
@@ -174,9 +174,9 @@ def test_als_solve_kernel_matches_float64_on_card(cuda_device, k, implicit,
     reg = (a + yty + lam * eye if implicit else
            a + (lam * cnt.clamp(min=1.0))[:, None, None] * eye)
     want = torch.linalg.solve(reg.double(), b.double())
-    before = als.SOLVE_LAUNCHES
+    before = _build.LAUNCHES["als_solve"]
     got = als._solve(a, b, cnt, yty if implicit else None, lam, implicit)
-    assert als.SOLVE_LAUNCHES == before + 1
+    assert _build.LAUNCHES["als_solve"] == before + 1
     assert got.shape == (rows, k) and got.dtype == torch.float32
     err = (got.double() - want).norm(dim=1) / want.norm(dim=1)
     assert float(err.max()) <= 1e-5 * max(1.0, k / 32), float(err.max())
@@ -262,11 +262,11 @@ def test_als_solve_captures_in_a_cuda_graph(cuda_device):
     a, b, cnt, yty = _card_systems(4_099, 32, 8, cuda_device)
     eager = als._solve(a, b, cnt, yty, 0.01, True)
     torch.cuda.synchronize()
-    before = als.SOLVE_LAUNCHES
+    before = _build.LAUNCHES["als_solve"]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         x = als._solve(a, b, cnt, yty, 0.01, True)
-    assert als.SOLVE_LAUNCHES == before + 1
+    assert _build.LAUNCHES["als_solve"] == before + 1
     x.fill_(float("nan"))
     graph.replay()
     torch.cuda.synchronize()
@@ -378,10 +378,10 @@ def test_als_gramian_kernel_matches_float64_on_card(cuda_device, k, width,
     compute = torch.bfloat16 if y_dtype == torch.bfloat16 else None
     y, idx, weights, valid = _gramian_slab(37, width, 3000, k, 13 + k,
                                            cuda_device, y_dtype)
-    before = als.GRAMIAN_LAUNCHES
+    before = _build.LAUNCHES["als_gramian"]
     a, b, cnt = als._slab_stats(y, idx, weights, valid, implicit, 2.0,
                                 compute)
-    assert als.GRAMIAN_LAUNCHES == before + 1
+    assert _build.LAUNCHES["als_gramian"] == before + 1
     assert (a.shape, b.shape, cnt.shape) == ((37, k, k), (37, k), (37,))
     want_a, want_b, want_c, mag_a, mag_b = _stats64(
         y, idx, weights, valid, implicit, 2.0, compute)
@@ -480,10 +480,11 @@ def test_als_on_card_matches_cpu(cuda_device, implicit, compute):
               compute_dtype=compute, max_slab_slots=512)
     want = als.train_als(ComputeContext.create(device="cpu"), rows, cols,
                          vals, 300, 120, **kw)
-    before = als.GRAMIAN_LAUNCHES
+    before = _build.LAUNCHES["als_gramian"]
     got = als.train_als(ComputeContext.create(device=cuda_device), rows,
                         cols, vals, 300, 120, return_layout="device", **kw)
-    assert als.GRAMIAN_LAUNCHES > before  # the statistics on the kernel
+    # the statistics on the kernel
+    assert _build.LAUNCHES["als_gramian"] > before
     assert got.item_factors.device.type == "cuda"
     for g, w in ((got.user_factors, want.user_factors),
                  (got.item_factors, want.item_factors)):
@@ -525,10 +526,10 @@ def test_similar_product_cosine_launches_on_card(cuda_device, form):
     mask = torch.zeros(5000, dtype=torch.bool, device=cuda_device)
     mask[::11] = True
     idx = np.array([3, 70, 4000, -1], np.int32)
-    before = fused_topk.LAUNCHES[form]
+    before = _build.LAUNCHES[f"fused_topk.{form}"]
     got = similarity.gather_mean_top_k_cosine(table, idx, 32, mask)
     torch.cuda.synchronize()
-    assert fused_topk.LAUNCHES[form] == before + 1
+    assert _build.LAUNCHES[f"fused_topk.{form}"] == before + 1
     assert got[0].device.type == "cuda"
     valid = torch.from_numpy(idx >= 0).to(cuda_device)
     rows = (quantize.gather_rows(table, np.clip(idx, 0, None))
@@ -563,10 +564,10 @@ def test_evaluation_sized_batch_on_card(cuda_device):
     items = torch.from_numpy(
         rng.standard_normal((5_000, 32)).astype(np.float32)).to(cuda_device)
     idx = np.pad(rng.integers(0, 20_000, 20_000), (0, 12_768))
-    before = fused_topk.LAUNCHES["f32"]
+    before = _build.LAUNCHES["fused_topk.f32"]
     got = similarity.gather_top_k_dot(users, idx, items, 16)
     torch.cuda.synchronize()
-    assert fused_topk.LAUNCHES["f32"] == before + 1
+    assert _build.LAUNCHES["fused_topk.f32"] == before + 1
     q = users[torch.from_numpy(idx).to(cuda_device)]
     want = fused_topk.fused_top_k_dot_reference(q, items, 16)
     _assert_topk_alike(q, items, None, got, want)
@@ -733,7 +734,7 @@ def test_ecommerce_predict_on_card_matches_cpu(cuda_device):
         card = algo.stage_model(ComputeContext.create(device=cuda_device),
                                 model)
         host = algo.stage_model(ComputeContext.create(device="cpu"), model)
-        before = fused_topk.LAUNCHES["f32"]
+        before = _build.LAUNCHES["fused_topk.f32"]
         for u in ("u1", "u7", "u20", "nobody"):
             got = algo.predict(card, {"user": u, "num": 16})
             want = algo.predict(host, {"user": u, "num": 16})
@@ -743,7 +744,7 @@ def test_ecommerce_predict_on_card_matches_cpu(cuda_device):
                 [e["score"] for e in got["itemScores"]],
                 [e["score"] for e in want["itemScores"]],
                 rtol=1e-5, atol=1e-4)
-        assert fused_topk.LAUNCHES["f32"] == before + 3
+        assert _build.LAUNCHES["fused_topk.f32"] == before + 3
     finally:
         set_storage(None)
 
@@ -842,7 +843,7 @@ def test_reload_serves_the_new_generation_through_the_kernel(
         iid2, model = publish(2, 5_000)
         assert post(base, "/reload", {}) == {
             "message": "reloaded", "engineInstanceId": iid2}
-        before = fused_topk.LAUNCHES["f32"]
+        before = _build.LAUNCHES["fused_topk.f32"]
         users = torch.as_tensor(model.user_factors, device=cuda_device)
         items = torch.as_tensor(model.item_factors, device=cuda_device)
         for u in (0, 5, 63):
@@ -859,7 +860,7 @@ def test_reload_serves_the_new_generation_through_the_kernel(
             np.testing.assert_allclose(
                 [e["score"] for e in ans["itemScores"]],
                 want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
-        assert fused_topk.LAUNCHES["f32"] >= before + 3
+        assert _build.LAUNCHES["fused_topk.f32"] >= before + 3
     finally:
         es.close()
 
@@ -924,7 +925,7 @@ def test_console_train_then_deploy_on_card(cuda_device, tmp_path):
         deploy = threading.Thread(target=lambda: result.append(main([
             "deploy", "--variant", str(variant), "--ip", "127.0.0.1",
             "--port", str(port)])))
-        before = fused_topk.LAUNCHES["f32"]
+        before = _build.LAUNCHES["fused_topk.f32"]
         deploy.start()
         deadline = time.monotonic() + 300
         while time.monotonic() < deadline and deploy.is_alive():
@@ -936,7 +937,7 @@ def test_console_train_then_deploy_on_card(cuda_device, tmp_path):
         users = torch.as_tensor(model.user_factors, device=cuda_device)
         items = torch.as_tensor(model.item_factors, device=cuda_device)
         try:
-            after_warmup = fused_topk.LAUNCHES["f32"]
+            after_warmup = _build.LAUNCHES["fused_topk.f32"]
             assert after_warmup > before  # the warm-up buckets
             for u in ("u0", "u7", "u499"):
                 req = urllib.request.Request(
@@ -956,7 +957,7 @@ def test_console_train_then_deploy_on_card(cuda_device, tmp_path):
                 np.testing.assert_allclose(
                     [e["score"] for e in ans["itemScores"]],
                     want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
-            assert fused_topk.LAUNCHES["f32"] >= after_warmup + 3
+            assert _build.LAUNCHES["fused_topk.f32"] >= after_warmup + 3
         finally:
             assert main(["undeploy", "--port", str(port)]) == 0
             deploy.join(timeout=60)
@@ -1087,15 +1088,15 @@ def test_one_server_cache_deadline_and_canary_on_card(cuda_device,
     http.start()
     try:
         base = f"http://127.0.0.1:{http.port}"
-        before = fused_topk.LAUNCHES["f32"]
+        before = _build.LAUNCHES["fused_topk.f32"]
         states = [post(base, "/queries.json", {"user": "u3", "num": 10})[1][
             "X-PIO-Cache"] for _ in range(3)]
         assert states == ["miss", "hit", "hit"]
-        assert fused_topk.LAUNCHES["f32"] == before + 1
+        assert _build.LAUNCHES["fused_topk.f32"] == before + 1
         status, headers, _ = post(base, "/queries.json", {"user": "u4"},
                                   {"X-PIO-Deadline": "0"})
         assert status == 504
-        assert fused_topk.LAUNCHES["f32"] == before + 1
+        assert _build.LAUNCHES["fused_topk.f32"] == before + 1
         items2 = (items * (1 + 1e-4 * rng.standard_normal(items.shape))
                   ).astype(np.float32)
         iid2 = publish(items2)
@@ -1191,7 +1192,7 @@ def test_pooled_tenants_answer_through_the_kernel(cuda_device, tmp_path,
     row_bytes = {"": 4 * k, "bf16": 2 * k, "int8": k + 4}[quantize]
     pool = ModelPool(int(1.5 * (n_users + n_items) * row_bytes))
     form = quantize or "f32"
-    before = fused_topk.LAUNCHES[form]
+    before = _build.LAUNCHES[f"fused_topk.{form}"]
     engine = recommendation_engine()
     es, http = create_engine_server(
         engine, engine.params_from_variant({}), "rec", host="127.0.0.1",
@@ -1232,7 +1233,7 @@ def test_pooled_tenants_answer_through_the_kernel(cuda_device, tmp_path,
                 [e["score"] for e in ans["itemScores"]],
                 want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
         assert pool.stats()["evictions"] >= 8
-        assert fused_topk.LAUNCHES[form] >= before + 12
+        assert _build.LAUNCHES[f"fused_topk.{form}"] >= before + 12
     finally:
         es.close()
         pool.close()
@@ -1412,7 +1413,7 @@ def test_cuda_trained_generation_through_minipg_serves_on_card(cuda_device,
             storage=reader, ctx=ctx, max_batch=8)
         http.start()
         try:
-            before = fused_topk.LAUNCHES["f32"]
+            before = _build.LAUNCHES["fused_topk.f32"]
             users = torch.as_tensor(model.user_factors, device=cuda_device)
             items = torch.as_tensor(model.item_factors, device=cuda_device)
             for u in model.user_map.keys()[:8]:
@@ -1429,7 +1430,7 @@ def test_cuda_trained_generation_through_minipg_serves_on_card(cuda_device,
                 np.testing.assert_allclose(
                     [e["score"] for e in ans["itemScores"]],
                     want_s[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
-            assert fused_topk.LAUNCHES["f32"] >= before + 8
+            assert _build.LAUNCHES["fused_topk.f32"] >= before + 8
         finally:
             es.close()
 
@@ -1502,7 +1503,7 @@ def test_a_full_width_generation_through_the_tier_serves_on_the_card(
         params = engine.params_from_variant({
             "datasource": {"params": {"app_name": "unused"}},
             "algorithms": [{"name": "als", "params": {}}]})
-        fused_topk.reset_launch_counts()
+        before = _build.LAUNCHES["fused_topk.f32"]
         es, http = create_engine_server(
             engine, params, "wide", host="127.0.0.1", port=0,
             storage=reader, ctx=ComputeContext.create(device="cuda"))
@@ -1524,7 +1525,7 @@ def test_a_full_width_generation_through_the_tier_serves_on_the_card(
                 assert i == w or abs(scores[i] - scores[w]) <= 1e-4, slot
                 assert abs(e["score"] - scores[i]) <= 1e-4 + 1e-5 * abs(
                     scores[i]), slot
-        assert fused_topk.LAUNCHES["f32"] > 0
+        assert _build.LAUNCHES["fused_topk.f32"] > before
     finally:
         if es is not None:
             es.close()
@@ -1552,11 +1553,11 @@ def test_sharded_catalog_launches_a_kernel_per_shard(cuda_device, shape,
     table = ctx.model_sharded.place(items)
     mask_s = ctx.model_sharded.place(mask)
     scale_s = None if scale is None else ctx.model_sharded.place(scale)
-    before = fused_topk.LAUNCHES[form]
+    before = _build.LAUNCHES[f"fused_topk.{form}"]
     got = fused_topk.fused_top_k_dot(q, table, 64, mask_s, scale_s)
     torch.cuda.synchronize()
     # B = 33 >= data: every (data, model) position launches once
-    assert fused_topk.LAUNCHES[form] == before + n
+    assert _build.LAUNCHES[f"fused_topk.{form}"] == before + n
     want = fused_topk.fused_top_k_dot_reference(q, items, 64, mask, scale)
     _assert_topk_alike(q, items.float(), scale, got, want)
     assert not mask[got[1].long()].any()

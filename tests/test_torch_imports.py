@@ -26,7 +26,7 @@ import torch
 
 import predictionio_tpu_torch
 import predictionio_tpu_torch.version
-from predictionio_tpu_torch.ops import fused_topk
+from predictionio_tpu_torch.ops import _build, fused_topk
 from predictionio_tpu_torch.parallel.mesh import ComputeContext
 
 PKG = pathlib.Path(predictionio_tpu_torch.__file__).parent
@@ -196,19 +196,17 @@ def test_compute_context_refuses_to_fall_back(monkeypatch):
 
 
 def test_cpu_tensor_takes_the_plain_version(monkeypatch):
-    from predictionio_tpu_torch.ops import _build
-
     def no_build(name):
         raise AssertionError("the CPU path must never build the kernel")
 
     monkeypatch.setattr(_build, "library", no_build)
-    before = dict(fused_topk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     q = torch.randn(3, 8)
     items = torch.randn(100, 8)
     got = fused_topk.fused_top_k_dot(q, items, 5)
     want = fused_topk.fused_top_k_dot_reference(q, items, 5)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert fused_topk.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_new_routes_take_the_plain_version_on_cpu(monkeypatch):
@@ -216,13 +214,13 @@ def test_new_routes_take_the_plain_version_on_cpu(monkeypatch):
     the kernel's widest query tile) never build or launch on the CPU."""
     import numpy as np
 
-    from predictionio_tpu_torch.ops import _build, quantize, similarity
+    from predictionio_tpu_torch.ops import quantize, similarity
 
     def no_build(name):
         raise AssertionError("the CPU path must never build the kernel")
 
     monkeypatch.setattr(_build, "library", no_build)
-    before = dict(fused_topk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     items = torch.randn(300, 16)
     for table in (items, quantize.quantize_factors(items, "int8"),
                   quantize.quantize_factors(items, "bf16")):
@@ -233,7 +231,7 @@ def test_new_routes_take_the_plain_version_on_cpu(monkeypatch):
     s, i = similarity.gather_top_k_dot(users, np.arange(200) % 150, items,
                                        16)
     assert s.shape == (200, 16)
-    assert fused_topk.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_other_devices_are_refused():
@@ -247,30 +245,36 @@ def test_other_devices_are_refused():
         similarity.gather_mean_top_k_cosine(items, [1, 2], 5)
 
 
-def test_build_is_keyed_by_source_and_lazy():
-    from predictionio_tpu_torch.ops import _build
-
-    path = _build.library_path("fused_topk")
-    assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libfused_topk_") and path.suffix == ".so"
-    assert "fused_topk" not in _build._loaded  # nothing built on the CPU
-    for fn, argtypes in _build.SIGNATURES["fused_topk"].items():
-        assert fn.startswith("pio_topk_pass")
-        assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
-
-
-def _builds_under_build_never_native(tmp_path, monkeypatch, name):
-    """The port's loader compiles ``native/<name>.cc`` into
-    ``build/native/`` (the JAX package's loader owns ``native/``), once,
-    and a failed build raises with the compiler's output."""
+@pytest.mark.parametrize("name", ["fused_topk", "alspack", "eventlog"])
+def test_build_is_keyed_by_source_and_lazy(tmp_path, monkeypatch, name):
+    """One loader for both kinds of source. A kernel (``csrc/*.cu``)
+    keys its library under ``build/kernels/`` by a hash, types its entry
+    points, and builds nothing on the CPU. A ``native/*.cc`` compiles
+    into ``build/native/`` (the JAX package's loader owns ``native/``),
+    once, with the compiler's report beside it and its functions typed;
+    a failed build raises with the compiler's output and leaves no
+    temporary file."""
     from predictionio_tpu_torch.ops import als
-    from predictionio_tpu_torch.utils import native
 
-    assert native.library_path(name).parent == ROOT / "build" / "native"
-    assert native.source_path(name) == ROOT / "native" / f"{name}.cc"
+    path = _build.library_path(name)
+    if name == "fused_topk":
+        assert _build.source_path(name) == PKG / "csrc" / "fused_topk.cu"
+        assert path.parent == ROOT / "build" / "kernels"
+        assert path.name.startswith("libfused_topk_")
+        assert path.suffix == ".so"
+        assert name not in _build._loaded  # nothing built on the CPU
+        for fn, (restype, argtypes) in _build.SIGNATURES[name].items():
+            assert fn.startswith("pio_topk_pass")
+            assert restype is _build.ctypes.c_int
+            assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
+        return
+    assert path.parent == ROOT / "build" / "native"
+    assert path.name.startswith(f"libpio_{name}_")
+    assert _build.source_path(name) == ROOT / "native" / f"{name}.cc"
     monkeypatch.delenv("PIO_NO_NATIVE", raising=False)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_loaded", {})
+    built = tmp_path / "build"
+    monkeypatch.setattr(_build, "NATIVE_BUILD", built)
+    monkeypatch.setattr(_build, "_loaded", {})
     outputs = []
     real_run = subprocess.run
 
@@ -278,33 +282,26 @@ def _builds_under_build_never_native(tmp_path, monkeypatch, name):
         outputs.append(pathlib.Path(cmd[cmd.index("-o") + 1]))
         return real_run(cmd, *args, **kwargs)
 
-    monkeypatch.setattr(native.subprocess, "run", recording_run)
-    lib = native.load(name)
-    assert hasattr(lib, f"pio_{name}_fill" if name == "alspack"
-                   else "pio_log_open")
-    assert outputs and all(
-        p.parent == tmp_path / "build" for p in outputs
-    )
-    assert [p.name for p in (tmp_path / "build").iterdir()] == [
-        native.library_path(name).name
-    ]
-    assert native.load(name) is lib and len(outputs) == 1
+    monkeypatch.setattr(_build.subprocess, "run", recording_run)
+    lib = _build.library(name)
+    for fn, (restype, argtypes) in _build.SIGNATURES[name].items():
+        assert getattr(lib, fn).restype is restype
+        assert list(getattr(lib, fn).argtypes) == argtypes
+    assert outputs and all(p.parent == built for p in outputs)
+    so = _build.library_path(name)
+    assert sorted(p.name for p in built.iterdir()) == [
+        so.with_suffix(".log").name, so.name]
+    assert _build.library(name) is lib and len(outputs) == 1
     if name == "alspack":
         assert als._load_alspack() is lib
         monkeypatch.setenv("PIO_NO_NATIVE", "1")
         assert als._load_alspack() is None
-    monkeypatch.setattr(native, "_loaded", {})
-    monkeypatch.setattr(native, "GXX", ("g++", "--no-such-flag"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "GXX", ("g++", "--no-such-flag"))
     with pytest.raises(RuntimeError, match="no-such-flag"):
-        native.load(name)
+        _build.library(name)
+    assert not [p for p in built.iterdir() if p.suffix == ".tmp"]
 
-
-def test_alspack_builds_under_build_never_native(tmp_path, monkeypatch):
-    _builds_under_build_never_native(tmp_path, monkeypatch, "alspack")
-
-
-def test_eventlog_builds_under_build_never_native(tmp_path, monkeypatch):
-    _builds_under_build_never_native(tmp_path, monkeypatch, "eventlog")
 
 def test_training_refuses_to_fall_back(monkeypatch):
     """With no context, training takes the CUDA device and raises
@@ -376,8 +373,6 @@ def test_a_loaded_library_never_waits_behind_another_build(monkeypatch):
     import time
     import types
 
-    from predictionio_tpu_torch.ops import _build
-
     release = threading.Event()
     building = threading.Event()
     built = []
@@ -387,7 +382,7 @@ def test_a_loaded_library_never_waits_behind_another_build(monkeypatch):
         if name == "slow":
             building.set()
             assert release.wait(30)
-        return _build.BUILD_DIR / f"lib{name}.so"
+        return _build.KERNEL_BUILD / f"lib{name}.so"
 
     class Lib:
         def __init__(self, path):
@@ -400,8 +395,8 @@ def test_a_loaded_library_never_waits_behind_another_build(monkeypatch):
     monkeypatch.setattr(_build, "build", build)
     monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
     monkeypatch.setattr(_build, "SIGNATURES", {
-        "slow": {"f": [_build.ctypes.c_int]},
-        "ready": {"g": [_build.ctypes.c_void_p]}})
+        "slow": {"f": (_build.ctypes.c_int, [_build.ctypes.c_int])},
+        "ready": {"g": (None, [_build.ctypes.c_void_p])}})
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "_build_locks", {})
     got = {}
@@ -416,6 +411,7 @@ def test_a_loaded_library_never_waits_behind_another_build(monkeypatch):
     lib = _build.library("ready")  # must not wait for slow's build
     assert time.monotonic() - start < 5
     assert lib.g.argtypes == [_build.ctypes.c_void_p]
+    assert lib.g.restype is None
     assert "slow" not in _build._loaded and second.is_alive()
     release.set()
     first.join(30)

@@ -81,6 +81,12 @@ def _mods(pkg: str) -> types.SimpleNamespace:
 
 
 MODS = {pkg: _mods(pkg) for pkg in ("jax", "port")}
+#: seconds an open breaker waits before its probe in the hinted-handoff
+#: cases: past any gap between a case's writes that leaves its result
+#: standing (a write slower than the clients' 1 s timeout changes the
+#: result first). A window shorter than a loaded host's gap half-opens
+#: between writes and adds transitions to one run's timeline.
+BREAKER_RESET_S = 2.0
 #: (client package, server package) of a run; the reference is jax/jax
 TOPOLOGIES = {"port": ("port", "port"), "port-over-jax": ("port", "jax"),
               "jax-over-port": ("jax", "port")}
@@ -95,6 +101,20 @@ def _clean_breakers():
     yield
     for mods in MODS.values():
         mods.resilience.reset_breakers()
+
+
+@pytest.fixture(autouse=True)
+def _slo_latency_past_the_cases(monkeypatch):
+    """Every store server scores each request against its SLO class's
+    latency objective (1 s for the default class) on the host's clock;
+    with the handful of requests a case makes, one request slowed past
+    it by a loaded host pages (``slo_burn_alert``) into the timeline
+    this file compares, in one run and not the other. The cases compare
+    replication, not the host's speed: each class's objective is set
+    past the clients' 5 s timeout and any case's length, so only the
+    statuses the script causes can burn a budget."""
+    for cls in ("CRITICAL", "DEFAULT", "SHEDDABLE"):
+        monkeypatch.setenv(f"PIO_SLO_{cls}_LATENCY_MS", "600000")
 
 
 class Run:
@@ -243,10 +263,24 @@ class _Recorded:
             cls.record = real
 
 
+def _zero_hint_gauges() -> None:
+    """Zero each package's ``pio_store_hints_pending`` children. The
+    gauge is keyed by host:port, and a port the OS hands out again
+    would carry an earlier run's pending count into this run's delta
+    (a client sets its peers' gauges when it starts), as the breakers
+    would carry its failures (``_clean_breakers``)."""
+    for mods in MODS.values():
+        _lag, hints, _repairs = mods.repl._register_metrics(
+            mods.registry.get_registry())
+        for _labels, child in hints.samples():
+            child.set(0.0)
+
+
 def observe(case, topology: str, base) -> dict:
     """``case(run)`` under one topology, with the timeline and metric
     deltas it caused, masked."""
     client, server = topology
+    _zero_hint_gauges()
     before_m = _metric_state()
     run = Run(client, server, base / f"{client}-{server}")
     try:
@@ -511,7 +545,7 @@ def h_recovery(run):
     recovered = run.server(port=down_port)
     import time
 
-    time.sleep(0.1)  # past PIO_BREAKER_RESET_S: the probe half-opens
+    time.sleep(BREAKER_RESET_S + 0.1)  # past the reset: the probe half-opens
     replayed = queue.drain(lambda p: rc._apply_hint(rc.peers[1], p))
     back = rc.peers[1]
     return {"queued": queued, "replayed": replayed,
@@ -577,7 +611,7 @@ HINTS = {"recovery": h_recovery, "bounded": h_bounded, "poison": h_poison,
 @pytest.mark.parametrize("topology", list(TOPOLOGIES))
 @pytest.mark.parametrize("case", list(HINTS))
 def test_hinted_handoff_alike(tmp_path, monkeypatch, case, topology):
-    monkeypatch.setenv("PIO_BREAKER_RESET_S", "0.05")
+    monkeypatch.setenv("PIO_BREAKER_RESET_S", str(BREAKER_RESET_S))
     got = check_alike(HINTS[case], topology, tmp_path)["result"]
     if case == "recovery":
         assert got["replayed"] == 3 and got["pending"] == 0
