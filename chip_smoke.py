@@ -53,7 +53,11 @@ and PyTorch built for CUDA. In order:
    call of the timed epochs must launch the gather-Gramian kernel once,
    and that kernel is timed on one epoch's slabs beside its bound and
    its plain version (``index_select`` + ``bmm``), A and b within 1e-4
-   of the plain version's, the counts equal;
+   of the plain version's, the counts equal; every heavy group owning a
+   slot must launch the heavy-add kernel once a half-step, and that
+   kernel is timed on one epoch's groups beside its bound and its plain
+   version (``cat``, gathers and strided adds), its sums the plain
+   version's bits;
 7. drives the DASE path end to end: 200,000 ``rate`` events (20,000
    users × 5,000 items, the same generator) into a memory event store,
    then (``train_and_serve``) the port's ``run_train`` on
@@ -343,7 +347,7 @@ and PyTorch built for CUDA. In order:
    (a)'s (1, 1) run as (a)'s meshes are;
 20. prints one ``{"kernels": [...]}`` line (the top-k's launches summed
    over phases 4 and 7-19; phase 16's ``--workers`` children, which the
-   package re-execs, by their ``pio_batches_total``; the solve's
+   package re-execs, by their ``pio_batches_total``; the ALS kernels'
    launches in phase 6's timed epochs, both forms of the gathers) and,
    last, the device line.
 
@@ -396,6 +400,8 @@ SOLVE_SOURCE = "predictionio_tpu_torch/csrc/als_solve.cu"
 SOLVE_FORMULATION = "predictionio_tpu/ops/als.py:_chol_solve_batched"
 GRAMIAN_SOURCE = "predictionio_tpu_torch/csrc/als_gramian.cu"
 GRAMIAN_FORMULATION = "predictionio_tpu/ops/als.py:_slab_stats"
+HEAVY_ADD_SOURCE = "predictionio_tpu_torch/csrc/als_heavy_add.cu"
+HEAVY_ADD_FORMULATION = "predictionio_tpu/ops/als.py:_assemble_and_solve"
 #: training at bench.py's "ml20m" shape (users, items, interactions)
 ML20M = (138_493, 26_744, 20_000_000)
 TRAIN_EPOCHS = 5
@@ -1122,7 +1128,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     # the epoch, timed apart (CUDA events, no wait between epochs); each
     # _solve call of an epoch (a slab's, or a side's heavy slots) is one
     # launch of the solve kernel, each _slab_stats call (a slab's, or a
-    # heavy group's) one of the gather-Gramian kernel
+    # heavy group's) one of the gather-Gramian kernel, and each heavy
+    # group's sum one of the heavy-add kernel
     step = als.make_train_step(solve_u, solve_i)
     x = torch.zeros((packed_u.n_rows_padded, RANK), device=device)
     y = items_dev.clone()
@@ -1130,8 +1137,10 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     solves = sum(len(p.slabs) + (p.n_stat_rows > sum(
         s.idx.shape[0] for s in p.slabs)) for p in (packed_u, packed_i))
     stats = sum(len(p.slabs) + len(p.heavy) for p in (packed_u, packed_i))
+    groups = heavy_groups(packed_u, packed_i)
     launched = _build.LAUNCHES["als_solve"]
     gramians = _build.LAUNCHES["als_gramian"]
+    heavy_adds = _build.LAUNCHES["als_heavy_add"]
     epoch_ms = []
     for _ in range(TRAIN_EPOCHS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1143,12 +1152,16 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
     torch.cuda.synchronize()
     launched = _build.LAUNCHES["als_solve"] - launched
     gramians = _build.LAUNCHES["als_gramian"] - gramians
+    heavy_adds = _build.LAUNCHES["als_heavy_add"] - heavy_adds
     assert launched == TRAIN_EPOCHS * solves, (
         f"{compute}: {launched} solve launches in {TRAIN_EPOCHS} epochs, "
         f"not {solves} an epoch")
     assert gramians == TRAIN_EPOCHS * stats, (
         f"{compute}: {gramians} gather-Gramian launches in {TRAIN_EPOCHS} "
         f"epochs, not {stats} an epoch")
+    assert heavy_adds == TRAIN_EPOCHS * groups, (
+        f"{compute}: {heavy_adds} heavy-add launches in {TRAIN_EPOCHS} "
+        f"epochs, not {groups} an epoch")
     epoch_ms = [a.elapsed_time(b) for a, b in epoch_ms]
     split_u = profile_half_step(solve_u, y, TRAIN_REG)
     split_i = profile_half_step(solve_i, x, TRAIN_REG)
@@ -1162,6 +1175,8 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
         "solve_launches_per_epoch": launched / TRAIN_EPOCHS,
         "gramian_launches": gramians,
         "gramian_launches_per_epoch": gramians / TRAIN_EPOCHS,
+        "heavy_add_launches": heavy_adds,
+        "heavy_add_launches_per_epoch": heavy_adds / TRAIN_EPOCHS,
         "epoch_ms": epoch_ms,
         "epoch_ms_median_2_5": median,
         "peak_bytes": peak,
@@ -1176,6 +1191,17 @@ def train_full_width(device, data, packs, compute: str, seed: int) -> dict:
                             "users": user_med},
         "residual_check_s": check_s,
     }
+
+
+def heavy_groups(*packs) -> int:
+    """The heavy groups of ``packs`` that own a heavy slot: one heavy-add
+    launch each a half-step (a group of phantom sub-rows alone launches
+    nothing)."""
+    total = 0
+    for p in packs:
+        n_regular = sum(s.idx.shape[0] for s in p.slabs)
+        total += sum(bool((o >= n_regular).any()) for o in p.heavy_owner_pos)
+    return total
 
 
 def time_solve(device, seed: int) -> dict:
@@ -1290,6 +1316,70 @@ def time_gramian(device, packs, seed: int) -> dict:
     return out
 
 
+def time_heavy_add(device, packs, seed: int) -> dict:
+    """The heavy-add kernel alone on one epoch's heavy groups at the
+    ml20m shape (``packs`` as phase 6 packs them; each group's stats
+    from the gather-Gramian kernel on float32 factors from the seed, rank
+    32, implicit), one launch a group into each side's buffer, against
+    its bound (each planned sub-row's stats row read once, and each
+    group's slots' rows of the buffer read and written once, over HBM
+    bandwidth: it adds, nothing more), and the plain version (``cat``,
+    gathers and strided adds a bucket) on the card, which must give the
+    same bits."""
+    from predictionio_tpu_torch.ops import als
+
+    k = RANK
+    cols = k * k + k + 1
+    g = torch.Generator(device=device).manual_seed(seed + 11)
+    sides, rows_read, slot_rows = [], 0, 0
+    for packed, other in ((packs[0], packs[1]), (packs[1], packs[0])):
+        y = torch.randn((other.n_rows_padded, k), generator=g,
+                        device=device) / k ** 0.5
+        n_regular = sum(s.idx.shape[0] for s in packed.slabs)
+        groups = []
+        for h, owner in zip(packed.heavy, packed.heavy_owner_pos):
+            order = als.heavy_order(owner, n_regular, device)
+            slab = [torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                    for t in (h.idx, h.weights, h.valid)]
+            groups.append((als._slab_stats_kernel(
+                y, *slab, True, TRAIN_ALPHA, None), order))
+            rows_read += int((order.members < len(owner)).sum())
+            slot_rows += order.plan.shape[0]
+        sides.append((packed.n_stat_rows - n_regular, groups))
+    accs = [torch.zeros((n, cols), device=device) for n, _ in sides]
+
+    def run(add, accs):
+        for acc, (_n, groups) in zip(accs, sides):
+            for stats, order in groups:
+                add(*stats, order, acc)
+
+    def fresh():
+        return [torch.zeros_like(acc) for acc in accs]
+
+    launches = sum(len(groups) for _n, groups in sides)
+    ms = device_ms(lambda: run(als._heavy_add_kernel, accs), 10,
+                   "als_heavy_add") or time_ms(
+        lambda: run(als._heavy_add_kernel, accs), reps=10)
+    plain_ms = time_ms(lambda: run(als._heavy_add_plain, accs), reps=3,
+                       warmup=1)
+    got, want = fresh(), fresh()
+    run(als._heavy_add_kernel, got)
+    run(als._heavy_add_plain, want)
+    for p, q in zip(got, want):
+        assert torch.equal(p, q), "heavy-add kernel against the plain version"
+    nbytes = (rows_read + 2 * slot_rows) * cols * 4
+    out = {"groups": launches, "sub_rows": rows_read, "slot_rows": slot_rows,
+           "k": k, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+           "max_rel_err": 0.0}
+    log(f"time als_heavy_add groups={launches} sub_rows={rows_read} "
+        f"slot_rows={slot_rows} k={k} kernel_ms={ms:.4f} "
+        f"bound_ms={out['bound_ms']:.4f} (bytes) plain_ms={plain_ms:.4f} "
+        f"bound_share={out['bound_ms'] / ms:.3f} bits equal to the plain "
+        f"version")
+    return out
+
+
 def train_phase(device, seed: int) -> dict:
     n_users, n_items, nnz = ML20M
     t0 = time.perf_counter()
@@ -1316,9 +1406,13 @@ def train_phase(device, seed: int) -> dict:
     out["gramian"] = time_gramian(device, packs["native"], seed)
     out["gramian"]["launches"] = sum(
         out[c]["gramian_launches"] for c in ("float32", "bfloat16"))
+    out["heavy_add"] = time_heavy_add(device, packs["native"], seed)
+    out["heavy_add"]["launches"] = sum(
+        out[c]["heavy_add_launches"] for c in ("float32", "bfloat16"))
     log(f"train launches in the timed epochs: solve "
         f"{out['solve']['launches']}, gather-Gramian "
-        f"{out['gramian']['launches']}")
+        f"{out['gramian']['launches']}, heavy-add "
+        f"{out['heavy_add']['launches']}")
     return out
 
 
@@ -8660,7 +8754,7 @@ def main() -> int:
     log(f"ephemeral ports {_ephemeral_range()}; servers listen below them")
 
     warm = cache_child_bytecode()
-    for lib in ("fused_topk", "als_solve", "als_gramian"):
+    for lib in ("fused_topk", "als_solve", "als_gramian", "als_heavy_add"):
         t0 = time.perf_counter()
         _build.library(lib)
         log(f"build {lib}: {time.perf_counter() - t0:.2f} s")
@@ -8668,7 +8762,7 @@ def main() -> int:
     assert warm.wait(timeout=CLI_TIMEOUT_S) == 0, "the bytecode warm-up failed"
     log(f"child bytecode cached in {PYCACHE} (beside the build; waited "
         f"{time.perf_counter() - t0:.2f} s more)")
-    for lib in ("fused_topk", "als_solve", "als_gramian"):
+    for lib in ("fused_topk", "als_solve", "als_gramian", "als_heavy_add"):
         report = _build.library_path(lib).with_suffix(".log")
         for line in report.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -8706,7 +8800,8 @@ def main() -> int:
     log(f"phase timings: ok ({time.perf_counter() - t_start:.1f} s)")
 
     train = train_phase(device, args.seed)
-    solve, gramian = train["solve"], train["gramian"]
+    solve, gramian, heavy_add = (train["solve"], train["gramian"],
+                                 train["heavy_add"])
     del train
     log(f"phase train: ok ({time.perf_counter() - t_start:.1f} s)")
 
@@ -8902,6 +8997,18 @@ def main() -> int:
         "plain_ms": gramian["plain_ms"],
         "bound_ms": gramian["bound_ms"],
         "bound_by": gramian["bound_by"],
+    })
+    kernels.append({
+        "name": "als_heavy_add",
+        "route": "cuda",
+        "source": HEAVY_ADD_SOURCE,
+        "replaces": HEAVY_ADD_FORMULATION,
+        "launches": heavy_add["launches"],
+        "max_rel_err": heavy_add["max_rel_err"],
+        "ms": heavy_add["ms"],
+        "plain_ms": heavy_add["plain_ms"],
+        "bound_ms": heavy_add["bound_ms"],
+        "bound_by": heavy_add["bound_by"],
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -122,14 +122,21 @@ SIGNATURES = {
             _VOIDP, _VOIDP, _INT, _VOIDP,
         ]),
     },
+    "als_heavy_add": {
+        "pio_als_heavy_add": (_INT, [
+            _VOIDP, _INT64, _VOIDP, _INT64, _VOIDP, _INT64, _INT, _INT,
+            _VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT64, _INT, _VOIDP,
+        ]),
+    },
 }
 
-#: kernel launches: one per ALS launch (``als_gramian``, ``als_solve``)
-#: and one per ``fused_top_k_dot`` call on the card, per item form
-#: (``fused_topk.f32``, ``.bf16``, ``.int8``); counted nowhere else
+#: kernel launches: one per ALS launch (``als_gramian``, ``als_heavy_add``,
+#: ``als_solve``) and one per ``fused_top_k_dot`` call on the card, per
+#: item form (``fused_topk.f32``, ``.bf16``, ``.int8``); counted nowhere
+#: else
 LAUNCHES = dict.fromkeys(
-    ("als_gramian", "als_solve", "fused_topk.f32", "fused_topk.bf16",
-     "fused_topk.int8"), 0)
+    ("als_gramian", "als_heavy_add", "als_solve", "fused_topk.f32",
+     "fused_topk.bf16", "fused_topk.int8"), 0)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _build_locks: dict[str, threading.Lock] = {}

@@ -18,7 +18,9 @@ and explicit weighted-λ ALS), in PyTorch on ``ctx``'s devices:
   + ``cholesky_solve``). Neither kernel allocates or waits. Heavy
   sub-rows add their partial stats into their owner's slot before that
   slot is solved, pairwise in a fixed order planned on the host
-  (:class:`HeavyOrder`: no atomics), so a run repeats bit for bit.
+  (:class:`HeavyOrder`: no atomics), so a run repeats bit for bit: on
+  the card one launch a group of ``csrc/als_heavy_add.cu``
+  (:func:`_heavy_stats`), on the CPU gathers and strided adds.
 * :func:`train_als` alternates the two sides for ``iterations`` epochs,
   with npz checkpoints in the JAX package's format, so a checkpoint
   written by either package resumes in the other.
@@ -756,6 +758,13 @@ def _prepare(y, compute, implicit):
     return y, (yf.T @ yf if implicit else None)
 
 
+#: the heavy-add kernel's split of a wide slot: one part per this many
+#: members of a group's widest slot, at most HEAVY_MAX_PARTS (its blocks
+#: of 32 columns × 32 parts)
+HEAVY_PART_MEMBERS = 128
+HEAVY_MAX_PARTS = 32
+
+
 @dataclasses.dataclass
 class HeavyOrder:
     """The fixed order in which one heavy group's sub-rows add into their
@@ -765,12 +774,23 @@ class HeavyOrder:
     sums, ...), and the total is added into its slot. Owners whose
     padded widths are equal form one bucket: one gather of ``[owners,
     width]`` rows and ``log2(width)`` adds, all owners at once, with no
-    atomics. A chain ``((r0+r1)+r2)+...`` would need one dependent add a
-    sub-row: up to a group's whole row count, one launch each."""
+    atomics (the CPU's plain version). A chain ``((r0+r1)+r2)+...``
+    would need one dependent add a sub-row: up to a group's whole row
+    count, one launch each. The same plan laid flat (``plan``,
+    ``members``, ``parts``) is what the card's kernel reads: one launch a
+    group."""
 
     #: per bucket: (slots [S] int64, rows [S * width] int64, width); a
     #: padding row is the group's row count, the zero row appended there
     buckets: list[tuple[torch.Tensor, torch.Tensor, int]]
+    #: [slots, 3] int32, one row a slot, bucket after bucket: (slot, padded
+    #: width, offset of its members in ``members``)
+    plan: torch.Tensor
+    #: int32: the buckets' rows laid end to end, the zero row as in them
+    members: torch.Tensor
+    #: the aligned parts the kernel splits each slot's members into, summed
+    #: side by side: one per 128 members of the widest slot, 1 to 32
+    parts: int
 
 
 def heavy_order(owner: np.ndarray, n_regular: int,
@@ -787,7 +807,7 @@ def heavy_order(owner: np.ndarray, n_regular: int,
                                     return_counts=True)
     width = 1 << np.ceil(np.log2(np.maximum(count, 1))).astype(np.int64)
     pad = len(owner)
-    buckets = []
+    buckets, sels, mats = [], [], []
     for w in np.unique(width).tolist():
         sel = np.nonzero(width == w)[0]
         mat = np.full((len(sel), w), pad, np.int64)
@@ -795,31 +815,96 @@ def heavy_order(owner: np.ndarray, n_regular: int,
             mat[i, :count[o]] = rows[start[o]:start[o] + count[o]]
         buckets.append((torch.from_numpy(slots[sel]).to(device),
                         torch.from_numpy(mat.reshape(-1)).to(device), w))
-    return HeavyOrder(buckets=buckets)
+        sels.append(sel)
+        mats.append(mat.reshape(-1))
+    sel = np.concatenate(sels) if sels else np.zeros(0, np.int64)
+    plan = np.stack([slots[sel], width[sel],
+                     np.cumsum(width[sel]) - width[sel]], axis=1)
+    members = np.concatenate(mats) if mats else np.zeros(0, np.int64)
+    widest = int(width.max()) if len(width) else 1
+    return HeavyOrder(
+        buckets=buckets,
+        plan=torch.from_numpy(plan.astype(np.int32)).to(device),
+        members=torch.from_numpy(members.astype(np.int32)).to(device),
+        parts=min(HEAVY_MAX_PARTS, max(1, widest // HEAVY_PART_MEMBERS)))
 
 
 def _heavy_stats(y, heavy_groups, n_heavy_slots, implicit, alpha, compute):
     """Heavy sub-rows' partial stats summed into their owners' slots:
-    ``(A [n_heavy_slots,k,k], b, count)``. ``heavy_groups`` are ``(idx,
-    weights, valid, order)`` with a :class:`HeavyOrder`; each slot gets
-    its sub-rows' pairwise sum group after group, with no float atomics,
-    so the sums are the same each run."""
+    ``(A [n_heavy_slots,k,k], b, count)``, views of one packed ``[S, k*k
+    + k + 1]`` float32 row a slot. ``heavy_groups`` are ``(idx, weights,
+    valid, order)`` with a :class:`HeavyOrder`; each slot gets its
+    sub-rows' pairwise sum group after group, with no float atomics, so
+    the sums are the same each run. On a CUDA ``y`` each group's sum is
+    one launch (:func:`_heavy_add_kernel`, or raises); on a CPU ``y`` the
+    plain version (:func:`_heavy_add_plain`): the same adds in the same
+    order, so the same bits."""
     k = y.shape[1]
+    kernel = _build.on_card("_heavy_stats", y.device)
     acc = torch.zeros((n_heavy_slots, k * k + k + 1), device=y.device)
     for idx, weights, valid, order in heavy_groups:
         ga, gb, gcnt = _slab_stats(y, idx, weights, valid, implicit, alpha,
                                    compute)
         with _range("als/heavy_add", y.device):
-            g = torch.cat([ga.reshape(ga.shape[0], -1), gb, gcnt[:, None]],
-                          dim=1)
-            g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
-            for slots, rows, width in order.buckets:
-                t = g.index_select(0, rows).view(len(slots), width, -1)
-                while t.shape[1] > 1:
-                    t = t[:, 0::2] + t[:, 1::2]
-                acc[slots] = acc.index_select(0, slots) + t[:, 0]
+            if kernel:
+                _heavy_add_kernel(ga, gb, gcnt, order, acc)
+            else:
+                _heavy_add_plain(ga, gb, gcnt, order, acc)
     return (acc[:, :k * k].reshape(n_heavy_slots, k, k),
             acc[:, k * k:k * k + k], acc[:, -1])
+
+
+def _heavy_add_plain(ga, gb, gcnt, order, acc):
+    """The plain version, into ``acc`` in place: the group's packed stats
+    rows and a zero row, then per bucket one gather, ``log2(width)``
+    pairwise adds of all its owners at once, and the totals added into
+    their slots."""
+    g = torch.cat([ga.reshape(ga.shape[0], -1), gb, gcnt[:, None]], dim=1)
+    g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+    for slots, rows, width in order.buckets:
+        t = g.index_select(0, rows).view(len(slots), width, -1)
+        while t.shape[1] > 1:
+            t = t[:, 0::2] + t[:, 1::2]
+        acc[slots] = acc.index_select(0, slots) + t[:, 0]
+
+
+def _heavy_add_kernel(ga, gb, gcnt, order, acc):
+    """One launch of ``csrc/als_heavy_add.cu`` on the current stream, into
+    ``acc`` in place: it reads the gather-Gramian's three outputs where
+    they lie and ``order``'s flat plan, allocates nothing and waits for
+    nothing. A group with no slot launches nothing."""
+    dev = acc.device
+    r, k = ga.shape[0], ga.shape[-1]
+    if not 1 <= k <= SOLVE_MAX_K:
+        raise ValueError(f"_heavy_stats: rank {k} is outside the kernel's "
+                         f"1..{SOLVE_MAX_K}")
+    for name, t, shape in (("ga", ga, (r, k, k)), ("gb", gb, (r, k)),
+                           ("gcnt", gcnt, (r,)),
+                           ("acc", acc, (acc.shape[0], k * k + k + 1))):
+        if t.dtype != torch.float32 or t.shape != shape or t.device != dev:
+            raise ValueError(
+                f"_heavy_stats: {name} must be {list(shape)} float32 on "
+                f"{dev}, got {list(t.shape)} {t.dtype} on {t.device}")
+    plan, members = order.plan, order.members
+    for name, t in (("plan", plan), ("members", members)):
+        if t.dtype != torch.int32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"_heavy_stats: the order's {name} must be "
+                             f"contiguous int32 on {dev}")
+    if order.parts not in (1, 2, 4, 8, 16, HEAVY_MAX_PARTS):
+        raise ValueError(f"_heavy_stats: the order's parts must be a power "
+                         f"of two up to {HEAVY_MAX_PARTS}, got {order.parts}")
+    if plan.shape[0] == 0:
+        return
+    _build.launch(
+        "als_heavy_add", "pio_als_heavy_add", dev,
+        ga.data_ptr(), _build.lead_stride(ga, "_heavy_stats", "ga"),
+        gb.data_ptr(), _build.lead_stride(gb, "_heavy_stats", "gb"),
+        gcnt.data_ptr(), _build.lead_stride(gcnt, "_heavy_stats", "gcnt"),
+        r, k, plan.data_ptr(), plan.shape[0], members.data_ptr(),
+        order.parts, acc.data_ptr(),
+        _build.lead_stride(acc, "_heavy_stats", "acc"), dev.index)
+    _build.count("als_heavy_add")
 
 
 def _regular_solve(y, yty, slab_arrays, implicit, alpha, lam, compute):

@@ -25,11 +25,13 @@ lower index first. ALS (``ops/als.py``) runs the same code on both
 devices but for the solve and the half-step statistics: on the card the
 kernels of ``csrc/als_solve.cu`` (held to a float64 solve, to the plain
 version's zeros, to its own bits run to run, and captured in a CUDA
-graph) and ``csrc/als_gramian.cu`` (held to the plain version's math in
-float64 within the worst-case error of float32 sums in slot order, to
-its own bits run to run, and, under the heavy sums, to a loop in their
-fixed order), on the CPU the plain versions' LAPACK Cholesky and
-batched products; with the statistics summed in another order, float32
+graph), ``csrc/als_gramian.cu`` (held to the plain version's math in
+float64 within the worst-case error of float32 sums in slot order, and
+to its own bits run to run) and ``csrc/als_heavy_add.cu`` (the heavy
+sums: a loop in their fixed order, bit for bit, at widths 1 to 1,024 and
+ranks 16 to 100, its own bits run to run, one launch a group and nothing
+else inside ``als/heavy_add``), on the CPU the plain versions' LAPACK
+Cholesky, batched products and strided adds; with the statistics summed in another order, float32
 factors agree within rtol 1e-3 / atol 1e-4 after three epochs.
 With bf16 gathers each half-step rounds the factors to bf16, and two
 float32 values a last bit apart can round one bf16 step (2^-8) apart;
@@ -409,58 +411,151 @@ def test_als_gramian_repeats_bit_for_bit_on_card(cuda_device):
             assert torch.equal(p, q)
 
 
+#: heavy groups for the card: per group, owners' sub-row counts (slot s
+#: owns counts[s]; padded widths 1, 2, 4, 128, 128, 8 and 1, then 4, 1
+#: and 32 on slots the first group also fills, then 1, then 1,024, 4, 1
+#: and 256, which the kernel splits into 8 parts) and phantoms
+HEAVY_GROUPS = (([1, 2, 3, 128, 65, 5, 1], 4), ([3, 1, 17], 2), ([1], 0),
+                ([700, 3, 1, 130], 3))
+HEAVY_N_REGULAR = 40
+
+
+def _card_heavy_groups(k, seed, device, y_dtype=torch.float32):
+    """``HEAVY_GROUPS`` as ``(idx, weights, valid, order)`` on ``device``:
+    sub-rows of 16 slots (flags with holes, ids over 300 factor rows of
+    N(0, 1/k)) in a seeded row order, each group planned by
+    :func:`heavy_order`; the factors; and the heavy slot count."""
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(seed)
+    groups = []
+    for counts, n_phantom in HEAVY_GROUPS:
+        owner = rng.permutation(np.concatenate(
+            [np.full(c, HEAVY_N_REGULAR + s, np.int64)
+             for s, c in enumerate(counts)]
+            + [np.zeros(n_phantom, np.int64)]))
+        real = (owner >= HEAVY_N_REGULAR)[:, None]
+        valid = (rng.random((len(owner), 16)) < 0.8) & real
+        idx = rng.integers(0, 300, valid.shape) * valid
+        weights = rng.integers(1, 6, valid.shape) * valid
+        groups.append((
+            *(torch.from_numpy(t).to(device) for t in (
+                idx.astype(np.int32), weights.astype(np.float32),
+                valid.astype(np.float32))),
+            als.heavy_order(owner, HEAVY_N_REGULAR, device)))
+    y = torch.from_numpy((rng.standard_normal((300, k)) / k ** .5).astype(
+        np.float32)).to(device, y_dtype)
+    return groups, y, len(HEAVY_GROUPS[0][0])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("compute", [None, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_als_heavy_stats_on_card_are_the_loop_in_heavy_order(cuda_device,
+@pytest.mark.parametrize("implicit", [True, False],
+                         ids=["implicit", "explicit"])
+@pytest.mark.parametrize("k", [16, 32, 100])
+def test_als_heavy_stats_on_card_are_the_loop_in_heavy_order(cuda_device, k,
+                                                             implicit,
                                                              compute):
     """``_heavy_stats`` on the card against a Python loop over each
-    group's sub-rows, the kernel's stats of each, summed pairwise in its
-    :class:`HeavyOrder` (padded to a power of two, level by level) and
-    added into the owner's slot group after group: the same bits."""
+    group's sub-rows, the gather-Gramian kernel's stats of each, summed
+    pairwise in its :class:`HeavyOrder` (padded to a power of two, level
+    by level) and added into the owner's slot group after group: the
+    same bits, at widths 1 to 1,024 (a group's slots split into 1 or 8
+    parts), over groups that share slots, one launch of the heavy-add
+    kernel a group."""
     from predictionio_tpu_torch.ops import als
 
-    rng = np.random.default_rng(17)
-    rows = rng.integers(0, 200, 8000).astype(np.int32)
-    cols = (rng.zipf(1.3, 8000) % 90).astype(np.int32)
-    vals = rng.integers(1, 6, 8000).astype(np.float32)
-    packed = als.build_bucketed(cols, rows, vals, 90, block_len=8, s_max=2,
+    y_dtype = torch.float32 if compute is None else compute
+    groups, y, n_heavy = _card_heavy_groups(k, 17 + k, cuda_device, y_dtype)
+    before = _build.LAUNCHES["als_heavy_add"]
+    got = als._heavy_stats(y, groups, n_heavy, implicit, 1.5, compute)
+    assert _build.LAUNCHES["als_heavy_add"] == before + len(groups)
+    acc = torch.zeros((n_heavy, k * k + k + 1), device=cuda_device)
+    for idx, weights, valid, order in groups:
+        ga, gb, gc = als._slab_stats(y, idx, weights, valid, implicit, 1.5,
+                                     compute)
+        g = torch.cat([ga.reshape(len(gc), -1), gb, gc[:, None]], dim=1)
+        g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        for slots, members, width in order.buckets:
+            members = members.view(len(slots), width).tolist()
+            for slot, sub in zip(slots.tolist(), members):
+                level = [g[m] for m in sub]
+                while len(level) > 1:
+                    level = [level[i] + level[i + 1]
+                             for i in range(0, len(level), 2)]
+                acc[slot] = acc[slot] + level[0]
+    want = (acc[:, :k * k].reshape(n_heavy, k, k), acc[:, k * k:-1],
+            acc[:, -1])
+    for p, q in zip(got, want):
+        assert torch.equal(p, q)
+    assert bool(acc.abs().sum() > 0)
+
+
+@pytest.mark.gpu
+def test_als_heavy_stats_repeat_bit_for_bit_on_card(cuda_device):
+    """Two runs of the heavy sums on the same groups give the same bits
+    (no atomics, a fixed order of every add)."""
+    from predictionio_tpu_torch.ops import als
+
+    groups, y, n_heavy = _card_heavy_groups(32, 5, cuda_device)
+    one = als._heavy_stats(y, groups, n_heavy, True, 1.0, None)
+    two = als._heavy_stats(y, groups, n_heavy, True, 1.0, None)
+    for p, q in zip(one, two):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_als_heavy_add_is_one_launch_a_group_a_half_step_on_card(
+        cuda_device, monkeypatch):
+    """A half-step on the card: ``LAUNCHES["als_heavy_add"]`` grows by
+    one a heavy group, and inside ``als/heavy_add`` no torch operator
+    runs, only the CUDA runtime's calls with one kernel launch; the heavy
+    slots' ``_solve`` receives views of one packed ``[S, k*k + k + 1]``
+    buffer (what ``tests/test_torch_als_solve.py`` holds the solve's
+    wrapper to)."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import ComputeContext
+
+    rng = np.random.default_rng(29)
+    rows = rng.integers(0, 300, 6000).astype(np.int32)
+    cols = (rng.zipf(1.3, 6000) % 120).astype(np.int32)
+    vals = rng.integers(1, 6, 6000).astype(np.float32)
+    packed = als.build_bucketed(cols, rows, vals, 120, block_len=8, s_max=2,
                                 max_slab_slots=512)
-    n_regular = sum(s.idx.shape[0] for s in packed.slabs)
-    n_heavy = packed.n_stat_rows - n_regular
-    assert len(packed.heavy) > 1 and n_heavy > 1
+    assert len(packed.heavy) > 1
+    ctx = ComputeContext.create(device=cuda_device)
+    solve = als.make_solve_side(ctx, packed, True, 1.0)
+    y = torch.randn((300, 16), device=cuda_device) / 4
+    solved = []
+    real = als._solve
 
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+    def spy(a, b, cnt, yty, lam, implicit):
+        solved.append((a, b, cnt))
+        return real(a, b, cnt, yty, lam, implicit)
 
-    groups = [(put(h.idx), put(h.weights), put(h.valid),
-               als.heavy_order(owner, n_regular, cuda_device))
-              for h, owner in zip(packed.heavy, packed.heavy_owner_pos)]
-    y = torch.from_numpy((rng.standard_normal((200, 16)) / 4).astype(
-        np.float32)).to(cuda_device)
-    if compute is not None:
-        y = y.to(compute)
-    for implicit in (True, False):
-        got = als._heavy_stats(y, groups, n_heavy, implicit, 1.5, compute)
-        k = y.shape[1]
-        acc = torch.zeros((n_heavy, k * k + k + 1), device=cuda_device)
-        for idx, weights, valid, order in groups:
-            ga, gb, gc = als._slab_stats(y, idx, weights, valid, implicit,
-                                         1.5, compute)
-            g = torch.cat([ga.reshape(len(gc), -1), gb, gc[:, None]], dim=1)
-            g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
-            for slots, members, width in order.buckets:
-                members = members.view(len(slots), width).tolist()
-                for slot, sub in zip(slots.tolist(), members):
-                    level = [g[m] for m in sub]
-                    while len(level) > 1:
-                        level = [level[i] + level[i + 1]
-                                 for i in range(0, len(level), 2)]
-                    acc[slot] = acc[slot] + level[0]
-        want = (acc[:, :k * k].reshape(n_heavy, k, k), acc[:, k * k:-1],
-                acc[:, -1])
-        for p, q in zip(got, want):
-            assert torch.equal(p, q)
+    monkeypatch.setattr(als, "_solve", spy)
+    before = _build.LAUNCHES["als_heavy_add"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        solve(y, 0.05)
+        solve(y, 0.05)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["als_heavy_add"] == before + 2 * len(packed.heavy)
+    ranges = [e for e in prof.events() if e.name == "als/heavy_add"]
+    assert len(ranges) == 2 * len(packed.heavy)
+    for e in ranges:
+        inside = [c.name for c in e.cpu_children]
+        assert all(n.startswith("cuda") for n in inside), inside
+        assert inside.count("cudaLaunchKernel") <= 1, inside
+    k = y.shape[1]
+    a, b, cnt = solved[-1]
+    n_heavy = packed.n_stat_rows - sum(s.idx.shape[0] for s in packed.slabs)
+    assert a.shape == (n_heavy, k, k)
+    assert a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr() \
+        == cnt.untyped_storage().data_ptr()
+    for name, t in (("a", a), ("b", b), ("cnt", cnt)):
+        assert _build.lead_stride(t, "_solve", name) == k * k + k + 1
 
 
 @pytest.mark.gpu
